@@ -1,0 +1,71 @@
+"""NN building blocks with TF-compatible numerics, on NCHW tensors.
+
+Counterpart of ``hse_facerec_tf_tpu/models/layers.py``. Weights come in
+PyTorch layouts (``params.py``). TF's SAME padding puts the odd extra pixel
+bottom/right and MaxPool pads with -inf; both are explicit ``F.pad`` calls
+here, since ``padding='same'`` and symmetric padding do not match TF.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def _same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
+    out = -(-size // s)
+    pad = max((out - 1) * s + k - size, 0)
+    return pad // 2, pad - pad // 2
+
+
+def _pad_same(x, kh: int, kw: int, stride: int, value: float = 0.0):
+    top, bottom = _same_pads(x.shape[2], kh, stride)
+    left, right = _same_pads(x.shape[3], kw, stride)
+    if top or bottom or left or right:
+        x = F.pad(x, (left, right, top, bottom), value=value)
+    return x
+
+
+def conv2d(x, weight, bias=None, *, stride: int = 1, padding: str = "SAME",
+           groups: int = 1):
+    """NCHW conv with an OIHW weight, TF-compatible SAME padding."""
+    if padding == "SAME":
+        x = _pad_same(x, weight.shape[2], weight.shape[3], stride)
+    return F.conv2d(x, weight, bias, stride=stride, groups=groups)
+
+
+def depthwise_conv2d(x, weight, bias=None, *, stride: int = 1,
+                     padding: str = "SAME"):
+    """Depthwise conv; ``weight`` is (C·mult, 1, H, W)."""
+    return conv2d(x, weight, bias, stride=stride, padding=padding,
+                  groups=x.shape[1])
+
+
+def dense(x, weight, bias=None):
+    """``x @ kernel + bias`` with ``weight`` in (out, in) layout."""
+    return F.linear(x, weight, bias)
+
+
+def prelu(x, alpha):
+    """relu(x) - alpha * relu(-x), alpha per channel (dim 1) — the frozen
+    MTCNN graph's decomposition."""
+    alpha = alpha.reshape((1, -1) + (1,) * (x.dim() - 2))
+    return torch.relu(x) - alpha * torch.relu(-x)
+
+
+def relu6(x):
+    return torch.clamp(x, 0.0, 6.0)
+
+
+def max_pool(x, k: int, stride: int, padding: str = "SAME"):
+    """TF MaxPool: SAME pads with -inf (never averages padding in)."""
+    if padding == "SAME":
+        x = _pad_same(x, k, k, stride, value=float("-inf"))
+    return F.max_pool2d(x, k, stride)
+
+
+def global_avg_pool(x):
+    """(N, C, H, W) -> (N, C)."""
+    return torch.mean(x, dim=(2, 3))

@@ -1,0 +1,95 @@
+"""Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
+
+All of ``hse_facerec_torch/csrc/*.cu`` compile into one shared library with
+a plain C interface, for Hopper (``sm_90a``), at first use. The library goes
+to ``hse_facerec_torch/_build/<hash>/``, keyed by a hash of the sources and
+flags, so an edited source rebuilds and an unchanged one loads at once.
+Nothing here falls back: a missing ``nvcc`` or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import List
+
+PACKAGE_ROOT = Path(__file__).resolve().parents[2]
+CSRC = PACKAGE_ROOT / "csrc"
+BUILD_ROOT = PACKAGE_ROOT / "_build"
+LIB_NAME = "libfacerec_kernels.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from PATH, else from ``$CUDA_HOME/bin`` (default
+    /usr/local/cuda). Raises when neither has it."""
+    cuda_bin = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin")
+    search = os.pathsep.join([os.environ.get("PATH", ""), cuda_bin])
+    nvcc = shutil.which("nvcc", path=search)
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found on PATH or in $CUDA_HOME/bin: the CUDA kernels "
+            "of hse_facerec_torch cannot be built")
+    return nvcc
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_ROOT / source_hash() / LIB_NAME
+
+
+def build(lib_path: Path) -> str:
+    """Compile every source into ``lib_path``; returns nvcc's output (the
+    ``-Xptxas -v`` register and spill report). The library appears
+    atomically, so a concurrent build never loads a half-written file."""
+    nvcc = find_nvcc()
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib_path.parent)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    os.replace(tmp, lib_path)
+    (lib_path.parent / "build.log").write_text(log)
+    return log
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built first if this source hash has no
+    build yet."""
+    lib_path = library_path()
+    if not lib_path.exists():
+        build(lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.facerec_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.facerec_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise on a nonzero cudaError_t returned by a launch function."""
+    if code:
+        msg = lib.facerec_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

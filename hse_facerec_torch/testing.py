@@ -1,0 +1,88 @@
+"""Seeded random parameters for the analyze path, numpy only.
+
+The pytrees have the reference's layouts and shapes (HWIO convs,
+(H, W, C, 1) depthwise, (in, out) dense), so the same arrays go through
+the JAX package and, via ``params.to_torch``, through the port. Used by the
+parity tests and by ``chip_smoke.py`` when the shipped weights are absent.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+from .models.mobilenet import MOBILENET_V1_BLOCKS
+
+# (name, kernel shape) per MTCNN layer with weights; shapes of the shipped
+# mtcnn.pb (hse_facerec_tf_tpu/models/mtcnn.py:9-16)
+MTCNN_SHAPES = {
+    "pnet": [("conv1", (3, 3, 3, 10)), ("conv2", (3, 3, 10, 16)),
+             ("conv3", (3, 3, 16, 32)), ("cls", (1, 1, 32, 2)),
+             ("reg", (1, 1, 32, 4))],
+    "rnet": [("conv1", (3, 3, 3, 28)), ("conv2", (3, 3, 28, 48)),
+             ("conv3", (2, 2, 48, 64)), ("fc", (576, 128)),
+             ("cls", (128, 2)), ("reg", (128, 4))],
+    "onet": [("conv1", (3, 3, 3, 32)), ("conv2", (3, 3, 32, 64)),
+             ("conv3", (3, 3, 64, 64)), ("conv4", (2, 2, 64, 128)),
+             ("fc", (1152, 256)), ("cls", (256, 2)), ("reg", (256, 4)),
+             ("lmk", (256, 10))],
+}
+# PReLU layers: the conv/fc they follow
+MTCNN_PRELUS = {
+    "pnet": ["conv1", "conv2", "conv3"],
+    "rnet": ["conv1", "conv2", "conv3", "fc"],
+    "onet": ["conv1", "conv2", "conv3", "conv4", "fc"],
+}
+
+
+def _dense(rng, shape, gain=1.0):
+    fan_in = int(np.prod(shape[:-1]))
+    return (rng.randn(*shape) * gain * np.sqrt(2.0 / fan_in)).astype(np.float32)
+
+
+# face-logit bias per net: lifts P(face) of random candidates to around the
+# default thresholds (0.6, 0.7, 0.9), so that boxes survive to stage 3
+FACE_LOGIT_BIAS = {"pnet": 0.3, "rnet": 1.0, "onet": 2.0}
+
+
+def random_mtcnn_params(rng: np.random.RandomState) -> Dict[str, Dict]:
+    """{pnet, rnet, onet} with He-scaled kernels; the regression heads are
+    scaled down so boxes move by a few percent, as trained ones do."""
+    out = {}
+    for net, layers in MTCNN_SHAPES.items():
+        p = {}
+        for name, shape in layers:
+            gain = 0.1 if name in ("reg", "lmk") else 1.0
+            p[name] = {"kernel": _dense(rng, shape, gain),
+                       "bias": (rng.randn(shape[-1]) * 0.1).astype(np.float32)}
+        p["cls"]["bias"][1] += FACE_LOGIT_BIAS[net]
+        for i, src in enumerate(MTCNN_PRELUS[net], start=1):
+            c = dict(layers)[src][-1]
+            p[f"prelu{i}"] = {"alpha": rng.uniform(0.1, 0.3, c).astype(np.float32)}
+        out[net] = p
+    return out
+
+
+def random_multihead_params(rng: np.random.RandomState) -> Dict:
+    """Full-width multi-head MobileNet-V1 (alpha 1.0, 1024-d identity) in
+    the folded form ``import_multihead_params`` returns. conv1 is scaled for
+    inputs of mean-subtracted 0-255 pixels."""
+    backbone = {"conv1": {"kernel": _dense(rng, (3, 3, 3, 32), 1.0 / 64),
+                          "bias": (rng.randn(32) * 0.1).astype(np.float32)}}
+    cin = 32
+    for i, (_, cout) in enumerate(MOBILENET_V1_BLOCKS, start=1):
+        # depthwise fan-in is the 3x3 window of one channel
+        dw = rng.randn(3, 3, cin, 1) * np.sqrt(2.0 / 9.0)
+        backbone[f"dw{i}"] = {"kernel": dw.astype(np.float32),
+                              "bias": (rng.randn(cin) * 0.1).astype(np.float32)}
+        backbone[f"pw{i}"] = {"kernel": _dense(rng, (1, 1, cin, cout)),
+                              "bias": (rng.randn(cout) * 0.1).astype(np.float32)}
+        cin = cout
+
+    def head(n_in, n_out, gain):
+        return {"kernel": _dense(rng, (n_in, n_out), gain),
+                "bias": (rng.randn(n_out) * 0.1).astype(np.float32)}
+
+    return {"backbone": backbone, "feats": head(1024, 256, 1.0),
+            "age": head(256, 100, 0.5), "gender": head(256, 1, 0.5)}
