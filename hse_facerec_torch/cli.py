@@ -1,8 +1,12 @@
 """Command-line interface of the port.
 
-  analyze — detect faces in one image and print age, gender and box per face
+  analyze  — detect faces in one image and print age, gender and box per
+             face; with ``--gallery`` also the matched enrolled person
+  identify — gallery/probe 1-NN identification (tf_train_test_recognition)
+  enroll   — bulk-enroll a people directory of pre-cropped faces into a
+             gallery .npz (``--mode image``)
 
-Usage: ``python -m hse_facerec_torch.cli analyze IMAGE [--out annotated.jpg]``
+Usage: ``python -m hse_facerec_torch.cli <subcommand> ...``
 """
 
 from __future__ import annotations
@@ -26,6 +30,17 @@ def _build_analyzer(args):
         mtcnn_pb, agegender_pb, device=args.device, minsize=args.minsize)
 
 
+def _load_gallery(path, device):
+    """Open a non-empty EnrollmentGallery .npz or exit with a hint."""
+    from .pipelines.gallery import EnrollmentGallery
+
+    gallery = EnrollmentGallery(path=path, device=device)
+    if not len(gallery):
+        sys.exit(f"error: enrollment gallery {path} is empty or missing "
+                 "(create one with the 'enroll' subcommand)")
+    return gallery
+
+
 def cmd_analyze(args):
     import cv2
     import numpy as np
@@ -41,12 +56,22 @@ def cmd_analyze(args):
     analyzer = _build_analyzer(args)
     img = imread_rgb(args.image)
     faces, rotation = analyzer.analyze_with_rotations(img)
-    for f in faces:
-        print(json.dumps({
+    idents = None
+    if args.gallery and faces:
+        gallery = _load_gallery(args.gallery, args.device)
+        idents = gallery.identify_many(
+            np.stack([np.asarray(f.identity, np.float32) for f in faces]),
+            threshold=args.match_threshold)
+    for k, f in enumerate(faces):
+        row = {
             "bbox": list(f.bbox), "score": round(f.score, 4),
             "age": round(f.age, 1), "gender_prob": round(f.gender_prob, 4),
             "is_male": bool(f.is_male()),
-        }))
+        }
+        if idents is not None:
+            label, dist, nearest = idents[k]
+            row.update(label=label, distance=round(dist, 4), nearest=nearest)
+        print(json.dumps(row))
     if args.out:
         if rotation:
             # boxes are in rotated-image coordinates; draw on that orientation
@@ -56,9 +81,79 @@ def cmd_analyze(args):
         print(f"annotated -> {args.out}", file=sys.stderr)
 
 
+def cmd_identify(args):
+    from .eval import lfw
+    from .models.zoo import build_extractor, weights_origin
+    from .numerics import set_parity_numerics
+    from .pipelines.identification import gallery_probe_eval, gallery_probe_suite
+
+    set_parity_numerics()
+    extractor = build_extractor(args.model, batch_size=args.batch_size,
+                                device=args.device)
+    g_feats, g_labels, names = lfw.extract_dataset_features(
+        args.gallery, extractor, cache_file=args.cache and args.cache + "_gallery.npz")
+    # probe labels live in the GALLERY's encoding (facerec_test.py:232-238)
+    shared = {n: i for i, n in enumerate(names)}
+    p_feats, p_labels, _ = lfw.extract_dataset_features(
+        args.probe, extractor, cache_file=args.cache and args.cache + "_probe.npz",
+        class_to_label=shared)
+    out = {"n_gallery": len(g_labels), "n_probe": len(p_labels),
+           "n_classes": len(names), "weights": weights_origin(args.model)}
+    if args.classifiers:
+        # the full gallery/probe comparison (facerec_test.py:270-288)
+        out["classifiers"] = gallery_probe_suite(
+            g_feats, g_labels, p_feats, p_labels,
+            pca_components=args.pca_components, device=args.device)
+    else:
+        out["accuracy"] = gallery_probe_eval(g_feats, g_labels, p_feats,
+                                             p_labels, k=args.k,
+                                             quantized=args.quantized,
+                                             device=args.device)
+        if args.quantized:
+            out["gallery"] = "int8"
+    print(json.dumps(out))
+
+
+def cmd_enroll(args):
+    """Bulk-enroll a directory-per-person tree of pre-cropped faces
+    (``people_dir/<Person Name>/*.jpg``, the reference's gallery layout,
+    ``facerec_test.py:220-288``) into an EnrollmentGallery ``.npz``."""
+    from hse_facerec_tf_tpu.utils.image_io import get_files
+
+    from .eval import lfw
+    from .models.zoo import build_extractor
+    from .numerics import set_parity_numerics
+    from .pipelines.gallery import EnrollmentGallery
+
+    if not os.path.isdir(args.people_dir):
+        sys.exit(f"error: people directory not found: {args.people_dir}")
+    if not get_files(args.people_dir):
+        sys.exit(f"error: no images under {args.people_dir} (expected "
+                 "<person name>/*.jpg subdirectories)")
+    set_parity_numerics()
+    gallery = EnrollmentGallery(path=args.gallery_file, device=args.device,
+                                quantized=False if args.exact else None)
+    extractor = build_extractor(args.model, batch_size=args.batch_size,
+                                device=args.device)
+    feats, labels, names = lfw.extract_dataset_features(args.people_dir,
+                                                        extractor)
+    label_names = [names[int(y)] for y in labels]
+    # --replace swaps out each person's old enrollments in the same update
+    replace_labels = sorted(set(label_names)) if args.replace else ()
+    n_total = gallery.enroll_many(label_names, feats,
+                                  replace_labels=replace_labels)
+    print(json.dumps({
+        "gallery": args.gallery_file, "n_added": len(label_names),
+        "n_people_added": len(set(label_names)), "n_enrolled_total": n_total,
+    }))
+
+
 def main(argv=None):
+    from .models.zoo import MODEL_ZOO
+
     parser = argparse.ArgumentParser(prog="hse_facerec_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
+
     p = sub.add_parser("analyze", help="annotate one image")
     p.add_argument("image")
     p.add_argument("--out", default=None, help="write the annotated image here")
@@ -66,7 +161,53 @@ def main(argv=None):
     p.add_argument("--mtcnn-pb", default=None)
     p.add_argument("--agegender-pb", default=None)
     p.add_argument("--minsize", type=int, default=40)
+    p.add_argument("--gallery", default=None, metavar="NPZ",
+                   help="enrollment gallery: report the matched person per "
+                        "face (see the 'enroll' subcommand)")
+    p.add_argument("--match-threshold", type=float, default=0.82,
+                   help="L2 distance below which a face matches an "
+                        "enrollment (reference DistanceThreshold, "
+                        "process_photos.py:26)")
     p.set_defaults(fn=cmd_analyze)
+
+    idn = sub.add_parser("identify", help="gallery/probe 1-NN identification")
+    idn.add_argument("gallery")
+    idn.add_argument("probe")
+    idn.add_argument("--model", default="agegender_identity",
+                     choices=sorted(MODEL_ZOO))
+    idn.add_argument("--k", type=int, default=1)
+    idn.add_argument("--classifiers", action="store_true",
+                     help="run the full classifier comparison (1/3-NN±PCA, "
+                          "rf, svm, linear svm±PCA — facerec_test.py:270-288)")
+    idn.add_argument("--pca-components", type=int, default=16)
+    idn.add_argument("--batch-size", type=int, default=64)
+    idn.add_argument("--quantized", action="store_true",
+                     help="enroll the gallery int8 (4x less device memory) "
+                          "and rank on the int8 1-NN kernel; k=1 only")
+    idn.add_argument("--cache", default=None)
+    idn.add_argument("--device", default="cuda")
+    idn.set_defaults(fn=cmd_identify)
+
+    en = sub.add_parser("enroll", help="bulk-enroll a people directory into "
+                                       "a gallery .npz")
+    en.add_argument("people_dir",
+                    help="directory with one subdirectory per person")
+    en.add_argument("gallery_file", metavar="NPZ",
+                    help="enrollment gallery to create or extend")
+    en.add_argument("--mode", choices=["image"], default="image",
+                    help="image: embed whole frames (pre-cropped faces)")
+    en.add_argument("--model", default="agegender_identity",
+                    choices=sorted(MODEL_ZOO))
+    en.add_argument("--batch-size", type=int, default=64)
+    en.add_argument("--exact", action="store_true",
+                    help="store an f32-ranking gallery instead of int8 (the "
+                         "preference persists in the .npz)")
+    en.add_argument("--replace", action="store_true",
+                    help="atomically swap out the existing enrollments of "
+                         "each person in the directory")
+    en.add_argument("--device", default="cuda")
+    en.set_defaults(fn=cmd_enroll)
+
     args = parser.parse_args(argv)
     args.fn(args)
 

@@ -1,0 +1,431 @@
+"""Matrix-free 1-NN: wrappers of the CUDA kernels K2a/K2b/K2c
+(``csrc/knn.cu``), their plain twins and the routing rule.
+
+Counterpart of ``hse_facerec_tf_tpu/ops/pallas/knn.py``. The identification
+hot path is "for each probe, the nearest gallery embedding". The plain path
+writes the (M, N) distance matrix and argmins it; the kernels keep a
+running (value, index) per probe instead, so memory traffic is O(M·D + N·D).
+
+- ``nearest_neighbor_f32`` (K2a): squared L2, f32 or bf16 operands (bf16 by
+  default, as the reference), f32 accumulation.
+- ``nearest_neighbor_int8q`` (K2b): probes quantized here, against a
+  gallery quantized once by ``quantize_embeddings``; an exact int8 dot, the
+  scales folded into the norm terms. ``pack_idx=True`` selects the
+  reference's packed epilogue: the value ranked and reported is the
+  distance key with its low 10 mantissa bits cleared.
+- ``nearest_neighbor_int8p`` (K2c): the same sweep against
+  ``pack_quantized_gallery``, whose row norms were computed once; K2b is
+  that packing on every call, then K2c.
+
+Each wrapper routes by the device its tensors lie on: CPU tensors take the
+plain twin, CUDA tensors launch the kernel or raise. ``<wrapper>.launches``
+counts kernel launches. The host-side arithmetic around the int8 kernels
+(scales, norms, the packed offset) is computed as the jitted reference
+computes it, so K2b/K2c equal their twins, and the twins the reference, bit
+for bit in index and distance.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple, Optional
+
+import torch
+
+from ...numerics import div_const, fma
+from ..distance import pairwise_sqeuclidean
+from . import build
+
+TILE_N = 64                 # gallery rows per tile in csrc/knn.cu
+PACK_MASK = -1024           # the packed epilogue clears 10 mantissa bits
+HBM_LIMIT_BYTES = 4 * 1024 ** 3
+PLAIN_CHUNK = 1024          # probes per (chunk, N) matrix of the int8 twin
+
+
+# -- quantization --------------------------------------------------------
+
+
+def quantize_embeddings(x, reciprocal: bool = False):
+    """Symmetric global int8 quantization: ``q = round(x / s)``,
+    ``s = max|x| / 127`` (one scale, so the dequantized dot factors as
+    ``sa·sb·(qa·qb)``). Returns ``(q int8, scale f32 0-dim tensor)``.
+
+    ``reciprocal`` picks how ``max|x| / 127`` is rounded. The reference
+    quantizes probes inside ``jax.jit``, where XLA multiplies by the f32
+    reciprocal of 127 (``reciprocal=True``, as the kernel wrappers do); it
+    quantizes galleries eagerly or in numpy, which divide exactly (False).
+    The division stays a tensor by a tensor: PyTorch on CUDA turns a
+    division by a Python scalar into a reciprocal multiply."""
+    x = x.to(torch.float32)
+    m = torch.max(torch.abs(x))
+    scale = (div_const(m, 127.0) if reciprocal
+             else m / torch.tensor(127.0, device=x.device))
+    scale = torch.clamp(scale, min=1e-30)
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _sumsq(q):
+    """Row sums of squares of an int8 matrix, exact, as f32. The squares
+    (at most 127² = 16129) fit int16, which halves the bytes of this pass
+    over the gallery against int32."""
+    q16 = q.to(torch.int16)
+    return torch.sum(q16 * q16, dim=1, dtype=torch.int32).to(torch.float32)
+
+
+def _pad_dim(q):
+    """Zero-pad the last axis to a multiple of 4 (whole 32-bit words for
+    ``__dp4a``); zero columns change no dot."""
+    pad = (-q.shape[1]) % 4
+    if pad:
+        q = torch.nn.functional.pad(q, (0, pad))
+    return q.contiguous()
+
+
+def _pad_to(qa, width: int):
+    """Zero-pad quantized probes to the gallery's padded width."""
+    if qa.shape[1] > width:
+        raise ValueError(f"probe dim {qa.shape[1]} > gallery dim {width}")
+    return torch.nn.functional.pad(qa, (0, width - qa.shape[1]))
+
+
+class PackedGallery(NamedTuple):
+    q: torch.Tensor          # (N, Dp) int8, Dp a multiple of 4
+    b2i: torch.Tensor        # (N,) f32: sum of q² per row
+    scale: torch.Tensor      # f32 0-dim
+
+
+def pack_quantized_gallery(q_gallery, g_scale) -> PackedGallery:
+    """One-time enrollment packing for repeated int8 queries: pad the rows
+    to whole words and precompute the raw norms, so a query does no
+    gallery-side pass but the kernel's (reference ``knn.py:418``)."""
+    q = _pad_dim(q_gallery)
+    return PackedGallery(q, _sumsq(q),
+                         torch.as_tensor(g_scale, dtype=torch.float32,
+                                         device=q.device))
+
+
+def _packed_b2(a2raw, b2raw, c, valid):
+    """Offset-shifted b2 operand for the packed epilogue (reference
+    ``_packed_b2``, ``knn.py:391``): keys ``b2 + offset - qa·qb`` are >= 0
+    (Cauchy-Schwarz over the raw norms), invalid rows get a large finite
+    sentinel. ``b2 = b2raw · c``. Inside ``jax.jit`` XLA fuses
+    ``x * 1.01 + 1``, ``3 * offset + max`` and ``b2raw * c + offset`` into
+    FMAs; so does this, since the offset moves the masked bits of every
+    key. Returns ``(offset, b2p)``."""
+    f32 = functools.partial(torch.tensor, dtype=torch.float32, device=b2raw.device)
+    zero = f32(0.0)
+    bound = (torch.sqrt(torch.max(a2raw))
+             * torch.sqrt(torch.max(torch.where(valid, b2raw, zero))))
+    offset = fma(bound, f32(1.01), f32(1.0))
+    sentinel = fma(f32(3.0), offset,
+                   torch.max(torch.where(valid, b2raw * c, zero))) + 1.0
+    b2p = fma(b2raw, c.expand_as(b2raw), offset.expand_as(b2raw))
+    return offset, torch.where(valid, b2p, sentinel)
+
+
+class _Int8Operands(NamedTuple):
+    qa: torch.Tensor       # (M, D) int8 probes
+    a2raw: torch.Tensor    # (M,) sum of qa² per probe
+    a2c: torch.Tensor      # sa / (2·sb): a2 = a2raw · a2c
+    s: torch.Tensor        # 2·sa·sb
+    offset: torch.Tensor   # packed offset, 0 for the two-pass epilogue
+    b2v: torch.Tensor      # (N,) the per-row term the kernel ranks against
+
+
+def _int8_operands(probes, b2raw, g_scale, valid_n, pack_idx: bool):
+    """Host side of K2b/K2c (reference ``knn.py:358-382``): quantize the
+    probes, fold the scales into the norms (``d = s·(a2 + b2 − qa·qb)``
+    with ``s = 2·sa·sb``), and build the ranked per-row term: b2 with +inf
+    on invalid rows (two-pass), or the offset-shifted b2p (packed)."""
+    dev = probes.device
+    qa, sa = quantize_embeddings(probes, reciprocal=True)
+    sb = torch.as_tensor(g_scale, dtype=torch.float32, device=dev)
+    c = sb / (2.0 * sa)
+    n = b2raw.shape[0]
+    lim = n if valid_n is None else min(int(valid_n), n)
+    valid = torch.arange(n, device=dev) < lim
+    a2raw = _sumsq(qa)
+    if pack_idx:
+        offset, b2v = _packed_b2(a2raw, b2raw, c, valid)
+    else:
+        offset = torch.zeros((), dtype=torch.float32, device=dev)
+        b2v = torch.where(valid, b2raw * c,
+                          torch.tensor(float("inf"), device=dev))
+    return _Int8Operands(qa, a2raw, sa / (2.0 * sb), 2.0 * sa * sb, offset,
+                         b2v.contiguous())
+
+
+def _int8_distances(ops: _Int8Operands, emin, pack_idx: bool):
+    """Squared L2 between the dequantized vectors from the ranked minimum,
+    ``(emin − offset + a2) · s`` (reference ``knn.py:379,387``), with
+    ``a2 = a2raw · a2c`` fused into the add as XLA fuses it."""
+    e = emin - ops.offset if pack_idx else emin
+    d = fma(ops.a2raw, ops.a2c.expand_as(e), e)
+    return torch.clamp(d * ops.s, min=0.0)
+
+
+def _rank_int8_plain(qa, qb, b2v, pack_idx: bool):
+    """Plain twin of the int8 sweep: lexicographic minimum of (key, index)
+    per probe, key = ``b2v − qa·qb`` (masked when packed). The dot runs in
+    float64, exact for any D, so it rounds once to f32 as the kernel's
+    int32 dot does."""
+    qa = _pad_to(qa, qb.shape[1])
+    qbf = qb.to(torch.float64)
+    emins, idxs = [], []
+    for i in range(0, qa.shape[0], PLAIN_CHUNK):
+        dot = (qa[i:i + PLAIN_CHUNK].to(torch.float64) @ qbf.T).to(torch.float32)
+        e = b2v[None, :] - dot
+        if pack_idx:
+            e = (e.view(torch.int32) & PACK_MASK).view(torch.float32)
+        idx = torch.argmin(e, dim=1)
+        emins.append(torch.gather(e, 1, idx[:, None])[:, 0])
+        idxs.append(idx)
+    return torch.cat(emins), torch.cat(idxs)
+
+
+# -- kernel launch ---------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _kernels():
+    lib = build.load_library()
+    common = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_void_p]
+    int8 = lib.knn_int8
+    int8.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
+                     *common]
+    int8.restype = ctypes.c_int
+    f32 = lib.knn_f32
+    f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, *common]
+    f32.restype = ctypes.c_int
+    return lib, int8, f32
+
+
+def _grid(m: int, n: int, device):
+    """(row_probes, splits, tiles_per_split): 1 probe per thread up to 16
+    probes, else 4; the gallery is split until about four blocks per SM
+    are in flight, in whole tiles and with no empty split."""
+    row_probes = 1 if m <= 16 else 4
+    m_tiles = -(-m // (16 * row_probes))
+    n_tiles = -(-n // TILE_N)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    splits = max(1, min(n_tiles, -(-4 * sms // m_tiles)))
+    per_split = -(-n_tiles // splits)
+    return row_probes, -(-n_tiles // per_split), per_split
+
+
+def _check_cuda(what: str, *tensors):
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{what}: tensors on {[str(x.device) for x in tensors]}; "
+                             "all must be on one CUDA device or all on the CPU")
+    return dev
+
+
+def _launch(what: str, fn, lib, m: int, n: int, dev, args):
+    row_probes, splits, per_split = _grid(m, n, dev)
+    part_v = torch.empty((m, splits), dtype=torch.float32, device=dev)
+    part_i = torch.empty((m, splits), dtype=torch.int32, device=dev)
+    out_v = torch.empty((m,), dtype=torch.float32, device=dev)
+    out_i = torch.empty((m,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = fn(*args, row_probes, splits, per_split, part_v.data_ptr(),
+                  part_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), stream)
+    build.check(lib, code, f"{what} launch")
+    return out_v, out_i.to(torch.int64)
+
+
+def _rank_int8_cuda(qa, qb, b2v, pack_idx: bool):
+    """Launch the int8 sweep; qb must already be padded to whole words."""
+    dev = _check_cuda("int8 1-NN", qa, qb, b2v)
+    qa = _pad_to(qa, qb.shape[1]).contiguous()
+    m, dp = qa.shape
+    n = qb.shape[0]
+    if dp % 4 or not qb.is_contiguous():
+        raise ValueError(f"gallery must be contiguous int8 rows of whole "
+                         f"words, got {tuple(qb.shape)}")
+    lib, fn, _ = _kernels()
+    mask = (PACK_MASK if pack_idx else -1) & 0xFFFFFFFF
+    return _launch("knn_int8", fn, lib, m, n, dev,
+                   (qa.data_ptr(), qb.data_ptr(), b2v.data_ptr(), m, n, dp // 4,
+                    mask))
+
+
+def _check_int8_args(probes, q_gallery):
+    if probes.dim() != 2 or q_gallery.dim() != 2:
+        raise ValueError(f"expected (M, D) probes and (N, D) gallery, got "
+                         f"{tuple(probes.shape)} and {tuple(q_gallery.shape)}")
+    if q_gallery.dtype != torch.int8:
+        raise TypeError(f"gallery must be int8, got {q_gallery.dtype}")
+    if q_gallery.shape[0] == 0 or probes.shape[0] == 0:
+        raise ValueError("empty probes or gallery")
+
+
+# -- public wrappers -------------------------------------------------------
+
+
+def nearest_neighbor_f32(probes, gallery, bf16: bool = True):
+    """K2a: (M, D) probes x (N, D) gallery -> (min squared L2 (M,), argmin
+    (M,)), lowest index on ties. ``bf16`` feeds bf16 operands (norms stay
+    f32, the dot accumulates in f32), as the reference's default; False is
+    exact f32. CPU tensors take ``nearest_neighbor_plain``."""
+    if probes.device.type == "cpu" and gallery.device.type == "cpu":
+        return nearest_neighbor_plain(probes, gallery, bf16)
+    dev = _check_cuda("nearest_neighbor_f32", probes, gallery)
+    if probes.dim() != 2 or gallery.dim() != 2 or probes.shape[1] != gallery.shape[1]:
+        raise ValueError(f"expected (M, D) and (N, D), got {tuple(probes.shape)} "
+                         f"and {tuple(gallery.shape)}")
+    if probes.shape[0] == 0 or gallery.shape[0] == 0:
+        raise ValueError("empty probes or gallery")
+    a = probes.to(torch.float32).contiguous()
+    b = gallery.to(torch.float32).contiguous()
+    a2 = torch.sum(a * a, dim=1)
+    b2 = torch.sum(b * b, dim=1)
+    if bf16:
+        a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    m, d = a.shape
+    lib, _, fn = _kernels()
+    dmin, idx = _launch("knn_f32", fn, lib, m, b.shape[0], dev,
+                        (a.data_ptr(), b.data_ptr(), int(bf16), a2.data_ptr(),
+                         b2.data_ptr(), m, b.shape[0], d))
+    nearest_neighbor_f32.launches += 1
+    return torch.clamp(dmin, min=0.0), idx
+
+
+def _nn_int8(probes, gallery: PackedGallery, valid_n, pack_idx: bool, counter):
+    """Shared body of K2b and K2c: rank the probes against a packed
+    gallery, on the CPU through the plain twin, on CUDA through the kernel
+    (``counter.launches`` counts the launch)."""
+    _check_int8_args(probes, gallery.q)
+    ops = _int8_operands(probes, gallery.b2i, gallery.scale, valid_n, pack_idx)
+    if probes.device.type == "cpu" and gallery.q.device.type == "cpu":
+        emin, idx = _rank_int8_plain(ops.qa, gallery.q, ops.b2v, pack_idx)
+    else:
+        emin, idx = _rank_int8_cuda(ops.qa, gallery.q, ops.b2v, pack_idx)
+        counter.launches += 1
+    return _int8_distances(ops, emin, pack_idx), idx
+
+
+def nearest_neighbor_int8q(probes, q_gallery, g_scale, valid_n=None,
+                           pack_idx: bool = False):
+    """K2b: 1-NN of f32 probes against a gallery quantized by
+    ``quantize_embeddings``: ``pack_quantized_gallery`` on every call, then
+    K2c's sweep. Ranks ``e = b2/s − qa·qb`` and returns the exact squared
+    L2 between the dequantized vectors, ``s·(e + a2)``, and the argmin.
+    ``valid_n``: only the first rows are real; the rest get +inf
+    (two-pass) or the sentinel (packed). ``pack_idx`` ranks and reports the
+    key with 10 low mantissa bits cleared, as the reference's packed
+    epilogue; the default is the two-pass epilogue every path of the port
+    runs. CPU tensors take the plain twin."""
+    _check_int8_args(probes, q_gallery)
+    return _nn_int8(probes, pack_quantized_gallery(q_gallery, g_scale), valid_n,
+                    pack_idx, nearest_neighbor_int8q)
+
+
+def nearest_neighbor_int8p(probes, q, b2i, g_scale, pack_idx: bool = False):
+    """K2c: K2b against a ``pack_quantized_gallery`` result (``*packed``):
+    per query only the probes are quantized. Same numerics, same ties."""
+    return _nn_int8(probes, PackedGallery(q, b2i, g_scale), None, pack_idx,
+                    nearest_neighbor_int8p)
+
+
+nearest_neighbor_f32.launches = 0
+nearest_neighbor_int8q.launches = 0
+nearest_neighbor_int8p.launches = 0
+
+
+def nearest_neighbor_int8(probes, gallery, **kw):
+    """Convenience form: quantize the f32 gallery here (exactly, as the
+    reference's eager call does), then ``nearest_neighbor_int8q``."""
+    qb, sb = quantize_embeddings(gallery)
+    return nearest_neighbor_int8q(probes, qb, sb, **kw)
+
+
+# -- plain twins -------------------------------------------------------------
+
+
+def nearest_neighbor_int8_plain(probes, q_gallery, g_scale, valid_n=None,
+                                pack_idx: bool = False):
+    """The int8 kernels' exact math in plain PyTorch, on any device: the
+    twin the CPU path runs and the kernels are held against. With
+    ``pack_idx=False`` it is the counterpart of the reference's
+    ``nearest_neighbor_int8_xla``. Writes the (M, N) matrix in chunks of
+    probes."""
+    _check_int8_args(probes, q_gallery)
+    ops = _int8_operands(probes, _sumsq(q_gallery), g_scale, valid_n, pack_idx)
+    emin, idx = _rank_int8_plain(ops.qa, q_gallery, ops.b2v, pack_idx)
+    return _int8_distances(ops, emin, pack_idx), idx
+
+
+def nearest_neighbor_plain(probes, gallery, bf16: bool = True):
+    """K2a's math in plain PyTorch: norms in f32, the dot on bf16-rounded
+    operands upcast to f32 (a bf16 x bf16 matmul would round its sum to
+    bf16, which the reference's f32 accumulation does not),
+    ``d = (a2 + b2) − 2ab``, first index on ties, clamped at 0."""
+    a = probes.to(torch.float32)
+    b = gallery.to(torch.float32)
+    a2 = torch.sum(a * a, dim=1)
+    b2 = torch.sum(b * b, dim=1)
+    if bf16:
+        a = a.to(torch.bfloat16).to(torch.float32)
+        b = b.to(torch.bfloat16).to(torch.float32)
+    d = (a2[:, None] + b2[None, :]) - 2.0 * (a @ b.T)
+    idx = torch.argmin(d, dim=1)
+    return torch.clamp(torch.gather(d, 1, idx[:, None])[:, 0], min=0.0), idx
+
+
+def nearest_neighbor_chunked(probes, gallery, chunk: int = 512,
+                             bf16: bool = True):
+    """``nearest_neighbor_plain`` over chunks of probes, so only a
+    (chunk, N) matrix exists at a time: the plain alternative where the
+    full matrix would not fit (reference ``nearest_neighbor_chunked_xla``,
+    ``knn.py:521``)."""
+    outs = [nearest_neighbor_plain(probes[i:i + chunk], gallery, bf16)
+            for i in range(0, probes.shape[0], chunk)]
+    return (torch.cat([d for d, _ in outs]), torch.cat([i for _, i in outs]))
+
+
+# -- routing -------------------------------------------------------------------
+
+
+def use_kernel_path(m: int, n: int, device, force: bool = False,
+                    hbm_limit_bytes: int = HBM_LIMIT_BYTES) -> bool:
+    """Routing rule of ``nearest_neighbor_auto`` for f32: on CUDA the
+    matrix-free kernel runs when forced or when the (M, N) f32 matrix would
+    exceed ``hbm_limit_bytes``; below that, matmul + argmin (reference
+    ``use_pallas_path``, ``knn.py:510``). CPU tensors never take it."""
+    return torch.device(device).type == "cuda" and (
+        force or 4 * m * n > hbm_limit_bytes)
+
+
+def nearest_neighbor_auto(probes, gallery, force_kernel: bool = False,
+                          int8: bool = False, valid_n: Optional[int] = None):
+    """1-NN -> (min squared L2 (M,), argmin (M,)).
+
+    ``int8=True``: ``gallery`` is f32 (quantized here) or a
+    ``(q int8, scale)`` pair; ranking goes through K2b on CUDA, always
+    (plain PyTorch has no int8 GEMM on CUDA that is not a library call),
+    and through its twin on the CPU, with the two-pass epilogue on both:
+    exact distances, the reference's off-TPU answers. f32: matmul + argmin
+    unless ``use_kernel_path`` says K2a, which then runs on exact f32
+    operands, so the answer does not depend on the gallery's size or the
+    device."""
+    if int8:
+        qb, sb = gallery if isinstance(gallery, tuple) else quantize_embeddings(gallery)
+        return nearest_neighbor_int8q(probes, qb, sb, valid_n=valid_n)
+    if valid_n is not None:
+        raise ValueError("valid_n is only supported with int8=True")
+    if use_kernel_path(probes.shape[0], gallery.shape[0], probes.device,
+                       force_kernel):
+        return nearest_neighbor_f32(probes, gallery, bf16=False)
+    d = pairwise_sqeuclidean(probes.to(torch.float32), gallery.to(torch.float32))
+    idx = torch.argmin(d, dim=1)
+    return torch.gather(d, 1, idx[:, None])[:, 0], idx

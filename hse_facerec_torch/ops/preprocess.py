@@ -1,13 +1,59 @@
-"""Input normalizations used on the analyze path."""
+"""Input normalizations: channel order + mean subtraction / scaling.
+
+Counterpart of ``hse_facerec_tf_tpu/ops/preprocess.py`` (the reference's
+schemes, ``facerec_test.py:95-111``, ``facial_analysis.py:103-107,506``).
+Inputs are RGB (..., H, W, 3); a scheme that needs BGR flips the channels.
+"""
 
 from __future__ import annotations
 
 import torch
 
+from ..numerics import div_const, fma
+
 # Mean pixel values (BGR order, matching the Caffe-lineage models).
 IMAGENET_MEANS_BGR = (103.939, 116.779, 123.68)     # facerec_test.py:97-100
+VGGFACE2_MEANS_BGR = (91.4953, 103.8827, 131.0912)  # facerec_test.py:102-105
+# keras_vggface.utils.preprocess_input version=1 (facerec_test.py:344-349)
+VGGFACE1_MEANS_BGR = (93.5940, 104.7624, 129.1863)
+
+
+def to_bgr(x):
+    return torch.flip(x, dims=(-1,))
+
+
+def normalize_caffe(x, means_bgr=IMAGENET_MEANS_BGR):
+    """RGB float input -> BGR, per-channel mean subtraction."""
+    return to_bgr(x.to(torch.float32)) - torch.tensor(
+        means_bgr, dtype=torch.float32, device=x.device)
+
+
+def normalize_vggface2(x):
+    return normalize_caffe(x, VGGFACE2_MEANS_BGR)
+
+
+def normalize_vggface1(x):
+    return normalize_caffe(x, VGGFACE1_MEANS_BGR)
 
 
 def normalize_mtcnn(x):
     """(x - 127.5) * 0.0078125 — reference ``facial_analysis.py:506,550,580``."""
     return (x.to(torch.float32) - 127.5) * 0.0078125
+
+
+def normalize_tf(x):
+    """x / 127.5 - 1 — reference ``facerec_test.py:109-111``. Inside
+    ``jax.jit`` this is one FMA with the f32 reciprocal of 127.5."""
+    x = x.to(torch.float32)
+    recip = div_const(torch.ones((), device=x.device), 127.5)
+    return fma(x, recip.expand_as(x), torch.full_like(x, -1.0))
+
+
+NORMALIZERS = {
+    "caffe": normalize_caffe,
+    "vggface2": normalize_vggface2,
+    "vggface1": normalize_vggface1,
+    "mtcnn": normalize_mtcnn,
+    "tf": normalize_tf,
+    "none": lambda x: x.to(torch.float32),
+}

@@ -1,8 +1,10 @@
-"""Resize ops of the analyze path: the cv2 INTER_AREA scale pyramid and the
-per-box bilinear crop+resize.
+"""Resize ops: the generic separable resize with cv2/PIL semantics (the
+embedder's input path), the cv2 INTER_AREA scale pyramid and the per-box
+bilinear crop+resize.
 
 Counterpart of ``hse_facerec_tf_tpu/ops/resize.py``. Each 1-D resampling is
-a small weight matrix applied as a matmul, as in the reference.
+a small weight matrix, built in numpy (copied from the reference, whose
+module imports jax), applied as a matmul.
 ``crop_resize_bilinear`` is the plain PyTorch version of the CUDA crop
 kernel (``ops/kernels/crop.py``): the CPU path and the kernel's oracle.
 """
@@ -16,6 +18,22 @@ import numpy as np
 import torch
 
 from ..numerics import div_const, fma
+
+
+@functools.lru_cache(maxsize=256)
+def _linear_weights_cv2(src: int, dst: int) -> np.ndarray:
+    """cv2.INTER_LINEAR 1-D weights: half-pixel centers, edge clamp."""
+    w = np.zeros((dst, src), dtype=np.float32)
+    scale = src / dst
+    for i in range(dst):
+        f = (i + 0.5) * scale - 0.5
+        i0 = int(np.floor(f))
+        a = f - i0
+        i0c = min(max(i0, 0), src - 1)
+        i1c = min(max(i0 + 1, 0), src - 1)
+        w[i, i0c] += 1.0 - a
+        w[i, i1c] += a
+    return w
 
 
 @functools.lru_cache(maxsize=256)
@@ -37,6 +55,101 @@ def _area_weights_cv2(src: int, dst: int) -> np.ndarray:
             if overlap > 0:
                 w[i, j] = overlap / s
     return w
+
+
+@functools.lru_cache(maxsize=256)
+def _triangle_weights_pil(src: int, dst: int) -> np.ndarray:
+    """PIL (Pillow >= 2.7) BILINEAR 1-D weights: triangle filter with support
+    scaled by the downscale factor, weights normalized. Matches
+    ``scipy.misc.imresize(interp='bilinear')`` which wraps PIL."""
+    w = np.zeros((dst, src), dtype=np.float32)
+    scale = src / dst
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    for i in range(dst):
+        center = (i + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), src)
+        xs = np.arange(xmin, xmax)
+        dist = (xs + 0.5 - center) / filterscale
+        k = np.clip(1.0 - np.abs(dist), 0.0, None)
+        tot = k.sum()
+        if tot > 0:
+            w[i, xmin:xmax] = k / tot
+    return w
+
+
+@functools.lru_cache(maxsize=256)
+def _cubic_weights_cv2(src: int, dst: int) -> np.ndarray:
+    """cv2.INTER_CUBIC 1-D weights: 4-tap cubic convolution (a = -0.75),
+    half-pixel centers, edge clamp (reference InsightFace letterbox,
+    ``age_gender_identity/insightface.py:89``)."""
+    a = -0.75
+
+    def k(x):
+        x = abs(x)
+        if x <= 1.0:
+            return (a + 2) * x ** 3 - (a + 3) * x ** 2 + 1
+        if x < 2.0:
+            return a * x ** 3 - 5 * a * x ** 2 + 8 * a * x - 4 * a
+        return 0.0
+
+    w = np.zeros((dst, src), dtype=np.float32)
+    scale = src / dst
+    for i in range(dst):
+        f = (i + 0.5) * scale - 0.5
+        i0 = int(np.floor(f))
+        for j in range(i0 - 1, i0 + 3):
+            jc = min(max(j, 0), src - 1)
+            w[i, jc] += k(f - j)
+    return w
+
+
+@functools.lru_cache(maxsize=256)
+def _nearest_weights_pil(src: int, dst: int) -> np.ndarray:
+    """PIL NEAREST 1-D selection matrix: source index = floor((i+0.5)*scale)
+    (Keras ``image.load_img`` default, ``facerec_test.py:141-144``)."""
+    w = np.zeros((dst, src), dtype=np.float32)
+    scale = src / dst
+    for i in range(dst):
+        j = min(int((i + 0.5) * scale), src - 1)
+        w[i, j] = 1.0
+    return w
+
+
+_WEIGHT_FNS = {
+    "cv2_linear": _linear_weights_cv2,
+    "cv2_area": _area_weights_cv2,
+    "pil_bilinear": _triangle_weights_pil,
+    "pil_nearest": _nearest_weights_pil,
+    "cv2_cubic": _cubic_weights_cv2,
+}
+
+
+def resize(img, out_hw: Tuple[int, int], method: str = "cv2_linear"):
+    """Resize (..., H, W, C) to (..., out_h, out_w, C) with the given
+    semantics ('cv2_linear' | 'cv2_area' | 'pil_bilinear' | 'pil_nearest' |
+    'cv2_cubic'): rows, then columns, each one matmul."""
+    h, w = img.shape[-3], img.shape[-2]
+    oh, ow = out_hw
+    wfn = _WEIGHT_FNS[method]
+    mh = torch.from_numpy(wfn(h, oh)).to(img.device)
+    mw = torch.from_numpy(wfn(w, ow)).to(img.device)
+    x = torch.einsum("oh,...hwc->...owc", mh, img.to(torch.float32))
+    return torch.einsum("pw,...owc->...opc", mw, x)
+
+
+def resize_host(img: np.ndarray, out_hw: Tuple[int, int],
+                method: str = "cv2_linear") -> np.ndarray:
+    """Host-side (numpy) resize with the same 1-D weight matrices as
+    ``resize``, for collapsing mixed-size datasets onto one input size.
+    Accepts (..., H, W, C); returns float32 (..., out_h, out_w, C)."""
+    h, w = img.shape[-3], img.shape[-2]
+    oh, ow = out_hw
+    wfn = _WEIGHT_FNS[method]
+    x = np.einsum("oh,...hwc->...owc", wfn(h, oh), np.asarray(img, np.float32))
+    x = np.einsum("pw,...owc->...opc", wfn(w, ow), x)
+    return np.ascontiguousarray(x, dtype=np.float32)
 
 
 def resize_pyramid(img, out_hws: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:

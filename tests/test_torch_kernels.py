@@ -1,5 +1,5 @@
-"""The crop kernel K1: its wrapper's routing, its build, and the kernel on
-the card against its plain twin.
+"""The kernels K1 (crop) and K2a/K2b/K2c (1-NN): their wrappers' routing,
+their build, and each kernel on the card against its plain twin.
 
 This file imports no JAX (neither does the package), so the card tests run
 on a machine without it, without the repo's conftest:
@@ -7,9 +7,13 @@ on a machine without it, without the repo's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
 Tests marked ``cuda`` skip where ``torch.cuda.is_available()`` is False. On
-the card the kernel must match ``crop_resize_bilinear`` within 1e-3 (0-255
-pixel units) on noise images: sample positions and hat weights are
-bit-identical, only the order of the sums differs.
+the card K1 must match ``crop_resize_bilinear`` within 1e-3 (0-255 pixel
+units) on noise images: sample positions and hat weights are bit-identical,
+only the order of the sums differs. K2b/K2c must equal
+``nearest_neighbor_int8_plain`` bit for bit in index and distance (an
+exact int32 dot, one f32 rounding per key). K2a sums in another order than
+its twin: distances within rtol 1e-4 / atol 1e-3, and the same index
+wherever the twin's two best candidates differ by more than that.
 """
 
 import os
@@ -22,6 +26,7 @@ import torch
 
 from hse_facerec_torch.ops import resize as tr
 from hse_facerec_torch.ops.kernels import build
+from hse_facerec_torch.ops.kernels import knn
 from hse_facerec_torch.ops.kernels.crop import crop_resize
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -83,7 +88,7 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 
 def test_build_key_tracks_sources():
-    assert [p.name for p in build.sources()] == ["crop_resize.cu"]
+    assert [p.name for p in build.sources()] == ["crop_resize.cu", "knn.cu"]
     key = build.source_hash()
     assert key == build.source_hash() and len(key) == 16
     assert build.library_path().parent.name == key
@@ -121,3 +126,119 @@ def test_crop_kernel_matches_plain_on_card(cuda, rng, k, out_size, supersample,
     torch.cuda.synchronize()
     assert crop_resize.launches == before + 1
     assert float((got - want).abs().max()) <= 1e-3
+
+
+def _unit_rows(rng, n, d):
+    x = rng.randn(n, d).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def _knn_launches():
+    return (knn.nearest_neighbor_f32.launches, knn.nearest_neighbor_int8q.launches,
+            knn.nearest_neighbor_int8p.launches)
+
+
+def test_knn_wrappers_cpu_take_plain_path(rng):
+    p, g = _t(_unit_rows(rng, 5, 20)), _t(_unit_rows(rng, 40, 20))
+    qb, sb = knn.quantize_embeddings(g)
+    before = _knn_launches()
+    for pack in (False, True):
+        got = knn.nearest_neighbor_int8q(p, qb, sb, pack_idx=pack)
+        want = knn.nearest_neighbor_int8_plain(p, qb, sb, pack_idx=pack)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+        got = knn.nearest_neighbor_int8p(p, *knn.pack_quantized_gallery(qb, sb),
+                                         pack_idx=pack)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+    got = knn.nearest_neighbor_f32(p, g)
+    want = knn.nearest_neighbor_plain(p, g)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert _knn_launches() == before
+
+
+def test_knn_wrappers_reject_other_devices():
+    p = torch.zeros((4, 8), device="meta")
+    g = torch.zeros((16, 8), device="meta")
+    with pytest.raises(ValueError):
+        knn.nearest_neighbor_f32(p, g)
+    with pytest.raises(ValueError):
+        knn.nearest_neighbor_f32(torch.zeros(4, 8), g)
+    with pytest.raises(TypeError):
+        knn.nearest_neighbor_int8q(torch.zeros(4, 8), torch.zeros(16, 8), 1.0)
+    with pytest.raises(ValueError):
+        knn.nearest_neighbor_int8q(torch.zeros(0, 8),
+                                   torch.zeros(16, 8, dtype=torch.int8), 1.0)
+
+
+# (M, N, D): ragged and tiny, tile edges, the serving shapes
+KNN_CARD_SHAPES = [(1, 5, 30), (7, 129, 64), (37, 1000, 30), (1, 100_000, 512),
+                   (16, 100_000, 512), (300, 20_000, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pack_idx", [False, True])
+@pytest.mark.parametrize("m,n,d", KNN_CARD_SHAPES)
+def test_knn_int8_kernels_equal_plain_on_card(cuda, m, n, d, pack_idx):
+    rng = np.random.RandomState(m + n + d)
+    g = _unit_rows(rng, n, d)
+    g[n // 2:n // 2 + 3] = g[1:4]              # exact ties with lower rows
+    p = _t(_unit_rows(rng, m, d)).to(cuda)
+    qb, sb = knn.quantize_embeddings(_t(g).to(cuda))
+    want = knn.nearest_neighbor_int8_plain(p, qb, sb, pack_idx=pack_idx)
+    before = _knn_launches()
+    got_q = knn.nearest_neighbor_int8q(p, qb, sb, pack_idx=pack_idx)
+    got_p = knn.nearest_neighbor_int8p(p, *knn.pack_quantized_gallery(qb, sb),
+                                       pack_idx=pack_idx)
+    torch.cuda.synchronize()
+    assert _knn_launches() == (before[0], before[1] + 1, before[2] + 1)
+    for got in (got_q, got_p):
+        np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].cpu().numpy())
+        np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pack_idx", [False, True])
+def test_knn_int8_kernel_ties_and_valid_n_on_card(cuda, pack_idx):
+    rng = np.random.RandomState(4)
+    base = _unit_rows(rng, 50, 64)
+    g = _t(np.concatenate([base] * 5)).to(cuda)   # every row five times
+    p = _t(base[::7] + 0.01 * rng.randn(8, 64).astype(np.float32)).to(cuda)
+    qb, sb = knn.quantize_embeddings(g)
+    for valid_n in (None, 120, 3):
+        got = knn.nearest_neighbor_int8q(p, qb, sb, valid_n=valid_n,
+                                         pack_idx=pack_idx)
+        want = knn.nearest_neighbor_int8_plain(p, qb, sb, valid_n=valid_n,
+                                               pack_idx=pack_idx)
+        np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].cpu().numpy())
+        np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].cpu().numpy())
+    np.testing.assert_array_equal(
+        knn.nearest_neighbor_int8q(p, qb, sb, pack_idx=pack_idx)[1].cpu().numpy(),
+        np.arange(0, 50, 7))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("m,n,d", KNN_CARD_SHAPES)
+def test_knn_f32_kernel_matches_plain_on_card(cuda, m, n, d, bf16):
+    rng = np.random.RandomState(m * n + d)
+    p = _t(rng.randn(m, d).astype(np.float32)).to(cuda)
+    g = _t(rng.randn(n, d).astype(np.float32)).to(cuda)
+    before = knn.nearest_neighbor_f32.launches
+    gd, gi = knn.nearest_neighbor_f32(p, g, bf16=bf16)
+    wd, wi = knn.nearest_neighbor_plain(p, g, bf16=bf16)
+    torch.cuda.synchronize()
+    assert knn.nearest_neighbor_f32.launches == before + 1
+    np.testing.assert_allclose(gd.cpu().numpy(), wd.cpu().numpy(), rtol=1e-4,
+                               atol=1e-3)
+    # the index may differ only where the twin's top two are within tolerance
+    a = p.float().to(torch.bfloat16).float() if bf16 else p
+    b = g.float().to(torch.bfloat16).float() if bf16 else g
+    d2 = (p * p).sum(1)[:, None] + (g * g).sum(1)[None, :] - 2.0 * (a @ b.T)
+    top2 = torch.topk(d2, min(2, n), dim=1, largest=False).values
+    clear = (top2[:, -1] - top2[:, 0]) > 1e-3 + 1e-4 * top2[:, 0].abs()
+    if n == 1:
+        clear[:] = True
+    mask = clear.cpu().numpy()
+    np.testing.assert_array_equal(gi.cpu().numpy()[mask], wi.cpu().numpy()[mask])
