@@ -10,19 +10,28 @@ kernels are built for sm_90a). It:
    (fp32, no TF32);
 2. builds the CUDA kernels from ``hse_facerec_torch/csrc`` with nvcc;
 3. holds K1 (crop) against its plain PyTorch version at the analyze
-   path's three call sites, and times both with CUDA events;
+   path's three call sites, and K4 (int8 pointwise conv) at the 13
+   pointwise layers of a 16-face head batch and a ragged shape, and times
+   both with CUDA events;
 4. drives the analyze path: ``FacialAnalyzer.analyze_with_rotations``
-   (K1), timed, then checked against the same analyzer on the CPU;
+   (K1), timed, then checked against the same analyzer on the CPU; then
+   the same with ``Int8MultiheadHeads`` (analyze --int8-heads: K1 + K4),
+   whose boxes must equal the f32 analyzer's, and whose int8 activations
+   on the CPU's own crops must match the CPU's stage by stage; then the
+   int8 embedder at
+   224², batch 1024, beside the f32 one, with a profile of one int8
+   forward, and K4 against its plain version again at the batch-1024
+   layer shapes;
 5. holds K2a/K2b/K2c (1-NN) against their plain twins on ragged shapes
    with ties, at serving shapes (1 and 16 probes against 1,048,576
    gallery rows) and, for the int8 kernels, at the design point (8192 x
    1,048,576 x 512), timed with CUDA events;
 6. drives the identify paths at full width:
-   - identify: the ``agegender_identity`` extractor embeds a seeded
-     gallery/probe tree through ``extract_files``, then
-     ``KNNIdentifier(quantized=True)`` (K2b) and an int8
-     ``EnrollmentGallery`` (K2c) rank the probes; answers equal the same
-     objects on the CPU;
+   - identify: the ``agegender_identity`` extractor, then the
+     ``agegender_identity_int8`` one (K4), embeds a seeded gallery/probe
+     tree through ``extract_files``, then ``KNNIdentifier(quantized=True)``
+     (K2b) and an int8 ``EnrollmentGallery`` (K2c) rank the probes;
+     answers equal the same objects on the CPU;
    - identify at scale: 2048 probes against 1,048,576 enrolled 1024-d
      embeddings through an exact ``KNNIdentifier`` (K2a on f32 operands:
      the f32 matrix would be 8 GiB), checked against the chunked f32
@@ -55,15 +64,22 @@ import torch.nn.functional as F
 
 from hse_facerec_torch import set_parity_numerics
 from hse_facerec_torch.models import zoo
+from hse_facerec_torch.models.int8_infer import (block_int8, multihead_apply_int8,
+                                                 quantize_multihead_int8, stem_int8)
+from hse_facerec_torch.models.mobilenet import MOBILENET_V1_BLOCKS
 from hse_facerec_torch.models.mtcnn import import_mtcnn_params
-from hse_facerec_torch.models.multihead import import_multihead_params
+from hse_facerec_torch.models.multihead import import_multihead_params, multihead_apply
 from hse_facerec_torch.ops.kernels import build
 from hse_facerec_torch.ops.kernels import knn
+from hse_facerec_torch.ops.kernels import pw_conv
 from hse_facerec_torch.ops.distance import l2_normalize
 from hse_facerec_torch.ops.kernels.crop import crop_resize
+from hse_facerec_torch.ops.preprocess import IMAGENET_MEANS_BGR
 from hse_facerec_torch.ops.resize import crop_resize_bilinear
+from hse_facerec_torch.params import to_torch
 from hse_facerec_torch.pipelines.analyzer import FacialAnalyzer
 from hse_facerec_torch.pipelines.gallery import EnrollmentGallery
+from hse_facerec_torch.pipelines.heads import Int8MultiheadHeads
 from hse_facerec_torch.pipelines.identification import (KNNIdentifier,
                                                         gallery_probe_eval)
 from hse_facerec_torch.testing import random_mtcnn_params, random_multihead_params
@@ -91,6 +107,51 @@ KNN_F32_RTOL, KNN_F32_ATOL = 1e-4, 1e-3
 N_PEOPLE, N_GALLERY, N_PROBE = 6, 3, 2          # identify path photo tree
 SCALE_N, SCALE_M, SCALE_D = 1 << 20, 2048, 1024  # identify at scale
 SERVE_BATCH, SERVE_QUERIES = 16, 8
+# K4 at the int8 path's pointwise layers: (layer, pixels per 224² face, K,
+# N), at a head batch of 16 faces; pw13 stores f32
+PW_LAYERS = [("pw1", 12544, 32, 64), ("pw2", 3136, 64, 128),
+             ("pw3", 3136, 128, 128), ("pw4", 784, 128, 256),
+             ("pw5", 784, 256, 256), ("pw6", 196, 256, 512)] + [
+    (f"pw{i}", 196, 512, 512) for i in range(7, 12)] + [
+    ("pw12", 49, 512, 1024), ("pw13", 49, 1024, 1024)]
+PW_BATCH = 16
+PW_RAGGED = ("ragged", 1000, 30, 50)     # M, K, N off the tile and word
+# CUDA vs CPU bounds of the analyzer. f32: only sums in another order.
+# int8 heads: the card's head crops come from K1 and the CPU's from its
+# plain version (4.6e-5 px apart on the seeded photo 0); conv1 rounds its
+# input to bf16 and every block requantizes, so such a difference flips
+# whole quanta, and the flips cascade. On photo 0 an H100 gave ages 6.1e-3,
+# P(male) 1.4e-3 and identity cosine 0.99994 off the CPU; the bounds leave
+# 4-8x room. The device numerics themselves are held on the same crops
+# (int8_stages_cuda_vs_cpu): int8 activations one quantum apart in at most
+# FLIP_FRACTION of them, stage by stage; the whole heads as tightly as the
+# CPU tests hold the port to the JAX package (an H100 read no flip, ages
+# 7.6e-6, P(male) 6e-8, identity 8.6e-8 relative L2).
+F32_TOL = {"box_px": 1.0, "age": 1e-2, "gender": 1e-3, "min_cos": 0.999}
+INT8_TOL = {"box_px": 1.0, "age": 0.05, "gender": 5e-3, "min_cos": 0.9995}
+FLIP_FRACTION = 1e-3
+SAME_CROPS_TOL = {"last_block_rel_l2": 1e-5, "age": 1e-4, "gender": 1e-5,
+                  "identity_rel_l2": 1e-5}
+# int8 embedder throughput: the JAX bench's embed_int8 batch (bench.py:57)
+EMBED_BATCH, EMBED_REPEATS = 1024, 3
+# device-time groups of the int8 forward's profile, by kernel name: the
+# first group whose marker is in the name takes the kernel
+PROFILE_GROUPS = [("pw_conv_int8 (K4)", ("pw_conv_int8",)),
+                  ("copies and dtype converts", ("copy",)),
+                  ("pads (F.pad fills)", ("pad", "fill")),
+                  ("convs (depthwise, conv1)", ("conv", "depthwise", "fprop",
+                                                "implicit", "cudnn")),
+                  ("heads and GAP (gemm, reduce)", ("gemm", "gemv", "reduce")),
+                  ("bias, ReLU6 and requant passes", ("elementwise", "round", "clamp",
+                                                      "add", "mul"))]
+
+
+T_START = time.perf_counter()
+
+
+def phase_done(name: str) -> None:
+    """Print the run's elapsed host time at the end of a phase."""
+    print(f"[{time.perf_counter() - T_START:.1f} s] {name} done")
 
 
 def gpu_name_and_power_limit() -> str:
@@ -143,6 +204,57 @@ def check_crop_kernel(rng):
             raise AssertionError(f"crop_resize {name}: max abs err {err} > {KERNEL_ATOL}")
         results.append((err, ms, plain_ms))
     return results
+
+def pw_operands(gen, m: int, k: int, n: int):
+    """Seeded K4 operands made on the card: activations in [0, 127],
+    weights in [-127, 127], per-channel scales that spread the outputs
+    over [0, 6] (|acc| spreads about 2700·sqrt(k))."""
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                             dtype=torch.int16).to(torch.int8)
+
+    scale = (torch.rand(n, generator=gen, device="cuda") + 0.5) * (
+        3.0 / (2700.0 * float(np.sqrt(k))))
+    bias = torch.rand(n, generator=gen, device="cuda") * 4.0 - 1.0
+    return ints(0, 128, (m, k)), ints(-127, 128, (n, k)), scale, bias
+
+
+def check_pw_kernel(gen, batch: int, ragged: bool, iters: int, plain_iters: int):
+    """K4 against its plain version at the 13 pointwise layers of ``batch``
+    faces at 224² (and the ragged shape): int8 and f32 out both bit-equal
+    (the count of differing elements is printed and must be 0). Returns
+    (max abs err of the f32 out, kernel ms and plain ms summed over the 13
+    layers, each at its own output type; CUDA events)."""
+    worst, ms_sum, plain_sum = 0.0, 0.0, 0.0
+    for name, pixels, k, n in PW_LAYERS + ([PW_RAGGED] if ragged else []):
+        m = pixels * (batch if name != PW_RAGGED[0] else 1)
+        ops = pw_operands(gen, m, k, n)
+        diffs = {}
+        for requant in (True, False):
+            got = pw_conv.pw_conv_int8(*ops, requant=requant)
+            want = pw_conv.pw_conv_int8_plain(*ops, requant=requant)
+            torch.cuda.synchronize()
+            diffs["int8" if requant else "f32"] = int((got != want).sum())
+            if not requant:
+                worst = max(worst, float((got - want).abs().max()))
+            del got, want
+        requant = name != PW_LAYERS[-1][0]        # pw13 keeps f32 out
+        ms = cuda_ms(lambda: pw_conv.pw_conv_int8(*ops, requant=requant), iters)
+        plain_ms = cuda_ms(lambda: pw_conv.pw_conv_int8_plain(*ops, requant=requant),
+                           plain_iters, warmup=1)
+        print(f"pw_conv_int8 {name}: M={m} K={k} N={n} differing int8 "
+              f"{diffs['int8']} f32 {diffs['f32']}; {'int8' if requant else 'f32'} "
+              f"out kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+        if diffs["int8"] or diffs["f32"]:
+            raise AssertionError(f"pw_conv_int8 {name}: not bit-equal to the "
+                                 f"plain version ({diffs})")
+        if name != PW_RAGGED[0]:
+            ms_sum += ms
+            plain_sum += plain_ms
+    print(f"pw_conv_int8 at batch {batch}: 13 layers {ms_sum:.4f} ms, plain "
+          f"{plain_sum:.4f} ms")
+    return worst, ms_sum, plain_sum
+
 
 def unit_rows(gen, n: int, d: int):
     x = torch.randn((n, d), generator=gen, device="cuda")
@@ -291,8 +403,9 @@ def load_params():
             random_multihead_params(np.random.RandomState(SEED + 100)))
 
 
-def compare_analyzers(gpu, cpu, img):
-    """The card's results against the CPU's on one image."""
+def compare_analyzers(gpu, cpu, img, label: str = "f32 heads", tol=F32_TOL):
+    """The card's results against the CPU's on one image, within ``tol``
+    (boxes in px, ages, P(male), least identity cosine)."""
     g = gpu.analyze_core(gpu.detector.upload(img))
     c = cpu.analyze_core(cpu.detector.upload(img))
     g_valid, c_valid = g[4].cpu().numpy(), c[4].cpu().numpy()
@@ -310,17 +423,89 @@ def compare_analyzers(gpu, cpu, img):
         cos = float(np.dot(a.identity, b.identity)
                     / (np.linalg.norm(a.identity) * np.linalg.norm(b.identity)))
         worst["min_cos"] = min(worst["min_cos"], cos)
-    print(f"cuda vs cpu on image 0: {len(faces_g)} faces, valid masks equal, "
-          f"worst {json.dumps(worst)}")
-    if not (worst["box_px"] <= 1.0 and worst["age"] <= 1e-2
-            and worst["gender"] <= 1e-3 and worst["min_cos"] > 0.999):
-        raise AssertionError(f"cuda vs cpu disagree: {worst}")
+    print(f"cuda vs cpu on image 0 ({label}): {len(faces_g)} faces, valid "
+          f"masks equal, worst {json.dumps(worst)}")
+    if not (worst["box_px"] <= tol["box_px"] and worst["age"] <= tol["age"]
+            and worst["gender"] <= tol["gender"] and worst["min_cos"] > tol["min_cos"]):
+        raise AssertionError(f"cuda vs cpu ({label}) disagree: {worst}")
 
-def knn_launches():
+
+def head_crops(analyzer, img):
+    """The (K, 224, 224, 3) head crops ``analyze_core`` hands the heads."""
+    seen = []
+    apply = analyzer.heads.apply
+    analyzer.heads.apply = lambda crops: seen.append(crops) or apply(crops)
+    try:
+        analyzer.analyze_core(analyzer.detector.upload(img))
+    finally:
+        del analyzer.heads.apply
+    return seen[0]
+
+
+def rel_l2(a, b) -> float:
+    """Largest relative L2 distance of the rows of ``a`` from ``b``."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.linalg.norm(a - b, axis=-1) / np.linalg.norm(b, axis=-1)))
+
+
+def int8_stages_cuda_vs_cpu(gpu, cpu, img):
+    """The int8 heads on the card against the CPU on the same input: the
+    CPU analyzer's head crops of ``img``, preprocessed as ``apply`` does.
+    Stage by stage, each stage runs on both devices from the CPU chain's
+    input (conv1 from the crops, block i from the int8 activation before
+    it): int8 outputs differ only by one-quantum flips, in at most
+    ``FLIP_FRACTION`` of them. The last block's f32 output and the whole
+    heads forward on the same crops within ``SAME_CROPS_TOL``. The crops'
+    own card-vs-CPU difference (K1 against its plain version) is printed
+    beside them."""
+    crops = head_crops(cpu, img)
+    crop_err = float((head_crops(gpu, img).cpu() - crops).abs().max())
+    dev_params = {"cuda": gpu.heads.params["backbone"],
+                  "cpu": cpu.heads.params["backbone"]}
+    x = torch.flip(crops, dims=(-1,)) - torch.tensor(IMAGENET_MEANS_BGR)
+    rows, flips, total = [], 0, 0
+    with torch.no_grad():
+        want = stem_int8(dev_params["cpu"], x)
+        got = stem_int8(dev_params["cuda"], x.cuda()).cpu()
+        for i in range(len(MOBILENET_V1_BLOCKS) + 1):
+            if i:
+                got = block_int8(dev_params["cuda"], i, want.cuda()).cpu()
+                want = block_int8(dev_params["cpu"], i, want)
+            if want.dtype == torch.int8:
+                diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
+                n = int(torch.count_nonzero(diff))
+                rows.append((f"pw{i}" if i else "conv1", n, want.numel()))
+                if int(diff.max()) > 1:
+                    raise AssertionError(f"int8 stage {rows[-1][0]}: cuda and cpu "
+                                         f"differ by {int(diff.max())} quanta")
+                flips, total = flips + n, total + want.numel()
+            else:
+                last = rel_l2(got.reshape(1, -1), want.reshape(1, -1))
+        heads = [an.heads.apply(crops.to(an.device)) for an in (gpu, cpu)]
+    ages, gender, ident = (tuple(t.cpu().numpy() for t in out)
+                           for out in zip(*heads))
+    same = {"last_block_rel_l2": last, "age": float(np.abs(ages[0] - ages[1]).max()),
+            "gender": float(np.abs(gender[0] - gender[1]).max()),
+            "identity_rel_l2": rel_l2(ident[0], ident[1])}
+    print(f"int8 heads cuda vs cpu on the same {len(crops)} crops, stage by "
+          f"stage: flips {flips} of {total} int8 activations "
+          f"({json.dumps({name: n for name, n, _ in rows})}); last block and "
+          f"whole heads {json.dumps(same)}; the crops themselves differ by "
+          f"{crop_err:.3g} (K1 vs plain)")
+    if flips > FLIP_FRACTION * total:
+        raise AssertionError(f"int8 heads: {flips} of {total} activations "
+                             f"flipped, above {FLIP_FRACTION}")
+    if not all(same[k] <= tol for k, tol in SAME_CROPS_TOL.items()):
+        raise AssertionError(f"int8 heads on the same crops: {same} beyond "
+                             f"{SAME_CROPS_TOL}")
+
+
+def kernel_launches():
     return {"knn_f32": knn.nearest_neighbor_f32.launches,
             "knn_int8q": knn.nearest_neighbor_int8q.launches,
             "knn_int8p": knn.nearest_neighbor_int8p.launches,
-            "crop_resize": crop_resize.launches}
+            "crop_resize": crop_resize.launches,
+            "pw_conv_int8": pw_conv.pw_conv_int8.launches}
 
 
 def reset_launches():
@@ -328,6 +513,150 @@ def reset_launches():
     knn.nearest_neighbor_f32.launches = 0
     knn.nearest_neighbor_int8q.launches = 0
     knn.nearest_neighbor_int8p.launches = 0
+    pw_conv.pw_conv_int8.launches = 0
+
+
+def cosine(a, b) -> np.ndarray:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.sum(a * b, -1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+
+
+def timed_analyze(analyzer, images):
+    """Median host ms/image of ``ANALYZE_REPEATS`` synced passes over the
+    images (after one warm-up image), the last pass's outputs and the
+    kernel launches of the timed passes."""
+    analyzer.analyze_with_rotations(images[0])      # warm-up: cuDNN, allocator
+    torch.cuda.synchronize()
+    reset_launches()
+    repeats = []
+    for _ in range(ANALYZE_REPEATS):
+        t0 = time.perf_counter()
+        outputs = [analyzer.analyze_with_rotations(img) for img in images]
+        torch.cuda.synchronize()
+        repeats.append((time.perf_counter() - t0) * 1e3 / len(images))
+    launches = kernel_launches()
+    for i, (faces, rot) in enumerate(outputs):
+        print(f"image {i}: {len(faces)} faces, rotation {rot}: " + json.dumps(
+            [{"bbox": list(f.bbox), "age": round(f.age, 2),
+              "gender_prob": round(f.gender_prob, 4)} for f in faces[:8]]))
+        for f in faces:
+            if not (np.all(np.isfinite(f.identity)) and f.identity.shape == (1024,)
+                    and np.isfinite(f.age) and 0.0 <= f.gender_prob <= 1.0):
+                raise AssertionError(f"image {i}: malformed face {f}")
+    return float(np.median(repeats)), repeats, outputs, launches
+
+
+def int8_analyze_path(mtcnn_params, mh_params, images, f32_outputs):
+    """``analyze --int8-heads``: the analyzer with ``Int8MultiheadHeads``
+    (K1 crops, K4 pointwise layers), timed as the f32 path; its boxes must
+    equal the f32 analyzer's (detection is untouched) and its results the
+    same analyzer's on the CPU."""
+    gpu = FacialAnalyzer(mtcnn_params, device="cuda",
+                         heads=Int8MultiheadHeads(mh_params, "cuda"))
+    median, repeats, outputs, launches = timed_analyze(gpu, images)
+    print(f"analyze_with_rotations --int8-heads: median {median:.3f} ms/image "
+          f"over {ANALYZE_REPEATS} repeats of {len(images)} images (each "
+          f"{[round(r, 3) for r in repeats]}); launches {json.dumps(launches)}")
+    if launches["crop_resize"] <= 0 or launches["pw_conv_int8"] <= 0:
+        raise AssertionError("the int8 analyze path did not launch K1 and K4")
+    cos = []
+    for i, ((faces, rot), (ref, ref_rot)) in enumerate(zip(outputs, f32_outputs)):
+        if rot != ref_rot or [(f.bbox, f.raw_bbox) for f in faces] != [
+                (f.bbox, f.raw_bbox) for f in ref]:
+            raise AssertionError(f"image {i}: int8 heads changed the boxes")
+        cos += [float(cosine(f.identity, r.identity)) for f, r in zip(faces, ref)]
+    print(f"int8 vs f32 heads: boxes equal on {len(images)} images; identity "
+          f"cosine min {min(cos, default=1.0):.6f} mean "
+          f"{float(np.mean(cos)) if cos else 1.0:.6f} over {len(cos)} faces "
+          "(random weights: printed, not held to the shipped weights' 0.98)")
+    cpu = FacialAnalyzer(mtcnn_params, device="cpu",
+                         heads=Int8MultiheadHeads(mh_params, "cpu"))
+    compare_analyzers(gpu, cpu, images[0], "int8 heads", INT8_TOL)
+    int8_stages_cuda_vs_cpu(gpu, cpu, images[0])
+    return launches, median
+
+
+def profile_split(fn):
+    """One ``fn()`` under ``torch.profiler``: device time by kernel group
+    (``PROFILE_GROUPS``), launches per group, the layout copies and pads the
+    forward asked for (aten op counts), and the device-busy share: kernel
+    time over the profiled forward's span on the card (CUDA events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    window_ms = start.elapsed_time(end)
+    groups = {name: [0.0, 0] for name, _ in PROFILE_GROUPS + [("other", ())]}
+    ops, kernels = {}, []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            us = us if us is not None else e.self_cuda_time_total
+            key = e.key.lower()
+            name = next((g for g, marks in PROFILE_GROUPS
+                         if any(m in key for m in marks)), "other")
+            groups[name][0] += us / 1e3
+            groups[name][1] += e.count
+            kernels.append((us / 1e3, e.count, name, e.key[:160]))
+        elif e.key in ("aten::clone", "aten::contiguous", "aten::constant_pad_nd",
+                       "aten::_to_copy", "aten::copy_"):
+            ops[e.key] = e.count
+    busy_ms = sum(ms for ms, _ in groups.values())
+    if busy_ms == 0.0:
+        print("profile: the profiler saw no device kernels; split not measured")
+        return None
+    split = {name: {"ms": round(ms, 4), "share": round(ms / busy_ms, 4),
+                    "launches": n} for name, (ms, n) in groups.items() if n}
+    print("profile of one int8 forward: " + json.dumps(split))
+    for ms, n, name, key in sorted(kernels, reverse=True)[:12]:
+        print(f"  {ms:9.4f} ms {n:3d}x [{name}] {key}")
+    print(f"profile: kernels {busy_ms:.3f} ms of a {window_ms:.3f} ms forward "
+          f"(device busy {busy_ms / window_ms:.4f}); aten op counts "
+          f"{json.dumps(ops)}")
+    return {"split": split, "busy_share": busy_ms / window_ms, "ops": ops}
+
+
+def int8_embed_throughput(mh_params):
+    """The int8 embedder at the JAX bench's design point:
+    ``multihead_apply_int8(...).identity`` at 224², batch 1024, against the
+    f32 ``multihead_apply`` on the same seeded inputs (CUDA events, mean of
+    ``EMBED_REPEATS`` forwards after one), then one profiled int8 forward."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    means = torch.tensor(IMAGENET_MEANS_BGR, dtype=torch.float32, device="cuda")
+    x = torch.rand((EMBED_BATCH, 224, 224, 3), generator=gen, device="cuda") * 255 - means
+    qp = to_torch(quantize_multihead_int8(mh_params), "cuda")
+    fp = to_torch(mh_params, "cuda")
+    fns = {"int8": lambda: multihead_apply_int8(qp, x).identity,
+           "f32": lambda: multihead_apply(fp, x).identity}
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        ident = {name: fn() for name, fn in fns.items()}
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        reset_launches()
+        ms = {"int8": cuda_ms(fns["int8"], EMBED_REPEATS, warmup=0)}
+        launches = kernel_launches()
+        ms["f32"] = cuda_ms(fns["f32"], EMBED_REPEATS, warmup=0)
+        split = profile_split(fns["int8"])
+    cos = cosine(ident["int8"].cpu().numpy(), ident["f32"].cpu().numpy())
+    ips = {k: EMBED_BATCH / (v / 1e3) for k, v in ms.items()}
+    print(f"embed at 224², batch {EMBED_BATCH}: int8 {ms['int8']:.3f} ms "
+          f"({ips['int8']:.1f} img/s), f32 {ms['f32']:.3f} ms "
+          f"({ips['f32']:.1f} img/s); int8 vs f32 identity cosine min "
+          f"{cos.min():.6f} mean {cos.mean():.6f}; peak memory {peak:.2f} GiB; "
+          f"launches {json.dumps(launches)}")
+    if launches["pw_conv_int8"] <= 0:
+        raise AssertionError("the int8 embedder launched no pw_conv_int8 kernel")
+    if not (np.all(np.isfinite(cos)) and ident["int8"].shape == (EMBED_BATCH, 1024)):
+        raise AssertionError("malformed int8 embeddings")
+    return launches, {"ms": ms, "ips": ips, "cos_min": float(cos.min()),
+                      "profile": split}
 
 
 def people_tree(rng, root: str):
@@ -348,12 +677,13 @@ def people_tree(rng, root: str):
     return paths, {k: np.asarray(v) for k, v in labels.items()}
 
 
-def identify_path(rng, mh_params, tmp: str):
-    """The identify path at full width (224², 1024-d) on the card, then
-    the same ranking objects on the CPU with the card's features."""
+def identify_path(rng, model: str, params, tmp: str):
+    """``identify --model <model>`` at full width (224², 1024-d) on the
+    card, then the same ranking objects on the CPU with the card's
+    features. ``params`` are the zoo entry's (quantized for ``*_int8``)."""
+    tmp = os.path.join(tmp, model)
     paths, labels = people_tree(rng, tmp)
-    gpu_ex = zoo.build_extractor("agegender_identity", batch_size=8,
-                                 device="cuda", params=mh_params)
+    gpu_ex = zoo.build_extractor(model, batch_size=8, device="cuda", params=params)
     gpu_ex.extract_files(paths["gallery"][:2], loader=np.load)   # warm-up
     torch.cuda.synchronize()
     reset_launches()
@@ -374,15 +704,17 @@ def identify_path(rng, mh_params, tmp: str):
         if dev == "cuda":
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = knn_launches()
+            launches = kernel_launches()
     n = sum(len(v) for v in paths.values())
-    print(f"identify path: {n} photos at 224x224 -> {feats['probe'].shape[1]}-d, "
+    print(f"identify --model {model}: {n} photos at 224x224 -> {feats['probe'].shape[1]}-d, "
           f"{wall * 1e3:.1f} ms on the card (extract + rank); launches "
           f"{json.dumps(launches)}; int8 accuracy "
           f"{float(np.mean(preds['cuda'] == labels['probe']))}, f32 {accs['cuda']}")
-    for k in ("knn_int8q", "knn_int8p"):
+    kernels = ("knn_int8q", "knn_int8p") + (
+        ("pw_conv_int8",) if model.endswith("_int8") else ())
+    for k in kernels:
         if launches[k] <= 0:
-            raise AssertionError(f"the identify path launched no {k} kernel")
+            raise AssertionError(f"identify --model {model} launched no {k} kernel")
     if not np.all(np.isfinite(feats["gallery"])) or feats["gallery"].shape != (
             N_PEOPLE * N_GALLERY, 1024):
         raise AssertionError(f"malformed features {feats['gallery'].shape}")
@@ -394,12 +726,11 @@ def identify_path(rng, mh_params, tmp: str):
             [b for _, b, _ in idents["cuda"]], [b for _, b, _ in idents["cpu"]],
             rtol=1e-6):
         raise AssertionError(f"gallery cuda {idents['cuda']} vs cpu {idents['cpu']}")
-    cpu_ex = zoo.build_extractor("agegender_identity", batch_size=8,
-                                 device="cpu", params=mh_params)
+    cpu_ex = zoo.build_extractor(model, batch_size=8, device="cpu", params=params)
     cpu_feats = cpu_ex.extract_files(paths["probe"], loader=np.load)
     cos = np.sum(cpu_feats * feats["probe"], 1) / (
         np.linalg.norm(cpu_feats, axis=1) * np.linalg.norm(feats["probe"], axis=1))
-    print(f"identify cuda vs cpu: predictions and gallery answers equal; "
+    print(f"identify --model {model} cuda vs cpu: predictions and gallery answers equal; "
           f"extractor min cosine {cos.min():.7f}, max abs "
           f"{np.abs(cpu_feats - feats['probe']).max():.3g}")
     if not cos.min() > 0.999:
@@ -437,7 +768,7 @@ def identify_at_scale():
     served = [knn.nearest_neighbor_int8p(probes[i:i + SERVE_BATCH], *packed)
               for i in range(0, SERVE_BATCH * SERVE_QUERIES, SERVE_BATCH)]
     torch.cuda.synchronize()
-    launches = knn_launches()
+    launches = kernel_launches()
     print(f"identify at scale: M={SCALE_M} N={SCALE_N} D={SCALE_D}: accuracy "
           f"exact {acc_exact} ({t_exact * 1e3:.1f} ms), int8 {acc_q} "
           f"({t_q * 1e3:.1f} ms); {SERVE_QUERIES} serving queries of "
@@ -502,7 +833,7 @@ def analyze_gallery_path(gpu, images, tmp: str):
             probes = np.stack([np.asarray(f.identity, np.float32) for f in faces])
             answers.append((probes, galleries["cuda"].identify_many(probes)))
     torch.cuda.synchronize()
-    launches = knn_launches()
+    launches = kernel_launches()
     print(f"analyze --gallery: {len(images)} photos, {len(enrolled)} faces "
           f"enrolled; first answers {answers[0][1] if answers else None}; "
           f"launches {json.dumps(launches)}")
@@ -540,56 +871,66 @@ def main() -> None:
     log = build.library_path().parent / "build.log"
     if log.exists():
         print(log.read_text().strip())
+    phase_done("build")
 
     # --- kernel vs plain ---
     rng = np.random.RandomState(SEED)
     crop_results = check_crop_kernel(rng)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    pw_err, pw_ms, pw_plain_ms = check_pw_kernel(gen, PW_BATCH, True, 20, 5)
+    phase_done("K1 and K4 checks")
 
     # --- main paths: counts set to 0 just before each, read just after ---
     mtcnn_params, mh_params = load_params()
     gpu = FacialAnalyzer(mtcnn_params, mh_params, device="cuda")
     images = load_images(rng)
-    gpu.analyze_with_rotations(images[0])      # warm-up: cuDNN and allocator
-    torch.cuda.synchronize()
-    reset_launches()
-    repeats = []
-    for _ in range(ANALYZE_REPEATS):
-        t0 = time.perf_counter()
-        outputs = [gpu.analyze_with_rotations(img) for img in images]
-        torch.cuda.synchronize()
-        repeats.append((time.perf_counter() - t0) * 1e3 / len(images))
-    path_launches = [knn_launches()]
-    for i, (faces, rot) in enumerate(outputs):
-        print(f"image {i}: {len(faces)} faces, rotation {rot}: " + json.dumps(
-            [{"bbox": list(f.bbox), "age": round(f.age, 2),
-              "gender_prob": round(f.gender_prob, 4)} for f in faces[:8]]))
-        for f in faces:
-            if not (np.all(np.isfinite(f.identity)) and f.identity.shape == (1024,)
-                    and np.isfinite(f.age) and 0.0 <= f.gender_prob <= 1.0):
-                raise AssertionError(f"image {i}: malformed face {f}")
-    print(f"analyze_with_rotations: median {float(np.median(repeats)):.3f} "
+    median, repeats, outputs, analyze_launches = timed_analyze(gpu, images)
+    path_launches = [analyze_launches]
+    print(f"analyze_with_rotations: median {median:.3f} "
           f"ms/image over {ANALYZE_REPEATS} repeats of {len(images)} images "
           f"(each {[round(r, 3) for r in repeats]}); launches "
-          f"{json.dumps(path_launches[0])}")
-    if path_launches[0]["crop_resize"] <= 0:
+          f"{json.dumps(analyze_launches)}")
+    if analyze_launches["crop_resize"] <= 0:
         raise AssertionError("the analyze path launched no crop_resize kernel")
 
     cpu = FacialAnalyzer(mtcnn_params, mh_params, device="cpu")
     compare_analyzers(gpu, cpu, images[0])
+    phase_done("analyze")
+
+    int8_launches, int8_median = int8_analyze_path(mtcnn_params, mh_params,
+                                                   images, outputs)
+    path_launches.append(int8_launches)
+    phase_done("analyze --int8-heads")
+    embed_launches, embed = int8_embed_throughput(mh_params)
+    path_launches.append(embed_launches)
+    torch.cuda.empty_cache()
+    phase_done("int8 embed")
+    # K4 at the embedder's batch, where the layers are no longer launch-bound
+    # (after the analyze timing: its plain version allocates tens of GB)
+    check_pw_kernel(gen, EMBED_BATCH, False, 10, 2)
+    torch.cuda.empty_cache()
+    phase_done(f"K4 check at batch {EMBED_BATCH}")
 
     # the 1-NN kernel checks allocate tens of GB: after the analyze timing
     knn_results = check_knn_kernels()
     torch.cuda.empty_cache()
+    phase_done("K2 checks")
 
     with tempfile.TemporaryDirectory() as tmp:
-        path_launches.append(identify_path(rng, mh_params, tmp))
+        path_launches.append(identify_path(rng, "agegender_identity", mh_params, tmp))
+        path_launches.append(identify_path(rng, "agegender_identity_int8",
+                                           quantize_multihead_int8(mh_params), tmp))
+        phase_done("identify f32 and int8")
         path_launches.append(identify_at_scale())
         torch.cuda.empty_cache()
+        phase_done("identify at scale")
         path_launches.append(analyze_gallery_path(gpu, images, tmp))
+        phase_done("analyze --gallery")
     launches = {k: sum(p[k] for p in path_launches) for k in path_launches[0]}
 
     # crop ms / plain_ms: the sum over the three call-site shapes, i.e. one
-    # image's crop passes at the default caps; knn: the serve16 shape
+    # image's crop passes at the default caps; knn: the serve16 shape;
+    # pw_conv_int8: the sum over the 13 layers of one 16-face head batch
     errs, ms, plain = zip(*crop_results)
     kernels = [{
         "name": "crop_resize", "route": "cuda",
@@ -605,6 +946,16 @@ def main() -> None:
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "equal": name != "knn_f32", "ms": r["ms"], "plain_ms": r["plain_ms"],
             "shape": r["shape"]})
+    kernels.append({
+        "name": "pw_conv_int8", "route": "cuda",
+        "source": "hse_facerec_torch/csrc/pw_conv.cu",
+        "replaces": "hse_facerec_tf_tpu/ops/pallas/pw_conv.py:150",
+        "launches": launches["pw_conv_int8"], "max_abs_err": pw_err,
+        "equal": True, "ms": pw_ms, "plain_ms": pw_plain_ms,
+        "shape": f"13 pointwise layers at batch {PW_BATCH}, 224²"})
+    print(f"int8 serving: analyze --int8-heads median {int8_median:.3f} ms/image "
+          f"(f32 heads {median:.3f}); embed batch {EMBED_BATCH} "
+          + json.dumps({k: round(v, 1) for k, v in embed["ips"].items()}) + " img/s")
     print("knn design point: " + json.dumps(knn_results["design_point"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

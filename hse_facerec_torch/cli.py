@@ -1,7 +1,8 @@
 """Command-line interface of the port.
 
   analyze  — detect faces in one image and print age, gender and box per
-             face; with ``--gallery`` also the matched enrolled person
+             face; with ``--gallery`` also the matched enrolled person,
+             with ``--int8-heads`` on the int8 serving path
   identify — gallery/probe 1-NN identification (tf_train_test_recognition)
   enroll   — bulk-enroll a people directory of pre-cropped faces into a
              gallery .npz (``--mode image``)
@@ -27,7 +28,8 @@ def _build_analyzer(args):
         if not os.path.exists(path):
             sys.exit(f"error: weights not found: {path}")
     return FacialAnalyzer.from_reference_models(
-        mtcnn_pb, agegender_pb, device=args.device, minsize=args.minsize)
+        mtcnn_pb, agegender_pb, device=args.device, minsize=args.minsize,
+        int8_heads=args.int8_heads)
 
 
 def _load_gallery(path, device):
@@ -161,6 +163,10 @@ def main(argv=None):
     p.add_argument("--mtcnn-pb", default=None)
     p.add_argument("--agegender-pb", default=None)
     p.add_argument("--minsize", type=int, default=40)
+    p.add_argument("--int8-heads", action="store_true",
+                   help="run the per-face multi-head net on the full-int8 "
+                        "serving path (int8 activations, pointwise layers "
+                        "on the int8 kernel; models/int8_infer.py)")
     p.add_argument("--gallery", default=None, metavar="NPZ",
                    help="enrollment gallery: report the matched person per "
                         "face (see the 'enroll' subcommand)")

@@ -3,7 +3,8 @@
 Counterpart of ``hse_facerec_tf_tpu/models/layers.py``. Weights come in
 PyTorch layouts (``params.py``). TF's SAME padding puts the odd extra pixel
 bottom/right and MaxPool pads with -inf; both are explicit ``F.pad`` calls
-here, since ``padding='same'`` and symmetric padding do not match TF.
+here, since ``padding='same'`` and symmetric padding do not match TF (an
+even split is passed to the conv as its own padding).
 """
 
 from __future__ import annotations
@@ -30,10 +31,18 @@ def _pad_same(x, kh: int, kw: int, stride: int, value: float = 0.0):
 
 def conv2d(x, weight, bias=None, *, stride: int = 1, padding: str = "SAME",
            groups: int = 1):
-    """NCHW conv with an OIHW weight, TF-compatible SAME padding."""
+    """NCHW conv with an OIHW weight, TF-compatible SAME padding. Symmetric
+    pads go to the conv itself, so only an odd edge (stride 2 on an even
+    size) pays an ``F.pad`` copy."""
+    pads = (0, 0)
     if padding == "SAME":
-        x = _pad_same(x, weight.shape[2], weight.shape[3], stride)
-    return F.conv2d(x, weight, bias, stride=stride, groups=groups)
+        top, bottom = _same_pads(x.shape[2], weight.shape[2], stride)
+        left, right = _same_pads(x.shape[3], weight.shape[3], stride)
+        if top == bottom and left == right:
+            pads = (top, left)
+        else:
+            x = F.pad(x, (left, right, top, bottom))
+    return F.conv2d(x, weight, bias, stride=stride, padding=pads, groups=groups)
 
 
 def depthwise_conv2d(x, weight, bias=None, *, stride: int = 1,

@@ -39,10 +39,22 @@ def _multihead_identity(params, x):
     return multihead_apply(params, x).identity
 
 
+def _multihead_identity_int8(params, x):
+    from .int8_infer import multihead_apply_int8
+
+    return multihead_apply_int8(params, x).identity
+
+
 def _agegender_params():
     from .multihead import import_multihead_params
 
     return import_multihead_params(AGEGENDER_PB)
+
+
+def _agegender_int8_params():
+    from .int8_infer import quantize_multihead_int8
+
+    return quantize_multihead_int8(_agegender_params())
 
 
 MODEL_ZOO: Dict[str, ModelSpec] = {
@@ -51,6 +63,11 @@ MODEL_ZOO: Dict[str, ModelSpec] = {
     "agegender_identity": ModelSpec(
         "agegender_identity", (224, 224), "caffe", "cv2_linear", 1024,
         _agegender_params, _multihead_identity),
+    # the same model on the full-int8 serving path (models/int8_infer.py,
+    # pointwise layers on K4); same preprocessing and protocols
+    "agegender_identity_int8": ModelSpec(
+        "agegender_identity_int8", (224, 224), "caffe", "cv2_linear", 1024,
+        _agegender_int8_params, _multihead_identity_int8),
 }
 
 _WEIGHT_FILES = {"agegender_identity": AGEGENDER_PB}
@@ -58,15 +75,19 @@ _WEIGHT_FILES = {"agegender_identity": AGEGENDER_PB}
 
 def weights_origin(name: str) -> str:
     """'imported' if the entry's trained reference weights are on this
-    machine, 'missing' if not (building it would then fail)."""
+    machine, 'missing' if not (building it would then fail). The int8
+    variants share their f32 base's file."""
+    if name.endswith("_int8"):
+        name = name[: -len("_int8")]
     return "imported" if os.path.exists(_WEIGHT_FILES[name]) else "missing"
 
 
 def build_extractor(name: str, batch_size: int = 64, device="cuda",
                     params: Optional[Dict] = None):
     """The zoo entry as an ``EmbeddingExtractor`` on ``device``. ``params``
-    (numpy, reference layouts) replaces the entry's weight file, e.g. with
-    seeded random weights where the file is absent."""
+    (numpy, the layouts ``build_params`` returns: quantized for the int8
+    entries) replaces the entry's weights, e.g. with seeded random weights
+    where the file is absent."""
     from ..pipelines.embedder import EmbeddingExtractor
 
     spec = MODEL_ZOO[name]

@@ -1,7 +1,8 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
 All of ``hse_facerec_torch/csrc/*.cu`` compile into one shared library with
-a plain C interface, for Hopper (``sm_90a``), at first use. The library goes
+a plain C interface, for Hopper (``sm_90a``), at first use: one ``nvcc``
+per source, all started together, then one link. The library goes
 to ``hse_facerec_torch/_build/<hash>/``, keyed by a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one loads at once.
 Nothing here falls back: a missing ``nvcc`` or a failed build raises.
@@ -24,7 +25,7 @@ CSRC = PACKAGE_ROOT / "csrc"
 BUILD_ROOT = PACKAGE_ROOT / "_build"
 LIB_NAME = "libfacerec_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def find_nvcc() -> str:
@@ -56,21 +57,37 @@ def library_path() -> Path:
     return BUILD_ROOT / source_hash() / LIB_NAME
 
 
+def _run(cmds: List[List[str]], logs: List[Path]) -> str:
+    """Run the commands at once, each writing to its log; raise if any
+    fails. Returns the logs, in order."""
+    procs = []
+    for cmd, log in zip(cmds, logs):
+        with open(log, "w") as out:
+            procs.append(subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT))
+    codes = [proc.wait() for proc in procs]
+    text = "".join(log.read_text() for log in logs)
+    for cmd, code in zip(cmds, codes):
+        if code != 0:
+            raise RuntimeError(f"nvcc failed ({code}): {' '.join(cmd)}\n{text}")
+    return text
+
+
 def build(lib_path: Path) -> str:
     """Compile every source into ``lib_path``; returns nvcc's output (the
     ``-Xptxas -v`` register and spill report). The library appears
     atomically, so a concurrent build never loads a half-written file."""
     nvcc = find_nvcc()
     lib_path.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib_path.parent)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-    os.replace(tmp, lib_path)
+    with tempfile.TemporaryDirectory(dir=lib_path.parent) as tmp:
+        tmp = Path(tmp)
+        objs = [tmp / (src.stem + ".o") for src in sources()]
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(sources(), objs)],
+                   [obj.with_suffix(".log") for obj in objs])
+        lib = tmp / LIB_NAME
+        log += _run([[nvcc, "-shared", "-o", str(lib), *map(str, objs)]],
+                    [tmp / "link.log"])
+        os.replace(lib, lib_path)
     (lib_path.parent / "build.log").write_text(log)
     return log
 

@@ -4,7 +4,9 @@ The JAX package keeps weights in TF layouts: conv kernels HWIO, depthwise
 kernels (H, W, C, mult), dense kernels (in, out). The port's layers take
 PyTorch's layouts: OIHW, (C·mult, 1, H, W) and (out, in) for ``F.linear``.
 A layer dict is ``{"kernel", "bias"}`` or ``{"alpha"}`` (PReLU); a layer
-whose name starts with ``dw`` holds a depthwise kernel.
+whose name starts with ``dw`` holds a depthwise kernel. A quantized int8
+backbone (``models/int8_infer.py::quantize_*``, whose ``pw1`` holds ``q``)
+takes the int8 layouts.
 """
 
 from __future__ import annotations
@@ -52,11 +54,46 @@ def _layer(name: str, p: Dict, device) -> Dict[str, torch.Tensor]:
 
 def to_torch(params: Dict, device) -> Dict:
     """Convert a reference param pytree (nested dicts of numpy arrays, layer
-    dicts at the leaves) to torch tensors on ``device``."""
+    dicts at the leaves) to torch tensors on ``device``. A quantized
+    backbone, from the port or from the JAX package, goes through
+    ``_int8_backbone``."""
+    if "q" in params.get("pw1", {}):
+        return _int8_backbone(params, device)
     out = {}
     for name, p in params.items():
         if all(isinstance(v, dict) for v in p.values()):
             out[name] = to_torch(p, device)
         else:
             out[name] = _layer(name, p, device)
+    return out
+
+
+# the JAX package's TPU lane packing of a pointwise layer; K4 needs none
+_TPU_PACKED = {"wp", "scale_p", "bias_p"}
+
+
+def _int8_backbone(qparams: Dict, device) -> Dict:
+    """Quantized backbone layers: a pointwise layer becomes {"q": (Cout,
+    Cin) int8, "scale", "bias"}, the (N, K) weight K4 takes (the JAX
+    package's TPU-packed keys are ignored); the float kernels of conv1 and
+    the depthwise layers are rounded to bf16 once here, since the int8 path
+    only ever reads them so, and laid out channels-last as the activations
+    they meet (so the conv does not copy them on every call)."""
+    out = {}
+    for name, p in qparams.items():
+        if name.startswith("pw"):
+            unknown = set(p) - {"q", "scale", "bias"} - _TPU_PACKED
+            if "q" not in p or unknown:
+                raise ValueError(f"layer {name!r}: a quantized backbone's pointwise "
+                                 f"layer holds q, scale and bias, got {sorted(p)}")
+            q = np.ascontiguousarray(np.asarray(p["q"], np.int8).T)
+            out[name] = {"q": torch.from_numpy(q).to(device)}
+            for key in ("scale", "bias"):
+                out[name][key] = torch.from_numpy(
+                    np.ascontiguousarray(p[key], np.float32)).to(device)
+        else:
+            layer = _layer(name, p, device)
+            layer["kernel"] = layer["kernel"].to(torch.bfloat16).to(torch.float32) \
+                .contiguous(memory_format=torch.channels_last)
+            out[name] = layer
     return out

@@ -24,7 +24,7 @@ from ..models.mtcnn import import_mtcnn_params
 from ..models.multihead import import_multihead_params
 from ..ops.kernels.crop import crop_resize
 from .detector import MTCNNDetector, resolve_device
-from .heads import MultiheadHeads
+from .heads import Int8MultiheadHeads, MultiheadHeads
 
 
 @dataclasses.dataclass
@@ -45,27 +45,41 @@ class FacialAnalyzer:
     """Detection + per-face heads on one device.
 
     ``mtcnn_params`` and ``multihead_params`` are the reference's numpy
-    pytrees; they move to ``device`` once. ``head_batch`` bounds the crops
-    and head forwards per image: the first ``head_batch`` valid boxes are
-    analyzed, and ``analyze`` re-runs at the detector's full width when an
-    image has more valid faces than that."""
+    pytrees; they move to ``device`` once. ``heads`` replaces the default
+    ``MultiheadHeads(multihead_params)``: any object on the same device with
+    ``apply(crops) -> (ages, gender_prob, identity)``, e.g.
+    ``Int8MultiheadHeads``. ``head_batch`` bounds the crops and head
+    forwards per image: the first ``head_batch`` valid boxes are analyzed,
+    and ``analyze`` re-runs at the detector's full width when an image has
+    more valid faces than that."""
 
-    def __init__(self, mtcnn_params, multihead_params, device="cuda",
+    def __init__(self, mtcnn_params, multihead_params=None, device="cuda",
                  minsize: int = 40, face_size: int = 224,
-                 bbox_dilation: int = 10, head_batch: int = 16,
+                 bbox_dilation: int = 10, head_batch: int = 16, heads=None,
                  **detector_kwargs):
         self.device = resolve_device(device)
+        if heads is None:
+            if multihead_params is None:
+                raise ValueError("pass multihead_params or heads")
+            heads = MultiheadHeads(multihead_params, self.device)
         self.detector = MTCNNDetector(mtcnn_params, device=self.device,
                                       minsize=minsize, **detector_kwargs)
-        self.heads = MultiheadHeads(multihead_params, self.device)
+        self.heads = heads
         self.face_size = face_size
         self.bbox_dilation = bbox_dilation
         self.head_batch = head_batch
 
     @classmethod
-    def from_reference_models(cls, mtcnn_pb: str, agegender_pb: str, **kwargs):
-        return cls(import_mtcnn_params(mtcnn_pb),
-                   import_multihead_params(agegender_pb), **kwargs)
+    def from_reference_models(cls, mtcnn_pb: str, agegender_pb: str,
+                              int8_heads: bool = False, **kwargs):
+        """``int8_heads=True`` runs the per-face multi-head net on the
+        full-int8 serving path (``models/int8_infer.py``)."""
+        mh = import_multihead_params(agegender_pb)
+        if int8_heads:
+            device = resolve_device(kwargs.pop("device", "cuda"))
+            return cls(import_mtcnn_params(mtcnn_pb), device=device,
+                       heads=Int8MultiheadHeads(mh, device), **kwargs)
+        return cls(import_mtcnn_params(mtcnn_pb), mh, **kwargs)
 
     def _dilated_geometry(self, boxes, h: int, w: int):
         """Dilate by ``bbox_dilation`` (reference :240-244): the [y1, x1,

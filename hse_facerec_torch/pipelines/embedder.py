@@ -34,7 +34,8 @@ class EmbeddingExtractor:
     Args:
       model_fn: ``f(params, images_f32_nhwc) -> (N, D)`` on torch tensors.
       params: the model's parameters in the reference's numpy layouts;
-        moved to ``device`` once (``params.to_torch``).
+        moved to ``device`` once (``params.to_torch``; a quantized
+        pytree takes the int8 layouts).
       input_size: (H, W) the model expects.
       normalization: key into ``ops.preprocess.NORMALIZERS``.
       resize_method: 'cv2_linear' | 'cv2_area' | 'pil_bilinear' | ...

@@ -1,5 +1,6 @@
-"""The kernels K1 (crop) and K2a/K2b/K2c (1-NN): their wrappers' routing,
-their build, and each kernel on the card against its plain twin.
+"""The kernels K1 (crop), K2a/K2b/K2c (1-NN) and K4 (int8 pointwise conv):
+their wrappers' routing, their build, and each kernel on the card against
+its plain twin.
 
 This file imports no JAX (neither does the package), so the card tests run
 on a machine without it, without the repo's conftest:
@@ -13,7 +14,9 @@ only the order of the sums differs. K2b/K2c must equal
 ``nearest_neighbor_int8_plain`` bit for bit in index and distance (an
 exact int32 dot, one f32 rounding per key). K2a sums in another order than
 its twin: distances within rtol 1e-4 / atol 1e-3, and the same index
-wherever the twin's two best candidates differ by more than that.
+wherever the twin's two best candidates differ by more than that. K4 must
+equal ``pw_conv_int8_plain`` bit for bit, int8 and f32 out (an exact int32
+dot, one fused multiply-add, the same clip and round).
 """
 
 import os
@@ -27,6 +30,7 @@ import torch
 from hse_facerec_torch.ops import resize as tr
 from hse_facerec_torch.ops.kernels import build
 from hse_facerec_torch.ops.kernels import knn
+from hse_facerec_torch.ops.kernels import pw_conv
 from hse_facerec_torch.ops.kernels.crop import crop_resize
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -88,7 +92,8 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 
 def test_build_key_tracks_sources():
-    assert [p.name for p in build.sources()] == ["crop_resize.cu", "knn.cu"]
+    assert [p.name for p in build.sources()] == ["crop_resize.cu", "knn.cu",
+                                                 "pw_conv.cu"]
     key = build.source_hash()
     assert key == build.source_hash() and len(key) == 16
     assert build.library_path().parent.name == key
@@ -242,3 +247,63 @@ def test_knn_f32_kernel_matches_plain_on_card(cuda, m, n, d, bf16):
         clear[:] = True
     mask = clear.cpu().numpy()
     np.testing.assert_array_equal(gi.cpu().numpy()[mask], wi.cpu().numpy()[mask])
+
+
+def _pw_operands(rng, m, k, n, device="cpu"):
+    a = rng.randint(0, 128, (m, k)).astype(np.int8)
+    w = rng.randint(-127, 128, (n, k)).astype(np.int8)
+    # |acc| spreads about 2700·sqrt(k): outputs cover [0, 6] and clip at both ends
+    scale = (rng.uniform(0.5, 1.5, n) * 3.0 / (2700.0 * np.sqrt(k))).astype(np.float32)
+    bias = (rng.rand(n) * 4.0 - 1.0).astype(np.float32)
+    return [_t(x).to(device) for x in (a, w, scale, bias)]
+
+
+def test_pw_conv_wrapper_cpu_takes_plain_path(rng):
+    ops = _pw_operands(rng, 70, 36, 20)
+    before = pw_conv.pw_conv_int8.launches
+    for requant in (True, False):
+        got = pw_conv.pw_conv_int8(*ops, requant=requant)
+        want = pw_conv.pw_conv_int8_plain(*ops, requant=requant)
+        assert got.dtype == (torch.int8 if requant else torch.float32)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert pw_conv.pw_conv_int8.launches == before
+
+
+def test_pw_conv_wrapper_rejects_other_devices(rng):
+    a, w, scale, bias = _pw_operands(rng, 8, 16, 4)
+    with pytest.raises(ValueError):
+        pw_conv.pw_conv_int8(a.to("meta"), w.to("meta"), scale.to("meta"),
+                             bias.to("meta"))
+    with pytest.raises(ValueError):
+        pw_conv.pw_conv_int8(a, w.to("meta"), scale, bias)
+
+
+# (M, K, N): pw1 at one 112² image; pw13 at a 7² image ragged against the
+# 64-row tile, f32 out; K and N off whole words (the byte-wise load path)
+PW_CARD_SHAPES = [(12544, 32, 64), (49, 1024, 1024), (1000, 30, 50)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("requant", [True, False])
+@pytest.mark.parametrize("m,k,n", PW_CARD_SHAPES)
+def test_pw_conv_kernel_equals_plain_on_card(cuda, m, k, n, requant):
+    ops = _pw_operands(np.random.RandomState(m + k + n), m, k, n, cuda)
+    before = pw_conv.pw_conv_int8.launches
+    got = pw_conv.pw_conv_int8(*ops, requant=requant)
+    want = pw_conv.pw_conv_int8_plain(*ops, requant=requant)
+    torch.cuda.synchronize()
+    assert pw_conv.pw_conv_int8.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    if requant:
+        assert 0 < int(got.to(torch.int32).sum()) and int(got.max()) <= 127
+
+
+@pytest.mark.cuda
+def test_pw_conv_kernel_rejects_bad_operands_on_card(cuda, rng):
+    a, w, scale, bias = _pw_operands(rng, 64, 32, 16, cuda)
+    with pytest.raises(TypeError):
+        pw_conv.pw_conv_int8(a.float(), w, scale, bias)
+    with pytest.raises(ValueError):
+        pw_conv.pw_conv_int8(a[:, ::2], w[:, :16], scale, bias)
+    with pytest.raises(ValueError):
+        pw_conv.pw_conv_int8(a, w, scale, bias.cpu())
