@@ -39,13 +39,25 @@ kernels are built for sm_90a). It:
      serving queries against the packed gallery (K2c), checked against
      the int8 twin;
    - analyze --gallery: ``analyze_with_rotations`` then
-     ``EnrollmentGallery.identify_many`` per photo (K1 + K2c).
+     ``EnrollmentGallery.identify_many`` per photo (K1 + K2c);
+7. holds K3 (the augmentation warp) against its plain version at the
+   training shape (256 x 224 x 224 x 3, two augmentation configs) and a
+   ragged one, timed beside ``F.grid_sample``;
+8. drives face-ID training at full width: ``FaceIdTrainer`` (MobileNet-V1
+   alpha 1.0, 224², batch 256, 9131 classes, augmentation on K3), bf16
+   then float32, timed, with a ``torch.profiler`` split of one step; the
+   loss falls over 10 steps on one batch; one step at width 1.0 on the card
+   and on the CPU from the same params agrees (loss in float32, gradients
+   in float64), and K3 agrees with the CPU's plain version.
 Each path runs with the launch counters set to 0 just before it and read
 just after, and fails if it did not launch its kernels.
 Weights are the shipped ones when present, seeded random ones otherwise.
 
 Any failure raises (non-zero exit). The last two lines are a JSON summary
-of the kernels and ``{"ok": true, "device": {...}}``.
+of the kernels (each with its card time, its plain version's, the least
+time the card could take for the same work, ``bound_ms``, and a library
+call's time where one PyTorch call computes a like function) and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -63,26 +75,30 @@ import torch
 import torch.nn.functional as F
 
 from hse_facerec_torch import set_parity_numerics
+from hse_facerec_torch.config import TrainConfig
 from hse_facerec_torch.models import zoo
 from hse_facerec_torch.models.int8_infer import (block_int8, multihead_apply_int8,
                                                  quantize_multihead_int8, stem_int8)
-from hse_facerec_torch.models.mobilenet import MOBILENET_V1_BLOCKS
+from hse_facerec_torch.models.mobilenet import MOBILENET_V1_BLOCKS, init_mobilenet_params
 from hse_facerec_torch.models.mtcnn import import_mtcnn_params
 from hse_facerec_torch.models.multihead import import_multihead_params, multihead_apply
 from hse_facerec_torch.ops.kernels import build
 from hse_facerec_torch.ops.kernels import knn
 from hse_facerec_torch.ops.kernels import pw_conv
+from hse_facerec_torch.ops.kernels import warp
 from hse_facerec_torch.ops.distance import l2_normalize
 from hse_facerec_torch.ops.kernels.crop import crop_resize
 from hse_facerec_torch.ops.preprocess import IMAGENET_MEANS_BGR
 from hse_facerec_torch.ops.resize import crop_resize_bilinear
-from hse_facerec_torch.params import to_torch
+from hse_facerec_torch.params import to_numpy, to_torch
 from hse_facerec_torch.pipelines.analyzer import FacialAnalyzer
 from hse_facerec_torch.pipelines.gallery import EnrollmentGallery
 from hse_facerec_torch.pipelines.heads import Int8MultiheadHeads
 from hse_facerec_torch.pipelines.identification import (KNNIdentifier,
                                                         gallery_probe_eval)
 from hse_facerec_torch.testing import random_mtcnn_params, random_multihead_params
+from hse_facerec_torch.train import face_id
+from hse_facerec_torch.train.augment import AugmentConfig, sample_affine
 
 H, W = 480, 640
 N_IMAGES = 3
@@ -144,6 +160,36 @@ PROFILE_GROUPS = [("pw_conv_int8 (K4)", ("pw_conv_int8",)),
                   ("heads and GAP (gemm, reduce)", ("gemm", "gemv", "reduce")),
                   ("bias, ReLU6 and requant passes", ("elementwise", "round", "clamp",
                                                       "add", "mul"))]
+# K3 at the training shape (mats from two augmentation configs) and a
+# ragged one. The bound: coordinates, taps and bf16 roundings are the plain
+# version's; its FMAs round through float64, which can differ from the
+# card's single rounding by one ulp of a blended value
+WARP_SHAPES = [("train", 256, 224, 224, AugmentConfig()),
+               ("train_shift0.2", 256, 224, 224, AugmentConfig(shift=0.2)),
+               ("ragged", 5, 50, 62, AugmentConfig(shift=0.5, rotation_deg=30))]
+WARP_ATOL = 1e-6
+# face-ID training at the JAX bench's configuration (bench.py:399)
+TRAIN_CLASSES, TRAIN_BATCH, TRAIN_SIZE = 9131, 256, 224
+TRAIN_WARMUP, TRAIN_STEPS, LEARN_STEPS = 2, 5, 10
+# card vs CPU: one step at width 1.0, batch 8, 64², 10 classes; the CPU
+# tests' bounds (tests/test_torch_train.py): loss 1e-5 relative in float32,
+# gradients 1e-6 relative L2 per tensor in float64 (in float32, activations
+# within about 1e-5 of ReLU6's bounds flip its gradient mask)
+PARITY_BATCH, PARITY_SIZE, PARITY_CLASSES = 8, 64, 10
+LOSS_REL, GRAD_REL = 1e-5, 1e-6
+# device-time groups of one train step, by the aten op that launched each
+# kernel (its self device time); K3 by kernel name
+TRAIN_OP_GROUPS = [("conv forward", ("aten::cudnn_convolution", "aten::_conv_depthwise2d",
+                                     "aten::convolution_overrideable")),
+                   ("conv backward", ("aten::convolution_backward",
+                                      "aten::cudnn_convolution_backward")),
+                   ("classifier GEMMs", ("aten::addmm", "aten::mm", "aten::linear")),
+                   ("optimizer (Adam, foreach)", ("aten::_foreach_",)),
+                   ("copies and casts", ("aten::copy_", "aten::_to_copy", "aten::clone",
+                                         "aten::contiguous"))]
+# the card's peaks (NVIDIA H100 SXM data sheet, dense): bytes/s and ops/s
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
 
 
 T_START = time.perf_counter()
@@ -198,11 +244,14 @@ def check_crop_kernel(rng):
         err = float((got - want).abs().max())
         ms = cuda_ms(lambda: crop_resize(img, boxes, out, s, outside), 200)
         plain_ms = cuda_ms(lambda: crop_resize_bilinear(img, boxes, out, s, outside), 50)
+        # at most (2s)² taps per output value, a multiply-add each
+        b_ms, b_by = bound(nbytes(img, boxes, got), 2.0 * got.numel() * (2 * s) ** 2, "f32")
         print(f"crop_resize {name}: K={k} out={out} s={s} outside={outside} "
-              f"max_abs_err={err:.3g} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+              f"max_abs_err={err:.3g} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.5f} ({b_by})")
         if not err <= KERNEL_ATOL:
             raise AssertionError(f"crop_resize {name}: max abs err {err} > {KERNEL_ATOL}")
-        results.append((err, ms, plain_ms))
+        results.append((err, ms, plain_ms, b_ms))
     return results
 
 def pw_operands(gen, m: int, k: int, n: int):
@@ -223,9 +272,10 @@ def check_pw_kernel(gen, batch: int, ragged: bool, iters: int, plain_iters: int)
     """K4 against its plain version at the 13 pointwise layers of ``batch``
     faces at 224² (and the ragged shape): int8 and f32 out both bit-equal
     (the count of differing elements is printed and must be 0). Returns
-    (max abs err of the f32 out, kernel ms and plain ms summed over the 13
-    layers, each at its own output type; CUDA events)."""
+    (max abs err of the f32 out, kernel ms, plain ms and bound ms summed
+    over the 13 layers, each at its own output type; CUDA events)."""
     worst, ms_sum, plain_sum = 0.0, 0.0, 0.0
+    bound_by = {"bytes": 0.0, "operations": 0.0}
     for name, pixels, k, n in PW_LAYERS + ([PW_RAGGED] if ragged else []):
         m = pixels * (batch if name != PW_RAGGED[0] else 1)
         ops = pw_operands(gen, m, k, n)
@@ -249,11 +299,18 @@ def check_pw_kernel(gen, batch: int, ragged: bool, iters: int, plain_iters: int)
             raise AssertionError(f"pw_conv_int8 {name}: not bit-equal to the "
                                  f"plain version ({diffs})")
         if name != PW_RAGGED[0]:
+            out_bytes = m * n * (1 if requant else 4)
+            b_ms, b_by = bound(nbytes(*ops) + out_bytes, 2.0 * m * k * n, "int8")
             ms_sum += ms
             plain_sum += plain_ms
+            bound_by[b_by] += b_ms
+        del ops
+    bound_sum = sum(bound_by.values())
+    by = max(bound_by, key=bound_by.get)
     print(f"pw_conv_int8 at batch {batch}: 13 layers {ms_sum:.4f} ms, plain "
-          f"{plain_sum:.4f} ms")
-    return worst, ms_sum, plain_sum
+          f"{plain_sum:.4f} ms, bound {bound_sum:.4f} ms (layers bound by bytes "
+          f"{bound_by['bytes']:.4f} ms, by operations {bound_by['operations']:.4f} ms)")
+    return worst, ms_sum, plain_sum, bound_sum, by
 
 
 def unit_rows(gen, n: int, d: int):
@@ -318,8 +375,18 @@ def check_knn_shape(gen, name, m, n, d, results):
           f"f32 within tolerance; ms " + json.dumps(
               {k: round(v, 4) for k, v in times.items()}))
     if name == KNN_REPORT:
+        out_bytes = m * 8                      # f32 distance and int32 index
+        ops = 2.0 * m * n * d
+        bounds = {"knn_f32": bound(nbytes(p, g) + out_bytes, ops, "bf16"),
+                  "knn_int8q": bound(nbytes(p, qb, sb) + out_bytes, ops, "int8"),
+                  "knn_int8p": bound(nbytes(p, *[t for t in packed
+                                                 if isinstance(t, torch.Tensor)])
+                                     + out_bytes, ops, "int8")}
+        print(f"knn {name} bounds (ms): " + json.dumps(
+            {k: [round(v[0], 4), v[1]] for k, v in bounds.items()}))
         for kname in ("knn_f32", "knn_int8q", "knn_int8p"):
             results[kname].update(ms=times[kname], plain_ms=times[kname + "_plain"],
+                                  bound_ms=bounds[kname][0], bound_by=bounds[kname][1],
                                   shape=f"M={m} N={n} D={d}")
 
 
@@ -505,7 +572,8 @@ def kernel_launches():
             "knn_int8q": knn.nearest_neighbor_int8q.launches,
             "knn_int8p": knn.nearest_neighbor_int8p.launches,
             "crop_resize": crop_resize.launches,
-            "pw_conv_int8": pw_conv.pw_conv_int8.launches}
+            "pw_conv_int8": pw_conv.pw_conv_int8.launches,
+            "warp_batch": warp.warp_batch.launches}
 
 
 def reset_launches():
@@ -514,6 +582,7 @@ def reset_launches():
     knn.nearest_neighbor_int8q.launches = 0
     knn.nearest_neighbor_int8p.launches = 0
     pw_conv.pw_conv_int8.launches = 0
+    warp.warp_batch.launches = 0
 
 
 def cosine(a, b) -> np.ndarray:
@@ -852,6 +921,248 @@ def analyze_gallery_path(gpu, images, tmp: str):
     return launches
 
 
+def bound(nbytes: float, ops: float, kind: str):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for work that must move ``nbytes`` (each input read once, each output
+    written once) and do ``ops`` operations of ``kind`` (``PEAK_OPS``)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def grid_sample_warp(images, mats):
+    """One ``F.grid_sample`` call doing the same inverse-affine warp in one
+    bilinear pass (zeros outside): the library yardstick for K3. Returns
+    the call and its output."""
+    n, h, w, c = images.shape
+    s = torch.tensor([[2.0 / (w - 1), 0.0, -1.0], [0.0, 2.0 / (h - 1), -1.0],
+                      [0.0, 0.0, 1.0]], device=images.device)
+    m3 = torch.cat([mats, torch.tensor([0.0, 0.0, 1.0], device=images.device)
+                    .expand(n, 1, 3)], dim=1)
+    theta = (s @ m3 @ torch.linalg.inv(s))[:, :2]       # normalized out -> in
+    grid = F.affine_grid(theta, (n, c, h, w), align_corners=True)
+    x = images.permute(0, 3, 1, 2)
+
+    def call():
+        return F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+    return call, call().permute(0, 2, 3, 1)
+
+
+def check_warp_kernel():
+    """K3 against its plain version on the card: max abs error and the
+    share of bit-equal outputs, within ``WARP_ATOL``; both timed with CUDA
+    events, and ``F.grid_sample`` beside them. Returns the training
+    shape's numbers for the JSON line."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    report = None
+    for name, n, h, w, cfg in WARP_SHAPES:
+        imgs = torch.rand((n, h, w, 3), generator=gen, device="cuda") * 2 - 1
+        mats = sample_affine(gen, cfg, n, h, w)
+        got = warp.warp_batch(imgs, mats, cfg.fill_value)
+        want = warp.warp_batch_plain(imgs, mats, cfg.fill_value)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        equal = float((got == want).float().mean())
+        filled = float((got == cfg.fill_value).all(-1).float().mean())
+        ms = cuda_ms(lambda: warp.warp_batch(imgs, mats, cfg.fill_value), 20)
+        plain_ms = cuda_ms(lambda: warp.warp_batch_plain(imgs, mats, cfg.fill_value), 3, 1)
+        lib_call, lib_out = grid_sample_warp(imgs, mats)
+        lib_ms = cuda_ms(lib_call, 20)
+        lib_diff = float((lib_out - got).abs().mean())
+        b_ms, b_by = bound(nbytes(imgs, mats, got), 110.0 * n * h * w, "f32")
+        print(f"warp_batch {name}: {n}x{h}x{w}x3 max_abs_err={err:.3g} bit-equal "
+              f"{equal:.6f} (fill {filled:.4f}) kernel_ms={ms:.4f} plain_ms="
+              f"{plain_ms:.4f} grid_sample_ms={lib_ms:.4f} (mean |diff| {lib_diff:.4f}, "
+              f"one pass) bound_ms={b_ms:.4f} ({b_by})")
+        if not err <= WARP_ATOL:
+            raise AssertionError(f"warp_batch {name}: max abs err {err} > {WARP_ATOL}")
+        if report is None:
+            report = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "shape": f"{n}x{h}x{w}x3 f32"}
+        else:
+            report["max_abs_err"] = max(report["max_abs_err"], err)
+        del imgs, got, want, lib_out
+    torch.cuda.empty_cache()
+    return report
+
+
+def train_batch_np(rng, n: int, size: int, n_classes: int):
+    """Seeded synthetic images in [-1, 1] and labels, on the host."""
+    x = rng.rand(n, size, size, 3).astype(np.float32) * 2 - 1
+    return x, rng.randint(0, n_classes, n)
+
+
+def timed_train(trainer, x, y):
+    """``TRAIN_WARMUP`` steps, then ``TRAIN_STEPS`` timed (host clock,
+    synced); returns ms/step, the timed steps' losses, the peak memory and
+    the launches of the timed steps."""
+    for _ in range(TRAIN_WARMUP):
+        trainer.train_batch(x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = [trainer.train_batch(x, y)["loss"] for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    launches = kernel_launches()
+    return ms, losses, torch.cuda.max_memory_allocated() / 2 ** 30, launches
+
+
+def train_profile_split(trainer, x, y):
+    """One train step on a batch already on the card (the upload is timed
+    apart) under ``torch.profiler``: device time grouped by the
+    aten op that launched each kernel (``TRAIN_OP_GROUPS``; K3 by kernel
+    name; the rest, mostly BN, ReLU6 and other elementwise and reduction
+    passes, under "BN, ReLU6 and elementwise"), and the device-busy share:
+    kernel time over the step's span on the card (CUDA events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        trainer.train_batch(x, y)
+        end.record()
+        torch.cuda.synchronize()
+    window_ms = start.elapsed_time(end)
+    groups = {name: 0.0 for name, _ in TRAIN_OP_GROUPS}
+    busy_ms, k3_ms, kernels, rest = 0.0, 0.0, [], {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        us = (us if us is not None else e.self_cuda_time_total) / 1e3
+        if e.device_type == DeviceType.CUDA:
+            busy_ms += us
+            kernels.append((us, e.count, e.key[:140]))
+            if "warp_kernel" in e.key:
+                k3_ms += us
+        elif us > 0:
+            name = next((g for g, marks in TRAIN_OP_GROUPS
+                         if any(e.key.startswith(m) for m in marks)), None)
+            if name is not None:
+                groups[name] += us
+            else:
+                rest[e.key] = rest.get(e.key, 0.0) + us
+    if busy_ms == 0.0:
+        print("train profile: the profiler saw no device kernels; split not measured")
+        return None
+    groups["K3 warp_kernel"] = k3_ms
+    groups["BN, ReLU6 and elementwise"] = busy_ms - sum(groups.values())
+    split = {k: {"ms": round(v, 3), "share": round(v / busy_ms, 4)}
+             for k, v in sorted(groups.items(), key=lambda kv: -kv[1])}
+    print("train step profile (bf16, batch 256, on the card): " + json.dumps(split))
+    for us, n, key in sorted(kernels, reverse=True)[:15]:
+        print(f"  {us:9.3f} ms {n:4d}x {key}")
+    print("train profile, the other ops by self device ms: " + json.dumps(
+        {k: round(v, 3) for k, v in sorted(rest.items(), key=lambda kv: -kv[1])[:12]}))
+    print(f"train profile: kernels {busy_ms:.3f} ms of a {window_ms:.3f} ms step "
+          f"(device busy {busy_ms / window_ms:.4f})")
+    return {"split": split, "busy_share": busy_ms / window_ms}
+
+
+def train_path():
+    """``FaceIdTrainer`` at full width on the card: bf16 (the default) and
+    float32 (parity numerics), timed, K3 launched every step; one profiled
+    bf16 step; then the loss over ``LEARN_STEPS`` steps on one batch with
+    augmentation off must fall."""
+    rng = np.random.RandomState(SEED + 19)
+    x, y = train_batch_np(rng, TRAIN_BATCH, TRAIN_SIZE, TRAIN_CLASSES)
+    results, path_launches = {}, []
+    for label, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        trainer = face_id.FaceIdTrainer(TRAIN_CLASSES, seed=SEED, device="cuda",
+                                        compute_dtype=dtype)
+        ms, losses, peak, launches = timed_train(trainer, x, y)
+        path_launches.append(launches)
+        per_step = launches["warp_batch"] / TRAIN_STEPS
+        ips = TRAIN_BATCH / (ms / 1e3)
+        print(f"train {label}: MobileNet-V1 1.0, {TRAIN_SIZE}², batch {TRAIN_BATCH}, "
+              f"{TRAIN_CLASSES} classes: {ms:.3f} ms/step, {ips:.1f} img/s over "
+              f"{TRAIN_STEPS} steps; losses {[round(v, 4) for v in losses]}; peak "
+              f"memory {peak:.2f} GiB; K3 launches per step {per_step}")
+        if per_step < 1:
+            raise AssertionError(f"train {label}: K3 launched {per_step} times a step")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"train {label}: losses {losses}")
+        results[label] = {"ms_per_step": ms, "img_per_s": ips, "peak_gib": peak}
+        if label == "bf16":
+            # the step's host-to-device upload of the f32 batch, then the
+            # profile of a step on the batch already on the card
+            upload_ms = cuda_ms(lambda: torch.as_tensor(x, device="cuda"), 3, 1)
+            print(f"train: upload of the {x.nbytes / 1e6:.1f} MB f32 batch from "
+                  f"pageable host memory {upload_ms:.3f} ms")
+            results["upload_ms"] = upload_ms
+            results["profile"] = train_profile_split(
+                trainer, torch.as_tensor(x, device="cuda"), torch.as_tensor(y, device="cuda"))
+        del trainer
+        torch.cuda.empty_cache()
+    trainer = face_id.FaceIdTrainer(TRAIN_CLASSES, seed=SEED, augment=None,
+                                    device="cuda")
+    losses = [trainer.train_batch(x, y)["loss"] for _ in range(LEARN_STEPS)]
+    print(f"train bf16, one batch, augmentation off: losses "
+          f"{[round(v, 4) for v in losses]}")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train: the loss did not fall on one batch: {losses}")
+    del trainer
+    torch.cuda.empty_cache()
+    return path_launches, results
+
+
+def rel_l2_t(a, b) -> float:
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+
+def train_cuda_vs_cpu():
+    """One step at width 1.0 from the same numpy params on the card and on
+    the CPU: the float32 loss (and the step's) within ``LOSS_REL``, every
+    gradient within ``GRAD_REL`` in float64; then K3 against the CPU's
+    plain version on the same images and mats."""
+    params = to_numpy(init_mobilenet_params(torch.Generator().manual_seed(SEED + 23),
+                                            n_classes=PARITY_CLASSES))
+    rng = np.random.RandomState(SEED + 29)
+    x, y = train_batch_np(rng, PARITY_BATCH, PARITY_SIZE, PARITY_CLASSES)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        tp = to_torch(params, dev)
+        leaves = face_id.trainable(tp)
+        for _, t in leaves:
+            t.requires_grad_(True)
+        xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        loss32, _ = face_id.loss_fn(tp, xt, yt, 4e-5, compute_dtype=torch.float32)
+        loss64, _ = face_id.loss_fn(tp, xt, yt, 4e-5, compute_dtype=torch.float64)
+        grads = torch.autograd.grad(loss64, [t for _, t in leaves])
+        cfg = TrainConfig()
+        opt = face_id.make_optimizer(cfg)
+        step_params = to_torch(params, dev)
+        state = opt.init(step_params)
+        step = face_id.make_train_step(cfg, opt, augment=None, compute_dtype=torch.float32)
+        step_loss = step(step_params, state, None, xt, yt)[2]["loss"]
+        out[dev] = (float(loss32.detach()), float(step_loss), [g.cpu() for g in grads])
+    worst = max(rel_l2_t(g, c) for g, c in zip(out["cuda"][2], out["cpu"][2]))
+    loss_rel = max(abs(out["cuda"][i] - out["cpu"][i]) / abs(out["cpu"][i]) for i in (0, 1))
+    mats = sample_affine(torch.Generator().manual_seed(SEED + 31), AugmentConfig(),
+                         PARITY_BATCH, PARITY_SIZE, PARITY_SIZE)
+    xw = torch.from_numpy(x)
+    got = warp.warp_batch(xw.cuda(), mats.cuda()).cpu()
+    want = warp.warp_batch_plain(xw, mats)
+    warp_err = float((got - want).abs().max())
+    print(f"train cuda vs cpu (width 1.0, batch {PARITY_BATCH}, {PARITY_SIZE}²): f32 loss "
+          f"and step loss rel {loss_rel:.3g}; float64 gradients worst rel L2 "
+          f"{worst:.3g} over {len(out['cpu'][2])} tensors; K3 vs the CPU plain "
+          f"version max abs {warp_err:.3g}")
+    if not (loss_rel <= LOSS_REL and worst <= GRAD_REL and warp_err <= WARP_ATOL):
+        raise AssertionError(f"train cuda vs cpu: loss {loss_rel}, gradients {worst}, "
+                             f"warp {warp_err}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -877,8 +1188,10 @@ def main() -> None:
     rng = np.random.RandomState(SEED)
     crop_results = check_crop_kernel(rng)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    pw_err, pw_ms, pw_plain_ms = check_pw_kernel(gen, PW_BATCH, True, 20, 5)
-    phase_done("K1 and K4 checks")
+    pw_err, pw_ms, pw_plain_ms, pw_bound_ms, pw_bound_by = check_pw_kernel(
+        gen, PW_BATCH, True, 20, 5)
+    warp_result = check_warp_kernel()
+    phase_done("K1, K4 and K3 checks")
 
     # --- main paths: counts set to 0 just before each, read just after ---
     mtcnn_params, mh_params = load_params()
@@ -926,18 +1239,26 @@ def main() -> None:
         phase_done("identify at scale")
         path_launches.append(analyze_gallery_path(gpu, images, tmp))
         phase_done("analyze --gallery")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    train_launches, train = train_path()
+    path_launches += train_launches
+    phase_done("train bf16 and f32")
+    train_cuda_vs_cpu()
+    phase_done("train cuda vs cpu")
     launches = {k: sum(p[k] for p in path_launches) for k in path_launches[0]}
 
     # crop ms / plain_ms: the sum over the three call-site shapes, i.e. one
     # image's crop passes at the default caps; knn: the serve16 shape;
     # pw_conv_int8: the sum over the 13 layers of one 16-face head batch
-    errs, ms, plain = zip(*crop_results)
+    errs, ms, plain, bounds = zip(*crop_results)
     kernels = [{
         "name": "crop_resize", "route": "cuda",
         "source": "hse_facerec_torch/csrc/crop_resize.cu",
         "replaces": "hse_facerec_tf_tpu/ops/pallas/crop.py:103",
         "launches": launches["crop_resize"], "max_abs_err": max(errs),
-        "ms": sum(ms), "plain_ms": sum(plain)}]
+        "ms": sum(ms), "plain_ms": sum(plain), "bound_ms": sum(bounds),
+        "bound_by": "bytes", "library_ms": None}]
     for name, line in (("knn_f32", 159), ("knn_int8q", 313), ("knn_int8p", 439)):
         r = knn_results[name]
         kernels.append({
@@ -945,18 +1266,26 @@ def main() -> None:
             "replaces": f"hse_facerec_tf_tpu/ops/pallas/knn.py:{line}",
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "equal": name != "knn_f32", "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "shape": r["shape"]})
     kernels.append({
         "name": "pw_conv_int8", "route": "cuda",
         "source": "hse_facerec_torch/csrc/pw_conv.cu",
         "replaces": "hse_facerec_tf_tpu/ops/pallas/pw_conv.py:150",
         "launches": launches["pw_conv_int8"], "max_abs_err": pw_err,
-        "equal": True, "ms": pw_ms, "plain_ms": pw_plain_ms,
+        "equal": True, "ms": pw_ms, "plain_ms": pw_plain_ms, "bound_ms": pw_bound_ms,
+        "bound_by": pw_bound_by, "library_ms": None,
         "shape": f"13 pointwise layers at batch {PW_BATCH}, 224²"})
+    kernels.append({
+        "name": "warp_batch", "route": "cuda",
+        "source": "hse_facerec_torch/csrc/warp.cu",
+        "replaces": "hse_facerec_tf_tpu/ops/pallas/warp.py:166",
+        "launches": launches["warp_batch"], **warp_result})
     print(f"int8 serving: analyze --int8-heads median {int8_median:.3f} ms/image "
           f"(f32 heads {median:.3f}); embed batch {EMBED_BATCH} "
           + json.dumps({k: round(v, 1) for k, v in embed["ips"].items()}) + " img/s")
     print("knn design point: " + json.dumps(knn_results["design_point"]))
+    print("train: " + json.dumps(train))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

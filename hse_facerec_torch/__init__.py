@@ -29,6 +29,10 @@ def __getattr__(name):
         from .pipelines.detector import MTCNNDetector
 
         return MTCNNDetector
+    if name == "FaceIdTrainer":
+        from .train.face_id import FaceIdTrainer
+
+        return FaceIdTrainer
     if name == "zoo":
         from .models import zoo
 

@@ -6,6 +6,8 @@
   identify — gallery/probe 1-NN identification (tf_train_test_recognition)
   enroll   — bulk-enroll a people directory of pre-cropped faces into a
              gallery .npz (``--mode image``)
+  train    — train the face-ID backbone on a directory-per-identity
+             dataset (augmentation on the warp kernel)
 
 Usage: ``python -m hse_facerec_torch.cli <subcommand> ...``
 """
@@ -47,10 +49,9 @@ def cmd_analyze(args):
     import cv2
     import numpy as np
 
-    from hse_facerec_tf_tpu.utils.draw import draw_faces
-    from hse_facerec_tf_tpu.utils.image_io import imread_rgb
-
     from .numerics import set_parity_numerics
+    from .utils.draw import draw_faces
+    from .utils.image_io import imread_rgb
 
     if not os.path.exists(args.image):
         sys.exit(f"error: image not found: {args.image}")
@@ -120,12 +121,11 @@ def cmd_enroll(args):
     """Bulk-enroll a directory-per-person tree of pre-cropped faces
     (``people_dir/<Person Name>/*.jpg``, the reference's gallery layout,
     ``facerec_test.py:220-288``) into an EnrollmentGallery ``.npz``."""
-    from hse_facerec_tf_tpu.utils.image_io import get_files
-
     from .eval import lfw
     from .models.zoo import build_extractor
     from .numerics import set_parity_numerics
     from .pipelines.gallery import EnrollmentGallery
+    from .utils.image_io import get_files
 
     if not os.path.isdir(args.people_dir):
         sys.exit(f"error: people directory not found: {args.people_dir}")
@@ -148,6 +148,44 @@ def cmd_enroll(args):
         "gallery": args.gallery_file, "n_added": len(label_names),
         "n_people_added": len(set(label_names)), "n_enrolled_total": n_total,
     }))
+
+
+def cmd_train(args):
+    """Train the face-ID backbone on a directory-per-identity dataset
+    (the reference's facerec_keras_train.py recipe)."""
+    import numpy as np
+
+    from .config import TrainConfig
+    from .train.checkpoints import BestCheckpoint
+    from .train.data import DirectoryDataset
+    from .train.face_id import FaceIdTrainer
+
+    cfg = TrainConfig(batch_size=args.batch_size, learning_rate=args.lr,
+                      epochs=args.epochs, image_size=args.image_size)
+    size = (args.image_size, args.image_size)
+    train_ds = DirectoryDataset(args.train_dir, size)
+    val_ds = DirectoryDataset(args.val_dir, size, class_to_label={
+        c: i for i, c in enumerate(train_ds.class_names)}) if args.val_dir else None
+    trainer = FaceIdTrainer(n_classes=train_ds.n_classes, cfg=cfg,
+                            remat=args.remat, device=args.device)
+    ckpt = BestCheckpoint(args.out_dir, name="faceid", mode="max",
+                          patience=cfg.early_stopping_patience)
+    for epoch in range(cfg.epochs):
+        metrics = {}
+        for images, labels in train_ds.batches(cfg.batch_size, seed=epoch, epochs=1):
+            metrics = trainer.train_batch(images, labels)
+        if val_ds is not None:
+            val = list(val_ds.batches(cfg.batch_size, shuffle=False, epochs=1,
+                                      drop_remainder=False))
+            acc = trainer.eval_accuracy(np.concatenate([v[0] for v in val]),
+                                        np.concatenate([v[1] for v in val]))
+        else:
+            acc = metrics.get("acc", 0.0)
+        print(f"epoch {epoch}: train {metrics} val_acc={acc:.4f}")
+        if not ckpt.update(acc, trainer.params, epoch):
+            print("early stopping")
+            break
+    print(f"best: {ckpt.best} -> {ckpt.best_path}")
 
 
 def main(argv=None):
@@ -213,6 +251,19 @@ def main(argv=None):
                          "each person in the directory")
     en.add_argument("--device", default="cuda")
     en.set_defaults(fn=cmd_enroll)
+
+    tr = sub.add_parser("train", help="train the face-ID backbone")
+    tr.add_argument("train_dir")
+    tr.add_argument("--val-dir", default=None)
+    tr.add_argument("--out-dir", default="checkpoints")
+    tr.add_argument("--batch-size", type=int, default=32)
+    tr.add_argument("--lr", type=float, default=1e-3)
+    tr.add_argument("--epochs", type=int, default=16)
+    tr.add_argument("--image-size", type=int, default=224)
+    tr.add_argument("--remat", action="store_true",
+                    help="per-block recomputation (activation-memory headroom)")
+    tr.add_argument("--device", default="cuda")
+    tr.set_defaults(fn=cmd_train)
 
     args = parser.parse_args(argv)
     args.fn(args)

@@ -13,10 +13,9 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from hse_facerec_tf_tpu.utils.image_io import get_files
-
 from ..pipelines import identification as ident
 from ..pipelines.embedder import EmbeddingExtractor
+from ..utils.image_io import get_files
 
 
 def extract_dataset_features(dataset_dir: str, extractor: EmbeddingExtractor,

@@ -68,6 +68,16 @@ def relu6(x):
     return torch.clamp(x, 0.0, 6.0)
 
 
+def relu6_train(x):
+    """ReLU6 with the reference's gradient at its bounds: ``jnp.clip`` is a
+    maximum then a minimum, and JAX splits a tie's gradient evenly, so an
+    input of exactly 0 or 6 passes half the gradient (``torch.clamp``
+    passes all of it). Ties are common in training: a dead channel's BN
+    output is exactly ``beta``, 0 at init."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, zero), zero + 6.0)
+
+
 def max_pool(x, k: int, stride: int, padding: str = "SAME"):
     """TF MaxPool: SAME pads with -inf (never averages padding in)."""
     if padding == "SAME":
@@ -78,3 +88,12 @@ def max_pool(x, k: int, stride: int, padding: str = "SAME"):
 def global_avg_pool(x):
     """(N, C, H, W) -> (N, C)."""
     return torch.mean(x, dim=(2, 3))
+
+
+def batch_norm(x, scale, offset, mean, var, *, eps: float = 1e-3):
+    """BN over channel dim 1 with the given moments (Keras default eps
+    1e-3), written out as the reference writes it:
+    ``inv = scale·rsqrt(var + eps)``, ``x·inv + (offset - mean·inv)``."""
+    inv = scale * torch.rsqrt(var + eps)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    return x * inv.reshape(shape) + (offset - mean * inv).reshape(shape)

@@ -1,31 +1,145 @@
-"""MobileNet-V1 backbone (alpha 1.0), inference with folded params.
+"""MobileNet-V1 backbone (alpha 1.0): inference and training.
 
-Counterpart of ``hse_facerec_tf_tpu/models/mobilenet.py``. Each block is
-``{"kernel", "bias"}`` in PyTorch layout (``params.to_torch``). Input and
-output keep the reference's NHWC layout; the permuted view is already
-channels-last in memory, which is the layout cuDNN prefers.
+Counterpart of ``hse_facerec_tf_tpu/models/mobilenet.py``. Params come in
+PyTorch layout (``params.to_torch``), one dict per layer, in either form:
+  - folded:  {"kernel", "bias"}  (imported from frozen pbs; inference)
+  - bn:      {"kernel", "bn": {gamma, beta, mean, var}}  (training)
+Input and output keep the reference's NHWC layout; the permuted view is
+already channels-last in memory, which is the layout cuDNN prefers.
+
+In training mode (``train=True``) a BN layer normalizes with the batch
+moments, mean and biased variance over N, H and W, written out as the
+reference writes them (``layers.batch_norm``), not through
+``F.batch_norm``: its running variance is unbiased, its momentum is
+``1 - 0.99``, and its backward rounds otherwise.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import math
+from typing import Dict, List, Optional, Tuple
 
-from .layers import conv2d, depthwise_conv2d, relu6
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from .layers import (batch_norm, conv2d, dense, depthwise_conv2d, relu6,
+                     relu6_train)
 
 # (stride, out_channels) for the 13 depthwise-separable blocks, alpha=1.0.
 MOBILENET_V1_BLOCKS: List[Tuple[int, int]] = [
     (1, 64), (2, 128), (1, 128), (2, 256), (1, 256), (2, 512),
     (1, 512), (1, 512), (1, 512), (1, 512), (1, 512), (2, 1024), (1, 1024),
 ]
+BN_EPS = 1e-3
 
 
-def mobilenet_v1_backbone(params: Dict, x):
-    """(N, H, W, 3) -> (N, H/32, W/32, 1024) feature map."""
-    x = x.permute(0, 3, 1, 2)
-    p = params["conv1"]
-    x = relu6(conv2d(x, p["kernel"], p["bias"], stride=2))
+def _cast(p: Dict, dtype) -> Dict:
+    return {k: _cast(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in p.items()}
+
+
+def _conv_bn_relu6(x, p, conv, stride: int, train: bool):
+    """conv -> folded bias or BN -> ReLU6. Returns the activation and, for a
+    BN layer in training mode, its batch (mean, var), detached."""
+    if "bn" not in p:
+        return relu6(conv(x, p["kernel"], p["bias"], stride=stride)), None
+    y = conv(x, p["kernel"], stride=stride)
+    bn = p["bn"]
+    if not train:
+        return relu6_train(batch_norm(y, bn["gamma"], bn["beta"], bn["mean"],
+                                      bn["var"], eps=BN_EPS)), None
+    var, mean = torch.var_mean(y, dim=(0, 2, 3), correction=0)
+    return (relu6_train(batch_norm(y, bn["gamma"], bn["beta"], mean, var, eps=BN_EPS)),
+            (mean.detach(), var.detach()))
+
+
+def mobilenet_v1_backbone(params: Dict, x, *, compute_dtype=torch.float32,
+                          train: bool = False, stats_out: Optional[Dict] = None,
+                          remat: bool = False):
+    """(N, H, W, 3) -> (N, H/32, W/32, 1024) feature map.
+
+    The input and every layer's params are cast to ``compute_dtype``. With
+    ``train=True`` BN layers use batch moments; pass ``stats_out={}`` to
+    collect them (per layer {"mean", "var"}) for ``update_bn_stats``.
+    ``remat`` recomputes each block's internals in the backward pass
+    (``torch.utils.checkpoint``): peak memory is the blocks' inputs plus
+    one block's activations."""
+    dt = compute_dtype
+    x = x.permute(0, 3, 1, 2).to(dt)
+    stats: Dict[str, Tuple] = {}
+    x, s = _conv_bn_relu6(x, _cast(params["conv1"], dt), conv2d, 2, train)
+    stats["conv1"] = s
     for i, (stride, _) in enumerate(MOBILENET_V1_BLOCKS, start=1):
-        pdw, ppw = params[f"dw{i}"], params[f"pw{i}"]
-        x = relu6(depthwise_conv2d(x, pdw["kernel"], pdw["bias"], stride=stride))
-        x = relu6(conv2d(x, ppw["kernel"], ppw["bias"]))
+        pdw, ppw = _cast(params[f"dw{i}"], dt), _cast(params[f"pw{i}"], dt)
+
+        def block(x, pdw=pdw, ppw=ppw, stride=stride):
+            y, s_dw = _conv_bn_relu6(x, pdw, depthwise_conv2d, stride, train)
+            y, s_pw = _conv_bn_relu6(y, ppw, conv2d, 1, train)
+            return y, s_dw, s_pw
+
+        if remat:
+            x, s_dw, s_pw = checkpoint(block, x, use_reentrant=False)
+        else:
+            x, s_dw, s_pw = block(x)
+        stats[f"dw{i}"], stats[f"pw{i}"] = s_dw, s_pw
+    if stats_out is not None:
+        stats_out.update({k: {"mean": s[0], "var": s[1]}
+                          for k, s in stats.items() if s is not None})
     return x.permute(0, 2, 3, 1)
+
+
+@torch.no_grad()
+def update_bn_stats(params: Dict, stats: Dict, momentum: float = 0.99) -> Dict:
+    """Fold collected batch moments into the running BN statistics, in
+    place: ``momentum·old + (1 - momentum)·batch`` (biased variance)."""
+    for layer, s in stats.items():
+        bn = params[layer]["bn"]
+        for key in ("mean", "var"):
+            bn[key].mul_(momentum).add_(s[key].to(bn[key].dtype), alpha=1.0 - momentum)
+    return params
+
+
+def mobilenet_embed(params: Dict, x, *, compute_dtype=torch.float32):
+    """Face embedding: backbone + GAP -> (N, 1024) f32 (the reference's
+    ``reshape_1/Reshape:0`` tap without the vestigial reshape)."""
+    h = mobilenet_v1_backbone(params, x, compute_dtype=compute_dtype)
+    return torch.mean(h, dim=(1, 2)).to(torch.float32)
+
+
+def mobilenet_classify(params: Dict, x, *, compute_dtype=torch.float32):
+    """Training-time logits head: embedding -> (N, n_classes) (reference
+    ``facerec_keras_train.py:46-57``)."""
+    emb = mobilenet_embed(params, x, compute_dtype=compute_dtype)
+    return dense(emb, params["classifier"]["kernel"], params["classifier"]["bias"])
+
+
+def init_mobilenet_params(generator: torch.Generator, n_classes: Optional[int] = None,
+                          width: float = 1.0, device="cpu") -> Dict:
+    """He-normal MobileNet-V1 params with full BN blocks (training form), in
+    PyTorch layout on ``device``. Normals are drawn from ``generator`` in the
+    reference's shapes and order (conv1, dw1, pw1, ..., classifier)."""
+    from ..params import to_torch
+
+    def c(ch):
+        return max(8, int(ch * width))
+
+    def he(shape, fan_in):
+        return (torch.randn(shape, generator=generator, device=generator.device)
+                .cpu().numpy() * np.float32(math.sqrt(2.0 / fan_in)))
+
+    def bn(ch):
+        return {"gamma": np.ones(ch, np.float32), "beta": np.zeros(ch, np.float32),
+                "mean": np.zeros(ch, np.float32), "var": np.ones(ch, np.float32)}
+
+    in_ch = c(32)
+    params: Dict = {"conv1": {"kernel": he((3, 3, 3, in_ch), 27), "bn": bn(in_ch)}}
+    for i, (_, out) in enumerate(MOBILENET_V1_BLOCKS, start=1):
+        out = c(out)
+        params[f"dw{i}"] = {"kernel": he((3, 3, in_ch, 1), 9), "bn": bn(in_ch)}
+        params[f"pw{i}"] = {"kernel": he((1, 1, in_ch, out), in_ch), "bn": bn(out)}
+        in_ch = out
+    if n_classes is not None:
+        params["classifier"] = {"kernel": he((in_ch, n_classes), in_ch),
+                                "bias": np.zeros(n_classes, np.float32)}
+    return to_torch(params, device)

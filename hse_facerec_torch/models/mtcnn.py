@@ -15,8 +15,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from hse_facerec_tf_tpu.core.graphdef import extract_constants, load_graphdef
-
+from ..core.graphdef import extract_constants, load_graphdef
 from .layers import conv2d, dense, max_pool, prelu
 
 

@@ -12,8 +12,7 @@ from typing import Dict, NamedTuple
 import numpy as np
 import torch
 
-from hse_facerec_tf_tpu.core.graphdef import extract_constants, load_graphdef
-
+from ..core.graphdef import extract_constants, load_graphdef
 from ..numerics import top_k
 from .layers import dense, global_avg_pool
 from .mobilenet import MOBILENET_V1_BLOCKS, mobilenet_v1_backbone

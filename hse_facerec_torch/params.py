@@ -1,12 +1,14 @@
-"""Bridge from the reference's numpy parameter pytrees to torch tensors.
+"""Bridge between the reference's numpy parameter pytrees and torch tensors.
 
 The JAX package keeps weights in TF layouts: conv kernels HWIO, depthwise
 kernels (H, W, C, mult), dense kernels (in, out). The port's layers take
 PyTorch's layouts: OIHW, (C·mult, 1, H, W) and (out, in) for ``F.linear``.
-A layer dict is ``{"kernel", "bias"}`` or ``{"alpha"}`` (PReLU); a layer
-whose name starts with ``dw`` holds a depthwise kernel. A quantized int8
-backbone (``models/int8_infer.py::quantize_*``, whose ``pw1`` holds ``q``)
-takes the int8 layouts.
+A layer dict is ``{"kernel", "bias"}``, ``{"kernel", "bn": {gamma, beta,
+mean, var}}`` (a training backbone) or ``{"alpha"}`` (PReLU); a layer whose
+name starts with ``dw`` holds a depthwise kernel. A quantized int8 backbone
+(``models/int8_infer.py::quantize_*``, whose ``pw1`` holds ``q``) takes the
+int8 layouts. ``to_numpy`` is the inverse for float layers: a checkpoint of
+either package loads into the other.
 """
 
 from __future__ import annotations
@@ -33,13 +35,21 @@ def dense_weight(kernel: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.transpose(kernel))
 
 
+def _tensor(a, device) -> torch.Tensor:
+    # a copy, never a view of the caller's array: training updates in place
+    return torch.from_numpy(np.array(a, np.float32)).to(device)
+
+
 def _layer(name: str, p: Dict, device) -> Dict[str, torch.Tensor]:
-    unknown = set(p) - {"kernel", "bias", "alpha"}
+    unknown = set(p) - {"kernel", "bias", "alpha", "bn"}
     if unknown:
-        # BN or scale entries: the port takes folded inference params only
+        # folded-BN "scale" entries: the port takes {"kernel", "bias"} instead
         raise ValueError(f"layer {name!r}: unsupported entries {sorted(unknown)}")
     out = {}
     for key, value in p.items():
+        if key == "bn":
+            out[key] = {k: _tensor(v, device) for k, v in value.items()}
+            continue
         a = np.asarray(value, np.float32)
         if key == "kernel":
             if a.ndim == 4:
@@ -48,7 +58,7 @@ def _layer(name: str, p: Dict, device) -> Dict[str, torch.Tensor]:
                 a = dense_weight(a)
             else:
                 raise ValueError(f"layer {name!r}: kernel of rank {a.ndim}")
-        out[key] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        out[key] = _tensor(a, device)
     return out
 
 
@@ -66,6 +76,27 @@ def to_torch(params: Dict, device) -> Dict:
         else:
             out[name] = _layer(name, p, device)
     return out
+
+
+def _numpy_leaf(layer: str, key: str, value) -> np.ndarray:
+    if not isinstance(value, torch.Tensor):
+        return np.asarray(value)           # already in the reference's layout
+    a = value.detach().cpu().numpy()
+    if key == "kernel" and a.ndim == 4:
+        if layer.startswith("dw"):         # (C, 1, H, W) -> (H, W, C, 1)
+            return np.ascontiguousarray(np.transpose(a, (2, 3, 0, 1)))
+        return np.ascontiguousarray(np.transpose(a, (2, 3, 1, 0)))  # OIHW -> HWIO
+    if key == "kernel" and a.ndim == 2:    # (out, in) -> (in, out)
+        return np.ascontiguousarray(a.T)
+    return a
+
+
+def to_numpy(tree: Dict, layer: str = "") -> Dict:
+    """The inverse of ``to_torch`` for float layers: a tree of torch tensors
+    (and, untouched, numpy arrays) -> numpy arrays in the reference's keys
+    and layouts (HWIO, (H, W, C, 1), (in, out))."""
+    return {k: to_numpy(v, k) if isinstance(v, dict) else _numpy_leaf(layer, k, v)
+            for k, v in tree.items()}
 
 
 # the JAX package's TPU lane packing of a pointwise layer; K4 needs none

@@ -116,8 +116,8 @@ class EmbeddingExtractor:
         the next batch overlaps the device's work on this one.
         ``decode_workers=0`` decodes inline. ``loader`` maps a path to an
         RGB array (default: decode the image file)."""
-        from hse_facerec_tf_tpu.utils.image_io import imread_rgb
-        from hse_facerec_tf_tpu.utils.prefetch import bounded_thread_map
+        from ..utils.image_io import imread_rgb
+        from ..utils.prefetch import bounded_thread_map
 
         loader = loader or imread_rgb
         feats: List[Optional[np.ndarray]] = [None] * len(paths)

@@ -28,12 +28,29 @@ from typing import Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
-# numpy-only helpers of the reference module (it imports no jax at its top)
-from hse_facerec_tf_tpu.pipelines.gallery import _l2_normalize_host, _quantize_host
-
 from ..ops.kernels.knn import (nearest_neighbor_auto, nearest_neighbor_int8p,
                                pack_quantized_gallery)
 from .detector import resolve_device
+
+
+def _l2_normalize_host(x: np.ndarray) -> np.ndarray:
+    """Host L2 normalization (sklearn semantics), as the reference's
+    ``pipelines/gallery.py::_l2_normalize_host``: probes and enrollments
+    are a handful of rows."""
+    n = np.linalg.norm(x, axis=-1, keepdims=True)
+    return x / np.maximum(n, 1e-10)
+
+
+def _quantize_host(x: np.ndarray):
+    """Host int8 quantization with one global symmetric scale, in f32
+    arithmetic with round-half-even, as the reference's
+    ``pipelines/gallery.py::_quantize_host``: a gallery ``.npz`` written by
+    either package loads in the other."""
+    x = np.asarray(x, np.float32)
+    scale = np.maximum(np.max(np.abs(x)) / np.float32(127.0),
+                       np.float32(1e-30))        # f32 arithmetic throughout
+    q = np.clip(np.round(x / scale), -127, 127).astype(np.int8)
+    return q, np.float32(scale)
 
 
 class EnrollmentGallery:

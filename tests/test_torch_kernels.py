@@ -1,6 +1,6 @@
-"""The kernels K1 (crop), K2a/K2b/K2c (1-NN) and K4 (int8 pointwise conv):
-their wrappers' routing, their build, and each kernel on the card against
-its plain twin.
+"""The kernels K1 (crop), K2a/K2b/K2c (1-NN), K3 (warp) and K4 (int8
+pointwise conv): their wrappers' routing, their build, and each kernel on
+the card against its plain twin.
 
 This file imports no JAX (neither does the package), so the card tests run
 on a machine without it, without the repo's conftest:
@@ -16,7 +16,11 @@ exact int32 dot, one f32 rounding per key). K2a sums in another order than
 its twin: distances within rtol 1e-4 / atol 1e-3, and the same index
 wherever the twin's two best candidates differ by more than that. K4 must
 equal ``pw_conv_int8_plain`` bit for bit, int8 and f32 out (an exact int32
-dot, one fused multiply-add, the same clip and round).
+dot, one fused multiply-add, the same clip and round). K3 must match
+``warp_batch_plain`` within 1e-6 on unit-range images: coordinates, taps and
+bf16 roundings are the same; the plain version's FMAs round through float64,
+which can differ from the card's single rounding by one ulp of a blended
+value in rare double-rounding cases.
 """
 
 import os
@@ -31,7 +35,9 @@ from hse_facerec_torch.ops import resize as tr
 from hse_facerec_torch.ops.kernels import build
 from hse_facerec_torch.ops.kernels import knn
 from hse_facerec_torch.ops.kernels import pw_conv
+from hse_facerec_torch.ops.kernels import warp
 from hse_facerec_torch.ops.kernels.crop import crop_resize
+from hse_facerec_torch.train.augment import AugmentConfig, sample_affine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -93,7 +99,7 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 def test_build_key_tracks_sources():
     assert [p.name for p in build.sources()] == ["crop_resize.cu", "knn.cu",
-                                                 "pw_conv.cu"]
+                                                 "pw_conv.cu", "warp.cu"]
     key = build.source_hash()
     assert key == build.source_hash() and len(key) == 16
     assert build.library_path().parent.name == key
@@ -307,3 +313,42 @@ def test_pw_conv_kernel_rejects_bad_operands_on_card(cuda, rng):
         pw_conv.pw_conv_int8(a[:, ::2], w[:, :16], scale, bias)
     with pytest.raises(ValueError):
         pw_conv.pw_conv_int8(a, w, scale, bias.cpu())
+
+
+def test_warp_wrapper_cpu_takes_plain_path(rng):
+    imgs = _t(rng.rand(3, 20, 24, 3).astype(np.float32))
+    mats = sample_affine(torch.Generator().manual_seed(0), AugmentConfig(), 3, 20, 24)
+    before = warp.warp_batch.launches
+    got = warp.warp_batch(imgs, mats, 0.5)
+    np.testing.assert_array_equal(got.numpy(), warp.warp_batch_plain(imgs, mats, 0.5).numpy())
+    assert warp.warp_batch.launches == before
+
+
+def test_warp_wrapper_rejects_other_devices(rng):
+    imgs = torch.zeros((2, 8, 8, 3))
+    mats = torch.zeros((2, 2, 3))
+    with pytest.raises(ValueError):
+        warp.warp_batch(imgs.to("meta"), mats.to("meta"))
+    with pytest.raises(ValueError):
+        warp.warp_batch(imgs, mats.to("meta"))
+
+
+# (N, H, W, C, config): the training shape at batch 16, and a ragged one
+# with large shifts (the zero-IA region)
+WARP_CARD_SHAPES = [(16, 224, 224, 3, AugmentConfig()),
+                    (5, 50, 62, 3, AugmentConfig(shift=0.5, rotation_deg=30))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,cfg", WARP_CARD_SHAPES)
+def test_warp_kernel_matches_plain_on_card(cuda, n, h, w, c, cfg):
+    gen = torch.Generator(device=cuda).manual_seed(n + h + w)
+    imgs = torch.rand((n, h, w, c), generator=gen, device=cuda)
+    mats = sample_affine(gen, cfg, n, h, w)
+    before = warp.warp_batch.launches
+    got = warp.warp_batch(imgs, mats, 0.25)
+    want = warp.warp_batch_plain(imgs, mats, 0.25)
+    torch.cuda.synchronize()
+    assert warp.warp_batch.launches == before + 1
+    assert float((got - want).abs().max()) <= 1e-6
+    assert bool(((got == 0.25).all(-1)).any())         # the fill appears

@@ -128,8 +128,13 @@ def test_to_torch_layouts():
     assert t["dw1"]["kernel"][6, 0, 2, 1] == params["dw1"]["kernel"][2, 1, 6, 0]
     assert t["fc"]["kernel"].shape == (5, 6)
     assert t["net"]["prelu1"]["alpha"].dtype == torch.float32
+    # a training layer's BN statistics come across as they are
+    bn = P.to_torch({"pw1": {"kernel": np.ones((1, 1, 2, 2)),
+                             "bn": {"gamma": np.arange(2.0)}}}, "cpu")["pw1"]["bn"]
+    assert bn["gamma"].dtype == torch.float32 and bn["gamma"].tolist() == [0.0, 1.0]
     with pytest.raises(ValueError, match="unsupported"):
-        P.to_torch({"pw1": {"kernel": np.ones((1, 1, 2, 2)), "bn": {}}}, "cpu")
+        P.to_torch({"pw1": {"kernel": np.ones((1, 1, 2, 2)), "scale": np.ones(2)}},
+                   "cpu")
 
 
 # ---------------- importers ----------------
