@@ -10,9 +10,11 @@ kernels are built for sm_90a). It:
    (fp32, no TF32);
 2. builds the CUDA kernels from ``hse_facerec_torch/csrc`` with nvcc;
 3. holds K1 (crop) against its plain PyTorch version at the analyze
-   path's three call sites, and K4 (int8 pointwise conv) at the 13
-   pointwise layers of a 16-face head batch and a ragged shape, and times
-   both with CUDA events;
+   path's three call sites (at the head site beside ``F.grid_sample``),
+   and K4 (int8 pointwise conv) at the 13 pointwise layers of a 16-face
+   head batch and a ragged shape, and times both with CUDA events, K4
+   per layer beside its bound and ``torch._int_mm``; counts the IMMA
+   (tensor-core) and IDP.4A instructions in K4's SASS;
 4. drives the analyze path: ``FacialAnalyzer.analyze_with_rotations``
    (K1), timed, then checked against the same analyzer on the CPU; then
    the same with ``Int8MultiheadHeads`` (analyze --int8-heads: K1 + K4),
@@ -41,8 +43,9 @@ kernels are built for sm_90a). It:
    - analyze --gallery: ``analyze_with_rotations`` then
      ``EnrollmentGallery.identify_many`` per photo (K1 + K2c);
 7. holds K3 (the augmentation warp) against its plain version at the
-   training shape (256 x 224 x 224 x 3, two augmentation configs) and a
-   ragged one, timed beside ``F.grid_sample``;
+   training shape (256 x 224 x 224 x 3, two augmentation configs) and at
+   edge shapes, timed beside ``F.grid_sample``, and profiles one call at
+   the training shape, which must run exactly one device kernel;
 8. drives face-ID training at full width: ``FaceIdTrainer`` (MobileNet-V1
    alpha 1.0, 224², batch 256, 9131 classes, augmentation on K3), bf16
    then float32, timed, with a ``torch.profiler`` split of one step; the
@@ -65,6 +68,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -164,9 +168,16 @@ PROFILE_GROUPS = [("pw_conv_int8 (K4)", ("pw_conv_int8",)),
 # ragged one. The bound: coordinates, taps and bf16 roundings are the plain
 # version's; its FMAs round through float64, which can differ from the
 # card's single rounding by one ulp of a blended value
-WARP_SHAPES = [("train", 256, 224, 224, AugmentConfig()),
-               ("train_shift0.2", 256, 224, 224, AugmentConfig(shift=0.2)),
-               ("ragged", 5, 50, 62, AugmentConfig(shift=0.5, rotation_deg=30))]
+# (name, N, H, W, C, config): beside them the kernel's edge cases, W·C off
+# whole 16-byte words, C = 1 and 4, H = 1, one wide row of 4000 pixels
+WARP_SHAPES = [("train", 256, 224, 224, 3, AugmentConfig()),
+               ("train_shift0.2", 256, 224, 224, 3, AugmentConfig(shift=0.2)),
+               ("ragged", 5, 50, 62, 3, AugmentConfig(shift=0.5, rotation_deg=30)),
+               ("ragged_wc", 5, 50, 61, 3, AugmentConfig(shift=0.5, rotation_deg=30)),
+               ("c1", 4, 40, 48, 1, AugmentConfig()),
+               ("c4", 4, 40, 48, 4, AugmentConfig()),
+               ("h1", 3, 1, 64, 3, AugmentConfig()),
+               ("wide", 1, 8, 4000, 3, AugmentConfig())]
 WARP_ATOL = 1e-6
 # face-ID training at the JAX bench's configuration (bench.py:399)
 TRAIN_CLASSES, TRAIN_BATCH, TRAIN_SIZE = 9131, 256, 224
@@ -233,9 +244,37 @@ def crop_boxes(rng, k: int):
     return boxes
 
 
+def grid_sample_crop(img, boxes, out: int):
+    """One ``F.grid_sample`` call computing K1's head-site crop (s = 1,
+    clamp): bilinear, border padding, on the image expanded over the boxes,
+    each box's grid an affine map of the output grid (output i samples
+    y1 + (i + 0.5)·(y2 - y1)/out - 0.5, as K1). The library yardstick for
+    K1; the supersampled sites have none. Returns the call and its output
+    as (K, out, out, C)."""
+    h, w, c = img.shape
+    k = boxes.shape[0]
+    y1, x1, y2, x2 = boxes.unbind(1)
+    sy, sx = (y2 - y1) / out, (x2 - x1) / out
+    theta = torch.zeros((k, 2, 3), device=img.device)
+    theta[:, 0, 0] = sx * (out - 1) / (w - 1)
+    theta[:, 0, 2] = 2 * (x1 - 0.5 + sx * out / 2) / (w - 1) - 1
+    theta[:, 1, 1] = sy * (out - 1) / (h - 1)
+    theta[:, 1, 2] = 2 * (y1 - 0.5 + sy * out / 2) / (h - 1) - 1
+    grid = F.affine_grid(theta, (k, c, out, out), align_corners=True)
+    x = img.permute(2, 0, 1).contiguous()[None].expand(k, -1, -1, -1)
+
+    def call():
+        return F.grid_sample(x, grid, mode="bilinear", padding_mode="border",
+                             align_corners=True)
+    return call, call().permute(0, 2, 3, 1)
+
+
 def check_crop_kernel(rng):
+    """K1 against its plain version at the analyze path's three sites,
+    timed; at the head site beside ``grid_sample_crop``. Returns (err, ms,
+    plain ms, bound ms) per site and the head site's library ms."""
     img = torch.from_numpy((rng.rand(H, W, 3) * 255).astype(np.float32)).cuda()
-    results = []
+    results, lib_ms = [], None
     for name, k, out, s, outside in CROP_SHAPES:
         boxes = torch.from_numpy(crop_boxes(rng, k)).cuda()
         got = crop_resize(img, boxes, out, s, outside)
@@ -246,13 +285,19 @@ def check_crop_kernel(rng):
         plain_ms = cuda_ms(lambda: crop_resize_bilinear(img, boxes, out, s, outside), 50)
         # at most (2s)² taps per output value, a multiply-add each
         b_ms, b_by = bound(nbytes(img, boxes, got), 2.0 * got.numel() * (2 * s) ** 2, "f32")
+        lib = ""
+        if s == 1 and outside == "clamp":
+            lib_call, lib_out = grid_sample_crop(img, boxes, out)
+            lib_ms = cuda_ms(lib_call, 200)
+            lib = (f" grid_sample_ms={lib_ms:.4f} (border; mean |diff| "
+                   f"{float((lib_out - got).abs().mean()):.3g})")
         print(f"crop_resize {name}: K={k} out={out} s={s} outside={outside} "
               f"max_abs_err={err:.3g} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={b_ms:.5f} ({b_by})")
+              f"bound_ms={b_ms:.5f} ({b_by}){lib}")
         if not err <= KERNEL_ATOL:
             raise AssertionError(f"crop_resize {name}: max abs err {err} > {KERNEL_ATOL}")
         results.append((err, ms, plain_ms, b_ms))
-    return results
+    return results, lib_ms
 
 def pw_operands(gen, m: int, k: int, n: int):
     """Seeded K4 operands made on the card: activations in [0, 127],
@@ -268,13 +313,31 @@ def pw_operands(gen, m: int, k: int, n: int):
     return ints(0, 128, (m, k)), ints(-127, 128, (n, k)), scale, bias
 
 
+def int_mm_call(a, w):
+    """``torch._int_mm(a, w.t())``: K4's GEMM alone (int8 x int8 -> int32,
+    cuBLASLt, no epilogue), the library yardstick, which the port never
+    calls. Returns (the call, None), or (None, the refusal's first line)."""
+    b = w.t()
+    try:
+        torch._int_mm(a, b)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, (str(e).strip().splitlines() or ["?"])[0][:160]
+    return (lambda: torch._int_mm(a, b)), None
+
+
 def check_pw_kernel(gen, batch: int, ragged: bool, iters: int, plain_iters: int):
     """K4 against its plain version at the 13 pointwise layers of ``batch``
     faces at 224² (and the ragged shape): int8 and f32 out both bit-equal
-    (the count of differing elements is printed and must be 0). Returns
-    (max abs err of the f32 out, kernel ms, plain ms and bound ms summed
-    over the 13 layers, each at its own output type; CUDA events)."""
-    worst, ms_sum, plain_sum = 0.0, 0.0, 0.0
+    (the count of differing elements is printed and must be 0). Per layer,
+    at its own output type (CUDA events): the kernel's ms, its bound, the
+    GB/s and T int8 ops/s it reaches, the plain version's ms and
+    ``torch._int_mm``'s (or "refused"); the kernel's device time by the
+    profiler too (at batch 16 the CUDA events time the wrapper's host
+    work). Returns the sums over the 13 layers and the f32 out's max abs
+    err."""
+    worst, ms_sum, dev_sum, plain_sum, lib_sum, refused = 0.0, 0.0, 0.0, 0.0, 0.0, []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     bound_by = {"bytes": 0.0, "operations": 0.0}
     for name, pixels, k, n in PW_LAYERS + ([PW_RAGGED] if ragged else []):
         m = pixels * (batch if name != PW_RAGGED[0] else 1)
@@ -292,25 +355,64 @@ def check_pw_kernel(gen, batch: int, ragged: bool, iters: int, plain_iters: int)
         ms = cuda_ms(lambda: pw_conv.pw_conv_int8(*ops, requant=requant), iters)
         plain_ms = cuda_ms(lambda: pw_conv.pw_conv_int8_plain(*ops, requant=requant),
                            plain_iters, warmup=1)
-        print(f"pw_conv_int8 {name}: M={m} K={k} N={n} differing int8 "
-              f"{diffs['int8']} f32 {diffs['f32']}; {'int8' if requant else 'f32'} "
-              f"out kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+        rows, _ = profile_calls(lambda: pw_conv.pw_conv_int8(*ops, requant=requant), 10)
+        dev_ms = sum(t for key, _, t, on_device in rows
+                     if on_device and "pw_conv_int8" in key) / 10
+        lib_call, why = int_mm_call(ops[0], ops[1])
+        lib_ms = cuda_ms(lib_call, iters) if lib_call else None
+        moved = nbytes(*ops) + m * n * (1 if requant else 4)
+        b_ms, b_by = bound(moved, 2.0 * m * k * n, "int8")
+        print(f"pw_conv_int8 {name}: M={m} K={k} N={n} tile "
+              f"{pw_conv.tile_config(m, n, sms)} differing int8 {diffs['int8']} f32 "
+              f"{diffs['f32']}; {'int8' if requant else 'f32'} out kernel_ms={ms:.4f} "
+              f"device_ms={dev_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              f"{moved / dev_ms / 1e6:.1f} GB/s {2.0 * m * k * n / dev_ms / 1e9:.2f} T "
+              f"int8 ops/s plain_ms={plain_ms:.4f} "
+              + (f"int_mm_ms={lib_ms:.4f}" if lib_call else f"int_mm refused ({why})"))
         if diffs["int8"] or diffs["f32"]:
             raise AssertionError(f"pw_conv_int8 {name}: not bit-equal to the "
                                  f"plain version ({diffs})")
         if name != PW_RAGGED[0]:
-            out_bytes = m * n * (1 if requant else 4)
-            b_ms, b_by = bound(nbytes(*ops) + out_bytes, 2.0 * m * k * n, "int8")
             ms_sum += ms
+            dev_sum += dev_ms
             plain_sum += plain_ms
             bound_by[b_by] += b_ms
-        del ops
+            if lib_call:
+                lib_sum += lib_ms
+            else:
+                refused.append(name)
+        del ops, lib_call
     bound_sum = sum(bound_by.values())
-    by = max(bound_by, key=bound_by.get)
-    print(f"pw_conv_int8 at batch {batch}: 13 layers {ms_sum:.4f} ms, plain "
+    print(f"pw_conv_int8 at batch {batch}: 13 layers {ms_sum:.4f} ms (device "
+          f"{dev_sum:.4f} ms by the profiler), plain "
           f"{plain_sum:.4f} ms, bound {bound_sum:.4f} ms (layers bound by bytes "
-          f"{bound_by['bytes']:.4f} ms, by operations {bound_by['operations']:.4f} ms)")
-    return worst, ms_sum, plain_sum, bound_sum, by
+          f"{bound_by['bytes']:.4f} ms, by operations {bound_by['operations']:.4f} ms), "
+          f"torch._int_mm {lib_sum:.4f} ms over {13 - len(refused)} layers"
+          + (f" (refused: {refused})" if refused else ""))
+    return {"max_abs_err": worst, "ms": ms_sum, "device_ms": dev_sum, "plain_ms": plain_sum,
+            "bound_ms": bound_sum, "bound_by": max(bound_by, key=bound_by.get),
+            "library_ms": lib_sum if len(refused) < 13 else None}
+
+
+def check_pw_sass():
+    """K4 runs on the tensor cores: count the IMMA and IDP.4A (``__dp4a``)
+    instructions of its functions in the built library's SASS
+    (``cuobjdump -sass``); fail unless IMMA > 0 and IDP.4A == 0."""
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(build.library_path())],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    fn, functions, imma, idp4a = "", 0, 0, 0
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1]
+            functions += "pw_conv_int8" in fn
+        elif "pw_conv_int8" in fn:
+            imma += bool(re.search(r"\bIMMA\b", line))
+            idp4a += bool(re.search(r"\bIDP\.?4A\b", line))
+    print(f"K4 SASS: {functions} pw_conv_int8 functions, {imma} IMMA, {idp4a} IDP.4A")
+    if functions == 0 or imma == 0 or idp4a:
+        raise AssertionError(f"K4 is not on the tensor cores: {functions} functions, "
+                             f"{imma} IMMA, {idp4a} IDP.4A")
 
 
 def unit_rows(gen, n: int, d: int):
@@ -645,37 +747,49 @@ def int8_analyze_path(mtcnn_params, mh_params, images, f32_outputs):
     return launches, median
 
 
+def profile_calls(fn, calls: int = 1):
+    """``fn()`` ``calls`` times under ``torch.profiler``: every event it saw
+    as (name, count, self device ms, ran on the device) rows, and the
+    calls' span on the card by CUDA events, per call, the profiler's own
+    overhead included."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        us = us if us is not None else e.self_cuda_time_total
+        rows.append((e.key, e.count, us / 1e3, e.device_type == DeviceType.CUDA))
+    return rows, start.elapsed_time(end) / calls
+
+
 def profile_split(fn):
     """One ``fn()`` under ``torch.profiler``: device time by kernel group
     (``PROFILE_GROUPS``), launches per group, the layout copies and pads the
     forward asked for (aten op counts), and the device-busy share: kernel
     time over the profiled forward's span on the card (CUDA events)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-    window_ms = start.elapsed_time(end)
+    rows, window_ms = profile_calls(fn)
     groups = {name: [0.0, 0] for name, _ in PROFILE_GROUPS + [("other", ())]}
     ops, kernels = {}, []
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None)
-            us = us if us is not None else e.self_cuda_time_total
-            key = e.key.lower()
+    for key, count, ms, on_device in rows:
+        if on_device:
             name = next((g for g, marks in PROFILE_GROUPS
-                         if any(m in key for m in marks)), "other")
-            groups[name][0] += us / 1e3
-            groups[name][1] += e.count
-            kernels.append((us / 1e3, e.count, name, e.key[:160]))
-        elif e.key in ("aten::clone", "aten::contiguous", "aten::constant_pad_nd",
-                       "aten::_to_copy", "aten::copy_"):
-            ops[e.key] = e.count
+                         if any(m in key.lower() for m in marks)), "other")
+            groups[name][0] += ms
+            groups[name][1] += count
+            kernels.append((ms, count, name, key[:160]))
+        elif key in ("aten::clone", "aten::contiguous", "aten::constant_pad_nd",
+                     "aten::_to_copy", "aten::copy_"):
+            ops[key] = count
     busy_ms = sum(ms for ms, _ in groups.values())
     if busy_ms == 0.0:
         print("profile: the profiler saw no device kernels; split not measured")
@@ -954,14 +1068,16 @@ def grid_sample_warp(images, mats):
 
 
 def check_warp_kernel():
-    """K3 against its plain version on the card: max abs error and the
-    share of bit-equal outputs, within ``WARP_ATOL``; both timed with CUDA
-    events, and ``F.grid_sample`` beside them. Returns the training
-    shape's numbers for the JSON line."""
+    """K3 against its plain version on the card at every ``WARP_SHAPES``
+    entry: max abs error within ``WARP_ATOL`` and the share of bit-equal
+    outputs; kernel and plain version timed with CUDA events, and
+    ``F.grid_sample`` beside them. At the training shape one call runs
+    under ``torch.profiler``, which must see exactly one device kernel.
+    Returns the training shape's numbers for the JSON line."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
     report = None
-    for name, n, h, w, cfg in WARP_SHAPES:
-        imgs = torch.rand((n, h, w, 3), generator=gen, device="cuda") * 2 - 1
+    for name, n, h, w, c, cfg in WARP_SHAPES:
+        imgs = torch.rand((n, h, w, c), generator=gen, device="cuda") * 2 - 1
         mats = sample_affine(gen, cfg, n, h, w)
         got = warp.warp_batch(imgs, mats, cfg.fill_value)
         want = warp.warp_batch_plain(imgs, mats, cfg.fill_value)
@@ -971,23 +1087,37 @@ def check_warp_kernel():
         filled = float((got == cfg.fill_value).all(-1).float().mean())
         ms = cuda_ms(lambda: warp.warp_batch(imgs, mats, cfg.fill_value), 20)
         plain_ms = cuda_ms(lambda: warp.warp_batch_plain(imgs, mats, cfg.fill_value), 3, 1)
-        lib_call, lib_out = grid_sample_warp(imgs, mats)
-        lib_ms = cuda_ms(lib_call, 20)
-        lib_diff = float((lib_out - got).abs().mean())
+        lib = "grid_sample not run (a one-pixel axis)"
+        if h > 1 and w > 1:
+            lib_call, lib_out = grid_sample_warp(imgs, mats)
+            lib_ms = cuda_ms(lib_call, 20)
+            lib = (f"grid_sample_ms={lib_ms:.4f} (mean |diff| "
+                   f"{float((lib_out - got).abs().mean()):.4f}, one pass)")
+            del lib_out
         b_ms, b_by = bound(nbytes(imgs, mats, got), 110.0 * n * h * w, "f32")
-        print(f"warp_batch {name}: {n}x{h}x{w}x3 max_abs_err={err:.3g} bit-equal "
+        print(f"warp_batch {name}: {n}x{h}x{w}x{c} max_abs_err={err:.3g} bit-equal "
               f"{equal:.6f} (fill {filled:.4f}) kernel_ms={ms:.4f} plain_ms="
-              f"{plain_ms:.4f} grid_sample_ms={lib_ms:.4f} (mean |diff| {lib_diff:.4f}, "
-              f"one pass) bound_ms={b_ms:.4f} ({b_by})")
+              f"{plain_ms:.4f} {lib} bound_ms={b_ms:.4f} ({b_by})")
         if not err <= WARP_ATOL:
             raise AssertionError(f"warp_batch {name}: max abs err {err} > {WARP_ATOL}")
         if report is None:
+            rows, call_ms = profile_calls(
+                lambda: warp.warp_batch(imgs, mats, cfg.fill_value))
+            device = [(key[:80], count, round(dev_ms, 4))
+                      for key, count, dev_ms, on_device in rows if on_device]
+            kernels = sum(count for _, count, _ in device)
+            print(f"warp_batch {name} profiled call: {kernels} device kernel(s) "
+                  + json.dumps(device) + f"; the call {call_ms:.4f} ms by CUDA "
+                  "events under the profiler")
+            if kernels != 1:
+                raise AssertionError(f"warp_batch ran {kernels} device kernels, not 1")
             report = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-                      "shape": f"{n}x{h}x{w}x3 f32"}
+                      "device_ms": sum(dev_ms for _, _, dev_ms in device),
+                      "shape": f"{n}x{h}x{w}x{c} f32"}
         else:
             report["max_abs_err"] = max(report["max_abs_err"], err)
-        del imgs, got, want, lib_out
+        del imgs, got, want
     torch.cuda.empty_cache()
     return report
 
@@ -1022,35 +1152,22 @@ def train_profile_split(trainer, x, y):
     name; the rest, mostly BN, ReLU6 and other elementwise and reduction
     passes, under "BN, ReLU6 and elementwise"), and the device-busy share:
     kernel time over the step's span on the card (CUDA events)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start.record()
-        trainer.train_batch(x, y)
-        end.record()
-        torch.cuda.synchronize()
-    window_ms = start.elapsed_time(end)
+    rows, window_ms = profile_calls(lambda: trainer.train_batch(x, y))
     groups = {name: 0.0 for name, _ in TRAIN_OP_GROUPS}
     busy_ms, k3_ms, kernels, rest = 0.0, 0.0, [], {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        us = (us if us is not None else e.self_cuda_time_total) / 1e3
-        if e.device_type == DeviceType.CUDA:
-            busy_ms += us
-            kernels.append((us, e.count, e.key[:140]))
-            if "warp_kernel" in e.key:
-                k3_ms += us
-        elif us > 0:
+    for key, count, ms, on_device in rows:
+        if on_device:
+            busy_ms += ms
+            kernels.append((ms, count, key[:140]))
+            if "warp_kernel" in key:
+                k3_ms += ms
+        elif ms > 0:
             name = next((g for g, marks in TRAIN_OP_GROUPS
-                         if any(e.key.startswith(m) for m in marks)), None)
+                         if any(key.startswith(m) for m in marks)), None)
             if name is not None:
-                groups[name] += us
+                groups[name] += ms
             else:
-                rest[e.key] = rest.get(e.key, 0.0) + us
+                rest[key] = rest.get(key, 0.0) + ms
     if busy_ms == 0.0:
         print("train profile: the profiler saw no device kernels; split not measured")
         return None
@@ -1186,10 +1303,10 @@ def main() -> None:
 
     # --- kernel vs plain ---
     rng = np.random.RandomState(SEED)
-    crop_results = check_crop_kernel(rng)
+    crop_results, crop_lib_ms = check_crop_kernel(rng)
+    check_pw_sass()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    pw_err, pw_ms, pw_plain_ms, pw_bound_ms, pw_bound_by = check_pw_kernel(
-        gen, PW_BATCH, True, 20, 5)
+    pw = check_pw_kernel(gen, PW_BATCH, True, 20, 5)
     warp_result = check_warp_kernel()
     phase_done("K1, K4 and K3 checks")
 
@@ -1220,7 +1337,7 @@ def main() -> None:
     phase_done("int8 embed")
     # K4 at the embedder's batch, where the layers are no longer launch-bound
     # (after the analyze timing: its plain version allocates tens of GB)
-    check_pw_kernel(gen, EMBED_BATCH, False, 10, 2)
+    pw_embed = check_pw_kernel(gen, EMBED_BATCH, False, 10, 2)
     torch.cuda.empty_cache()
     phase_done(f"K4 check at batch {EMBED_BATCH}")
 
@@ -1249,8 +1366,10 @@ def main() -> None:
     launches = {k: sum(p[k] for p in path_launches) for k in path_launches[0]}
 
     # crop ms / plain_ms: the sum over the three call-site shapes, i.e. one
-    # image's crop passes at the default caps; knn: the serve16 shape;
-    # pw_conv_int8: the sum over the 13 layers of one 16-face head batch
+    # image's crop passes at the default caps (library: the head site
+    # alone); knn: the serve16 shape; pw_conv_int8: the sums over the 13
+    # layers of one 16-face head batch (library: torch._int_mm), and of the
+    # embedder's batch
     errs, ms, plain, bounds = zip(*crop_results)
     kernels = [{
         "name": "crop_resize", "route": "cuda",
@@ -1258,7 +1377,8 @@ def main() -> None:
         "replaces": "hse_facerec_tf_tpu/ops/pallas/crop.py:103",
         "launches": launches["crop_resize"], "max_abs_err": max(errs),
         "ms": sum(ms), "plain_ms": sum(plain), "bound_ms": sum(bounds),
-        "bound_by": "bytes", "library_ms": None}]
+        "bound_by": "bytes", "library_ms": crop_lib_ms,
+        "library_site": f"head (16 x 224², s=1): kernel {ms[-1]:.4f} ms"}]
     for name, line in (("knn_f32", 159), ("knn_int8q", 313), ("knn_int8p", 439)):
         r = knn_results[name]
         kernels.append({
@@ -1272,10 +1392,12 @@ def main() -> None:
         "name": "pw_conv_int8", "route": "cuda",
         "source": "hse_facerec_torch/csrc/pw_conv.cu",
         "replaces": "hse_facerec_tf_tpu/ops/pallas/pw_conv.py:150",
-        "launches": launches["pw_conv_int8"], "max_abs_err": pw_err,
-        "equal": True, "ms": pw_ms, "plain_ms": pw_plain_ms, "bound_ms": pw_bound_ms,
-        "bound_by": pw_bound_by, "library_ms": None,
-        "shape": f"13 pointwise layers at batch {PW_BATCH}, 224²"})
+        "launches": launches["pw_conv_int8"], "equal": True,
+        **pw,
+        "max_abs_err": max(pw["max_abs_err"], pw_embed["max_abs_err"]),
+        "shape": f"13 pointwise layers at batch {PW_BATCH}, 224²",
+        f"batch_{EMBED_BATCH}": {k: pw_embed[k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     kernels.append({
         "name": "warp_batch", "route": "cuda",
         "source": "hse_facerec_torch/csrc/warp.cu",

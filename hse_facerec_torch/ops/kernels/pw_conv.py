@@ -9,7 +9,10 @@ with exact int32 accumulation, then ``clip(fma(acc, scale, bias), 0, 6)``
 input-channel weights per output channel, so both operands are K-minor.
 
 ``pw_conv_int8`` routes by the device its tensors lie on: CPU tensors take
-``pw_conv_int8_plain``; CUDA tensors launch the kernel or raise.
+``pw_conv_int8_plain``; CUDA tensors launch the kernel or raise. The
+kernel runs every shape on the int8 tensor cores; ``tile_config`` picks its
+block tile and ``load_width`` its copy width, here, where the CPU tests
+reach them.
 ``pw_conv_int8.launches`` counts kernel launches. The plain version equals
 the jitted reference (``_pw_conv_int8`` + ``_requant`` of
 ``models/int8_infer.py``) and the interpret-mode Pallas kernel bit for bit;
@@ -30,6 +33,32 @@ from . import build
 # the f32 constant the jitted reference multiplies by: 1 / ACT_SCALE, and
 # 127 / 6, round to the same float32
 INV_ACT_SCALE = float(np.float32(127.0 / 6.0))
+
+
+# block tiles of csrc/pw_conv.cu, (rows, output channels), largest first
+TILES = ((128, 128), (64, 64))
+
+
+def tile_config(m: int, n: int, sms: int):
+    """The block tile (BM, BN) of an (m, K) x (K, n) product on a card of
+    ``sms`` streaming multiprocessors: the largest no wider than n (a wider
+    one computes columns past n) that still makes a tile for each SM (a
+    grid of fewer leaves some idle), else the smallest."""
+    for bm, bn in TILES:
+        if bn <= n and -(-m // bm) * -(-n // bn) >= sms:
+            return bm, bn
+    return TILES[-1]
+
+
+def load_width(k: int, *ptrs: int) -> int:
+    """The kernel's copy width in bytes for K = ``k`` and operands at
+    addresses ``ptrs``: 16 (``cp.async`` of whole 16-byte chunks) when K
+    and the addresses are multiples of 16, 4 when they are multiples of 4,
+    else 1 (byte loads)."""
+    for width in (16, 4):
+        if k % width == 0 and all(p % width == 0 for p in ptrs):
+            return width
+    return 1
 
 
 def requant_int8(y):
@@ -59,7 +88,8 @@ def _kernel():
     fn = lib.pw_conv_int8
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -106,13 +136,14 @@ def pw_conv_int8(a, w, scale, bias, requant: bool = True):
                       device=dev)
     if m == 0:
         return out
-    aligned = (k % 4 == 0 and n % 4 == 0 and a.data_ptr() % 4 == 0
-               and w.data_ptr() % 4 == 0)
+    load = load_width(k, a.data_ptr(), w.data_ptr())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bm, _ = tile_config(m, n, sms)
     lib, fn = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(a.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                  m, n, k, int(requant), int(aligned), out.data_ptr(), stream)
+                  m, n, k, int(requant), load, bm, out.data_ptr(), stream)
     build.check(lib, code, "pw_conv_int8 launch")
     pw_conv_int8.launches += 1
     return out

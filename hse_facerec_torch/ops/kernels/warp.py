@@ -28,8 +28,10 @@ and nothing else; they are FMAs here (``numerics.fma``) and in the kernel
 ``warp_batch_pallas`` bit for bit.
 
 ``warp_batch`` routes by the device of its tensors: CPU tensors take
-``warp_batch_plain``; CUDA tensors launch the kernel or raise.
-``warp_batch.launches`` counts kernel launches.
+``warp_batch_plain``; CUDA tensors launch the kernel or raise. The kernel
+takes the raw mats and computes ``warp_scalars`` itself, so a call on the
+card is one launch and nothing else. ``warp_batch.launches`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -46,11 +48,11 @@ MAX_CHANNELS = 4        # the kernel keeps one pixel's channels in registers
 
 
 def warp_scalars(mats, w: int, fill: float):
-    """(N, 2, 3) f32 inverse-affine mats -> (N, 11) f32 per-image scalars,
-    the kernel's input, in this order: the flip-factored matrix ``M⁺``
-    (m00, m01, m02, m10, m11, m12; where ``m00 < 0``, M = M⁺ ∘ mirror_x, as
-    the Pallas wrapper factors it), the flip flag (-1 or 1), the fill
-    value, and pass A's ``b, a, g``."""
+    """(N, 2, 3) f32 inverse-affine mats -> (N, 11) f32 per-image scalars
+    (the kernel computes the same from the raw mats), in this order: the
+    flip-factored matrix ``M⁺`` (m00, m01, m02, m10, m11, m12; where
+    ``m00 < 0``, M = M⁺ ∘ mirror_x, as the Pallas wrapper factors it), the
+    flip flag (-1 or 1), the fill value, and pass A's ``b, a, g``."""
     mats = mats.to(torch.float32)
     neg = mats[:, 0, 0] < 0
     col0 = mats[:, :, 0]
@@ -145,8 +147,9 @@ def warp_batch_plain(images, mats, fill: float = 0.0):
 def _kernel():
     lib = build.load_library()
     fn = lib.warp_batch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -163,8 +166,8 @@ def _check(images, mats):
     if images.dim() != 4 or mats.shape != (images.shape[0], 2, 3):
         raise ValueError(f"expected (N, H, W, C) images and (N, 2, 3) mats, got "
                          f"{tuple(images.shape)} and {tuple(mats.shape)}")
-    if not images.is_contiguous():
-        raise ValueError("warp_batch takes contiguous NHWC images")
+    if not (images.is_contiguous() and mats.is_contiguous()):
+        raise ValueError("warp_batch takes contiguous NHWC images and mats")
     if images.numel() >= 2 ** 31 or not 1 <= images.shape[3] <= MAX_CHANNELS:
         raise ValueError(f"unsupported shape {tuple(images.shape)} (C must be "
                          f"1-{MAX_CHANNELS})")
@@ -173,8 +176,9 @@ def _check(images, mats):
 def warp_batch(images, mats, fill: float = 0.0):
     """(N, H, W, C) f32 images + (N, 2, 3) inverse-affine mats (output ->
     input, as ``train/augment.py::sample_affine`` makes them) -> the warped
-    (N, H, W, C) batch. Any H, W and C. CPU tensors take
-    ``warp_batch_plain``."""
+    (N, H, W, C) batch. Any H, W and C <= 4 whose row fits a block's shared
+    memory (W·C up to about 57,000 floats; ``csrc/warp.cu`` refuses a wider
+    one). CPU tensors take ``warp_batch_plain``."""
     if images.device.type == "cpu" and mats.device.type == "cpu":
         return warp_batch_plain(images, mats, fill)
     _check(images, mats)
@@ -182,13 +186,14 @@ def warp_batch(images, mats, fill: float = 0.0):
     out = torch.empty_like(images)
     if out.numel() == 0:
         return out
-    scal = warp_scalars(mats, w, fill).contiguous()
     lib, fn = _kernel()
     with torch.cuda.device(images.device):
         stream = torch.cuda.current_stream(images.device).cuda_stream
-        code = fn(images.data_ptr(), scal.data_ptr(), n, h, w, c,
+        code = fn(images.data_ptr(), mats.data_ptr(), float(fill), n, h, w, c,
                   out.data_ptr(), stream)
-    build.check(lib, code, "warp_batch launch")
+    build.check(lib, code, f"warp_batch launch at {tuple(images.shape)} (a block "
+                "keeps a row of W·C floats and a staging row in shared memory, "
+                "227 KB at most)")
     warp_batch.launches += 1
     return out
 

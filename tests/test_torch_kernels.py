@@ -285,8 +285,12 @@ def test_pw_conv_wrapper_rejects_other_devices(rng):
 
 
 # (M, K, N): pw1 at one 112² image; pw13 at a 7² image ragged against the
-# 64-row tile, f32 out; K and N off whole words (the byte-wise load path)
-PW_CARD_SHAPES = [(12544, 32, 64), (49, 1024, 1024), (1000, 30, 50)]
+# 64-row tile, f32 out; K and N off whole words (the byte-wise load path);
+# then M from one row to a 128 x 128-tile grid, K on each copy width (30:
+# bytes, 52: 4-byte, 1024: 16-byte) and N off and on whole 16-byte stores
+PW_CARD_SHAPES = [(12544, 32, 64), (49, 1024, 1024), (1000, 30, 50)] + [
+    (m, k, n) for m in (1, 17, 784, 200704) for k in (30, 52, 1024)
+    for n in (50, 64, 1024)]
 
 
 @pytest.mark.cuda
@@ -334,9 +338,14 @@ def test_warp_wrapper_rejects_other_devices(rng):
 
 
 # (N, H, W, C, config): the training shape at batch 16, and a ragged one
-# with large shifts (the zero-IA region)
+# with large shifts (the zero-IA region); W·C off whole 16-byte words, C = 1
+# and 4, H = 1, and a row of 4000 pixels (48 KB of pass-A values in shared
+# memory)
 WARP_CARD_SHAPES = [(16, 224, 224, 3, AugmentConfig()),
-                    (5, 50, 62, 3, AugmentConfig(shift=0.5, rotation_deg=30))]
+                    (5, 50, 62, 3, AugmentConfig(shift=0.5, rotation_deg=30)),
+                    (5, 50, 61, 3, AugmentConfig(shift=0.5, rotation_deg=30)),
+                    (4, 40, 48, 1, AugmentConfig()), (4, 40, 48, 4, AugmentConfig()),
+                    (3, 1, 64, 3, AugmentConfig()), (1, 8, 4000, 3, AugmentConfig())]
 
 
 @pytest.mark.cuda
