@@ -10,11 +10,11 @@ kernels are built for sm_90a). It:
    (fp32, no TF32);
 2. builds the CUDA kernels from ``hse_facerec_torch/csrc`` with nvcc;
 3. holds K1 (crop) against its plain PyTorch version at the analyze
-   path's three call sites (at the head site beside ``F.grid_sample``),
-   and K4 (int8 pointwise conv) at the 13 pointwise layers of a 16-face
-   head batch and a ragged shape, and times both with CUDA events, K4
-   per layer beside its bound and ``torch._int_mm``; counts the IMMA
-   (tensor-core) and IDP.4A instructions in K4's SASS;
+   path's three call sites (each beside ``F.grid_sample``), and K4 (int8
+   pointwise conv) at the 13 pointwise layers of a 16-face head batch and
+   a ragged shape, and times both with CUDA events, K4 per layer beside
+   its bound and ``torch._int_mm``; counts the IMMA (tensor-core) and
+   IDP.4A instructions in the SASS of K4 and of the int8 1-NN sweep;
 4. drives the analyze path: ``FacialAnalyzer.analyze_with_rotations``
    (K1), timed, then checked against the same analyzer on the CPU; then
    the same with ``Int8MultiheadHeads`` (analyze --int8-heads: K1 + K4),
@@ -26,8 +26,10 @@ kernels are built for sm_90a). It:
    layer shapes;
 5. holds K2a/K2b/K2c (1-NN) against their plain twins on ragged shapes
    with ties, at serving shapes (1 and 16 probes against 1,048,576
-   gallery rows) and, for the int8 kernels, at the design point (8192 x
-   1,048,576 x 512), timed with CUDA events;
+   gallery rows), for the int8 kernels at the design point (8192 x
+   1,048,576 x 512) and for K2a at its routed shape (2048 x 1,048,576 x
+   1024 f32), timed with CUDA events beside their bounds and a library
+   call (``torch._int_mm``, ``torch.mm``);
 6. drives the identify paths at full width:
    - identify: the ``agegender_identity`` extractor, then the
      ``agegender_identity_int8`` one (K4), embeds a seeded gallery/probe
@@ -119,14 +121,19 @@ CROP_SHAPES = [("stage2", 128, 24, 2, "zero"),
 # serving (identify_many asks 1-16 probes of the whole gallery)
 KNN_SHAPES = [("ragged", 37, 1000, 30), ("serve1", 1, 1 << 20, 512),
               ("serve16", 16, 1 << 20, 512)]
-KNN_REPORT = "serve16"          # the shape whose times go in the JSON line
+KNN_REPORT = "serve16"          # K2b/K2c's shape in the JSON line
 KNN_DESIGN = (8192, 1 << 20, 512)
 DESIGN_CHECK_STRIDE = 32        # the design point's twin checks every 32nd probe
+# K2a's routed shape: what identify at scale launches (the f32 matrix would
+# be 8 GiB, so nearest_neighbor_auto takes the kernel); K2a's JSON shape
+KNN_ROUTED = (2048, 1 << 20, 1024)
+INT_MM_MIN_ROWS = 32            # torch._int_mm refuses 16 rows or fewer
 # K2a sums in another order than its twin (rtol/atol of the reference test)
 KNN_F32_RTOL, KNN_F32_ATOL = 1e-4, 1e-3
 N_PEOPLE, N_GALLERY, N_PROBE = 6, 3, 2          # identify path photo tree
 SCALE_N, SCALE_M, SCALE_D = 1 << 20, 2048, 1024  # identify at scale
 SERVE_BATCH, SERVE_QUERIES = 16, 8
+SCALE_CHECK_STRIDE = 16         # K2b's twin check at scale: every 16th probe
 # K4 at the int8 path's pointwise layers: (layer, pixels per 224² face, K,
 # N), at a head batch of 16 faces; pw13 stores f32
 PW_LAYERS = [("pw1", 12544, 32, 64), ("pw2", 3136, 64, 128),
@@ -201,6 +208,9 @@ TRAIN_OP_GROUPS = [("conv forward", ("aten::cudnn_convolution", "aten::_conv_dep
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): bytes/s and ops/s
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+# kernels whose SASS must hold tensor-core MMAs and no __dp4a: (function
+# name marker, kernel id)
+SASS_KERNELS = [("pw_conv_int8", "K4"), ("knn_int8", "K2b/K2c")]
 
 
 T_START = time.perf_counter()
@@ -244,12 +254,14 @@ def crop_boxes(rng, k: int):
     return boxes
 
 
-def grid_sample_crop(img, boxes, out: int):
-    """One ``F.grid_sample`` call computing K1's head-site crop (s = 1,
-    clamp): bilinear, border padding, on the image expanded over the boxes,
-    each box's grid an affine map of the output grid (output i samples
-    y1 + (i + 0.5)·(y2 - y1)/out - 0.5, as K1). The library yardstick for
-    K1; the supersampled sites have none. Returns the call and its output
+def grid_sample_crop(img, boxes, out: int, padding: str = "border"):
+    """One ``F.grid_sample`` call sampling K1's grid of ``out`` x ``out``
+    points per box: bilinear, on the image expanded over the boxes, each
+    box's grid an affine map of the output grid (output i samples
+    y1 + (i + 0.5)·(y2 - y1)/out - 0.5, as K1). At the head site (s = 1,
+    clamp: border padding) it is K1's function; at the supersampled sites
+    (zero: zeros padding) it samples the s·out grid and leaves out the s²
+    average. The library yardstick for K1. Returns the call and its output
     as (K, out, out, C)."""
     h, w, c = img.shape
     k = boxes.shape[0]
@@ -264,17 +276,18 @@ def grid_sample_crop(img, boxes, out: int):
     x = img.permute(2, 0, 1).contiguous()[None].expand(k, -1, -1, -1)
 
     def call():
-        return F.grid_sample(x, grid, mode="bilinear", padding_mode="border",
+        return F.grid_sample(x, grid, mode="bilinear", padding_mode=padding,
                              align_corners=True)
     return call, call().permute(0, 2, 3, 1)
 
 
 def check_crop_kernel(rng):
     """K1 against its plain version at the analyze path's three sites,
-    timed; at the head site beside ``grid_sample_crop``. Returns (err, ms,
-    plain ms, bound ms) per site and the head site's library ms."""
+    timed, each beside ``grid_sample_crop`` (on the s·out grid, zeros
+    padding, at the supersampled sites). Returns (err, ms, plain ms, bound
+    ms, library ms) per site."""
     img = torch.from_numpy((rng.rand(H, W, 3) * 255).astype(np.float32)).cuda()
-    results, lib_ms = [], None
+    results = []
     for name, k, out, s, outside in CROP_SHAPES:
         boxes = torch.from_numpy(crop_boxes(rng, k)).cuda()
         got = crop_resize(img, boxes, out, s, outside)
@@ -285,19 +298,20 @@ def check_crop_kernel(rng):
         plain_ms = cuda_ms(lambda: crop_resize_bilinear(img, boxes, out, s, outside), 50)
         # at most (2s)² taps per output value, a multiply-add each
         b_ms, b_by = bound(nbytes(img, boxes, got), 2.0 * got.numel() * (2 * s) ** 2, "f32")
-        lib = ""
-        if s == 1 and outside == "clamp":
-            lib_call, lib_out = grid_sample_crop(img, boxes, out)
-            lib_ms = cuda_ms(lib_call, 200)
-            lib = (f" grid_sample_ms={lib_ms:.4f} (border; mean |diff| "
-                   f"{float((lib_out - got).abs().mean()):.3g})")
+        padding = "border" if outside == "clamp" else "zeros"
+        lib_call, lib_out = grid_sample_crop(img, boxes, s * out, padding)
+        lib_ms = cuda_ms(lib_call, 200)
+        # the s x s average grid_sample leaves out, for the printed difference
+        lib_out = F.avg_pool2d(lib_out.permute(0, 3, 1, 2), s).permute(0, 2, 3, 1)
         print(f"crop_resize {name}: K={k} out={out} s={s} outside={outside} "
               f"max_abs_err={err:.3g} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={b_ms:.5f} ({b_by}){lib}")
+              f"bound_ms={b_ms:.5f} ({b_by}) grid_sample_ms={lib_ms:.4f} ({padding}, "
+              f"{s * out}² grid; mean |diff| after the s² average "
+              f"{float((lib_out - got).abs().mean()):.3g})")
         if not err <= KERNEL_ATOL:
             raise AssertionError(f"crop_resize {name}: max abs err {err} > {KERNEL_ATOL}")
-        results.append((err, ms, plain_ms, b_ms))
-    return results, lib_ms
+        results.append((err, ms, plain_ms, b_ms, lib_ms))
+    return results
 
 def pw_operands(gen, m: int, k: int, n: int):
     """Seeded K4 operands made on the card: activations in [0, 127],
@@ -394,25 +408,38 @@ def check_pw_kernel(gen, batch: int, ragged: bool, iters: int, plain_iters: int)
             "library_ms": lib_sum if len(refused) < 13 else None}
 
 
-def check_pw_sass():
-    """K4 runs on the tensor cores: count the IMMA and IDP.4A (``__dp4a``)
-    instructions of its functions in the built library's SASS
-    (``cuobjdump -sass``); fail unless IMMA > 0 and IDP.4A == 0."""
+def sass_counts():
+    """Per ``SASS_KERNELS`` entry: the number of functions whose name holds
+    its marker in the built library's SASS (``cuobjdump -sass``), and their
+    IMMA (tensor-core) and IDP.4A (``__dp4a``) instructions."""
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(build.library_path())],
                           capture_output=True, text=True, check=True, timeout=300).stdout
-    fn, functions, imma, idp4a = "", 0, 0, 0
+    counts = {mark: [0, 0, 0] for mark, _ in SASS_KERNELS}
+    fn = ""
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1]
-            functions += "pw_conv_int8" in fn
-        elif "pw_conv_int8" in fn:
-            imma += bool(re.search(r"\bIMMA\b", line))
-            idp4a += bool(re.search(r"\bIDP\.?4A\b", line))
-    print(f"K4 SASS: {functions} pw_conv_int8 functions, {imma} IMMA, {idp4a} IDP.4A")
-    if functions == 0 or imma == 0 or idp4a:
-        raise AssertionError(f"K4 is not on the tensor cores: {functions} functions, "
-                             f"{imma} IMMA, {idp4a} IDP.4A")
+            for mark in counts:
+                counts[mark][0] += mark in fn
+            continue
+        for mark, c in counts.items():
+            if mark in fn:
+                c[1] += bool(re.search(r"\bIMMA\b", line))
+                c[2] += bool(re.search(r"\bIDP\.?4A\b", line))
+    return counts
+
+
+def check_sass():
+    """K4 and the int8 1-NN sweep run on the tensor cores: fail unless each
+    has functions, IMMA > 0 and IDP.4A == 0 in its SASS."""
+    counts = sass_counts()
+    for mark, kid in SASS_KERNELS:
+        functions, imma, idp4a = counts[mark]
+        print(f"{kid} SASS: {functions} {mark} functions, {imma} IMMA, {idp4a} IDP.4A")
+        if functions == 0 or imma == 0 or idp4a:
+            raise AssertionError(f"{kid} is not on the tensor cores: {functions} "
+                                 f"functions, {imma} IMMA, {idp4a} IDP.4A")
 
 
 def unit_rows(gen, n: int, d: int):
@@ -424,10 +451,47 @@ def same(got, want) -> bool:
     return all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+def int8_twin_rows(p, qb, sb, sub, pack: bool):
+    """The int8 twin's answers for the probes ``sub`` of ``p``, on the
+    operands of a call over all of ``p`` (its probe scale comes from every
+    probe), so they equal those rows of the kernels' answers bit for bit."""
+    ops = knn._int8_operands(p, knn._sumsq(qb), sb, None, pack)
+    part = ops._replace(qa=ops.qa[sub], a2raw=ops.a2raw[sub])
+    emin, idx = knn._rank_int8_plain(part.qa, qb, part.b2v, pack)
+    return knn._int8_distances(part, emin, pack), idx
+
+
+def int8q_norms(in_sweep: bool):
+    """K2b with its gallery norms formed in the sweep, or in one host pass,
+    whichever ``NORMS_MAX_M_TILES`` would pick: to time that choice."""
+    def call(p, qb, sb):
+        limit = knn.NORMS_MAX_M_TILES
+        knn.NORMS_MAX_M_TILES = 1 << 30 if in_sweep else 0
+        try:
+            return knn.nearest_neighbor_int8q(p, qb, sb)
+        finally:
+            knn.NORMS_MAX_M_TILES = limit
+    return call
+
+
+def time_norms_choice(label, p, qb, sb, iters: int):
+    """Print K2b's time a call with its norms in the sweep and with one host
+    pass, in one interleaved order (sweep, host, host, sweep)."""
+    t = {True: [], False: []}
+    for in_sweep in (True, False, False, True):
+        fn = int8q_norms(in_sweep)
+        t[in_sweep].append(cuda_ms(lambda: fn(p, qb, sb), iters, 1))
+    tiles = -(-p.shape[0] // knn.int8_tile(p.shape[0], qb.shape[1], p.device.index)[0])
+    print(f"K2b norms at {label} ({tiles} probe tiles; in the sweep up to "
+          f"{knn.NORMS_MAX_M_TILES}): in the sweep {[round(x, 4) for x in t[True]]} ms, "
+          f"one host pass {[round(x, 4) for x in t[False]]} ms a call")
+
+
 def check_knn_shape(gen, name, m, n, d, results):
     """K2b/K2c bit-equal to the int8 twin in both epilogues; K2a (f32 and
     bf16) within tolerance, and index-equal where the twin's top two
-    candidates are further apart than the tolerance."""
+    candidates are further apart than the tolerance. Timed: K2b/K2c and
+    exact-f32 K2a."""
     g = unit_rows(gen, n, d)
     g[n // 2:n // 2 + 3] = g[1:4]            # exact ties with lower rows
     p = unit_rows(gen, m, d)
@@ -469,33 +533,98 @@ def check_knn_shape(gen, name, m, n, d, results):
             raise AssertionError(f"knn_f32 {name} bf16={bf16}: index differs "
                                  "where the top two are clearly apart")
         results["knn_f32"]["max_abs_err"] = max(results["knn_f32"]["max_abs_err"], err)
-        tag = "knn_f32" if bf16 else "knn_f32_exact"
-        times[tag] = cuda_ms(lambda: knn.nearest_neighbor_f32(p, g, bf16=bf16), 20)
-        times[tag + "_plain"] = cuda_ms(
-            lambda: knn.nearest_neighbor_plain(p, g, bf16=bf16), 5)
+    times["knn_f32"] = cuda_ms(lambda: knn.nearest_neighbor_f32(p, g, bf16=False), 20)
+    times["knn_f32_plain"] = cuda_ms(
+        lambda: knn.nearest_neighbor_plain(p, g, bf16=False), 5)
     print(f"knn {name}: M={m} N={n} D={d}: int8 bit-equal (both epilogues), "
           f"f32 within tolerance; ms " + json.dumps(
               {k: round(v, 4) for k, v in times.items()}))
     if name == KNN_REPORT:
         out_bytes = m * 8                      # f32 distance and int32 index
         ops = 2.0 * m * n * d
-        bounds = {"knn_f32": bound(nbytes(p, g) + out_bytes, ops, "bf16"),
+        qa = knn.quantize_embeddings(p, reciprocal=True)[0]
+        int_mm, why = int_mm_call(
+            F.pad(qa, (0, 0, 0, max(0, INT_MM_MIN_ROWS - m))), qb)
+        lib = {"knn_int8": cuda_ms(int_mm, 20) if int_mm else None,
+               "mm_f32": cuda_ms(lambda: torch.mm(p, g.T), 20)}
+        bounds = {"knn_f32": bound(nbytes(p, g) + out_bytes, ops, "f32"),
                   "knn_int8q": bound(nbytes(p, qb, sb) + out_bytes, ops, "int8"),
                   "knn_int8p": bound(nbytes(p, *[t for t in packed
                                                  if isinstance(t, torch.Tensor)])
                                      + out_bytes, ops, "int8")}
         print(f"knn {name} bounds (ms): " + json.dumps(
-            {k: [round(v[0], 4), v[1]] for k, v in bounds.items()}))
-        for kname in ("knn_f32", "knn_int8q", "knn_int8p"):
-            results[kname].update(ms=times[kname], plain_ms=times[kname + "_plain"],
+            {k: [round(v[0], 4), v[1]] for k, v in bounds.items()})
+            + f"; library ms: torch._int_mm on the probes padded to "
+            f"{max(m, INT_MM_MIN_ROWS)} rows "
+            + (f"{lib['knn_int8']:.4f}" if int_mm else f"refused ({why})")
+            + f", torch.mm f32 {lib['mm_f32']:.4f}")
+        # a serving call's device time apart from its host work (CUDA events
+        # time back-to-back calls, which the wrapper's host work can bound)
+        dev_ms = {"knn_int8q": knn_device_ms(lambda: knn.nearest_neighbor_int8q(p, qb, sb)),
+                  "knn_int8p": knn_device_ms(lambda: knn.nearest_neighbor_int8p(p, *packed))}
+        print(f"knn {name} device ms (profiler, the 1-NN kernels alone): "
+              + json.dumps({k: round(v, 4) for k, v in dev_ms.items()}))
+        time_norms_choice(name, p, qb, sb, 20)
+        for kname in ("knn_int8q", "knn_int8p"):
+            results[kname].update(ms=times[kname], device_ms=dev_ms[kname],
+                                  plain_ms=times[kname + "_plain"],
                                   bound_ms=bounds[kname][0], bound_by=bounds[kname][1],
+                                  library_ms=lib["knn_int8"],
                                   shape=f"M={m} N={n} D={d}")
+        results["knn_f32"][name] = {
+            "ms": times["knn_f32"], "plain_ms": times["knn_f32_plain"],
+            "bound_ms": bounds["knn_f32"][0], "bound_by": bounds["knn_f32"][1],
+            "library_ms": lib["mm_f32"]}
+
+
+def knn_device_ms(fn, calls: int = 10) -> float:
+    """Device ms a call of the 1-NN kernels (the sweep and the reduce) in
+    ``fn``, by ``torch.profiler`` over ``calls`` calls."""
+    rows, _ = profile_calls(fn, calls)
+    return sum(t for key, _, t, on_device in rows if on_device and "knn_" in key) / calls
+
+
+def check_knn_routed(gen, results):
+    """K2a at its routed shape (``KNN_ROUTED``, exact f32, as identify at
+    scale runs it) against the chunked f32 twin: distances within
+    tolerance, and where the two pick different rows, the kernel's row ties
+    the twin's minimum within it; index agreement at least 0.99. Timed
+    beside the twin and ``torch.mm`` (f32, TF32 off: the product alone, an
+    8 GiB matrix)."""
+    m, n, d = KNN_ROUTED
+    g = unit_rows(gen, n, d)
+    p = unit_rows(gen, m, d)
+    gd, gi = knn.nearest_neighbor_f32(p, g, bf16=False)
+    wd, wi = knn.nearest_neighbor_chunked(p, g, chunk=256, bf16=False)
+    if not torch.allclose(gd, wd, rtol=KNN_F32_RTOL, atol=KNN_F32_ATOL):
+        raise AssertionError("knn_f32 routed shape: distances off the twin")
+    diff = gi != wi
+    alt = ((p[diff] - g[gi[diff]]) ** 2).sum(1)
+    if not torch.allclose(alt, wd[diff], rtol=KNN_F32_RTOL, atol=KNN_F32_ATOL):
+        raise AssertionError("knn_f32 routed shape: a row that does not tie "
+                             "the twin's minimum")
+    agree = 1.0 - float(diff.float().mean())
+    if agree < 0.99:
+        raise AssertionError(f"knn_f32 routed shape: index agreement {agree}")
+    err = float((gd - wd).abs().max())
+    ms = cuda_ms(lambda: knn.nearest_neighbor_f32(p, g, bf16=False), 3, 1)
+    plain_ms = cuda_ms(lambda: knn.nearest_neighbor_chunked(p, g, 256, False), 1, 0)
+    lib_ms = cuda_ms(lambda: torch.mm(p, g.T), 3, 1)
+    b_ms, b_by = bound(nbytes(p, g) + m * 8, 2.0 * m * n * d, "f32")
+    print(f"knn_f32 routed shape M={m} N={n} D={d} f32: index agreement {agree}, "
+          f"max abs err {err:.3g}; kernel {ms:.3f} ms "
+          f"({2.0 * m * n * d / ms / 1e9:.1f} T f32 FLOP/s), bound {b_ms:.3f} ms "
+          f"({b_by}), torch.mm {lib_ms:.3f} ms, chunked twin {plain_ms:.3f} ms")
+    results["knn_f32"]["max_abs_err"] = max(results["knn_f32"]["max_abs_err"], err)
+    results["knn_f32"].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                              library_ms=lib_ms, shape=f"M={m} N={n} D={d} f32 (routed)")
 
 
 def check_knn_design_point(gen, results):
     """K2b/K2c at 8192 x 1,048,576 x 512: the kernels on every probe, the
     twin on every 32nd probe with the same operands (the probe scale comes
-    from all probes), bit-equal; the twin timed once over all probes."""
+    from all probes), bit-equal; the twin timed once over all probes; then,
+    with the f32 rows freed, ``torch._int_mm`` (32 GiB of int32 out)."""
     m, n, d = KNN_DESIGN
     g = unit_rows(gen, n, d)
     p = unit_rows(gen, m, d)
@@ -503,10 +632,7 @@ def check_knn_design_point(gen, results):
     packed = knn.pack_quantized_gallery(qb, sb)
     sub = torch.arange(0, m, DESIGN_CHECK_STRIDE, device="cuda")
     for pack in (False, True):
-        ops = knn._int8_operands(p, knn._sumsq(qb), sb, None, pack)
-        part = ops._replace(qa=ops.qa[sub], a2raw=ops.a2raw[sub])
-        emin, idx = knn._rank_int8_plain(part.qa, qb, part.b2v, pack)
-        want = (knn._int8_distances(part, emin, pack), idx)
+        want = int8_twin_rows(p, qb, sb, sub, pack)
         for kname, got in (
                 ("knn_int8q", knn.nearest_neighbor_int8q(p, qb, sb, pack_idx=pack)),
                 ("knn_int8p", knn.nearest_neighbor_int8p(p, *packed, pack_idx=pack))):
@@ -516,12 +642,26 @@ def check_knn_design_point(gen, results):
     q_ms = cuda_ms(lambda: knn.nearest_neighbor_int8q(p, qb, sb), 3, 1)
     p_ms = cuda_ms(lambda: knn.nearest_neighbor_int8p(p, *packed), 3, 1)
     plain_ms = cuda_ms(lambda: knn.nearest_neighbor_int8_plain(p, qb, sb), 1, 0)
+    time_norms_choice("the design point", p, qb, sb, 3)
+    time_norms_choice(f"M={m // 2} of the design point's probes", p[:m // 2], qb, sb, 3)
+    b_ms, b_by = bound(nbytes(p, qb) + m * 8, 2.0 * m * n * d, "int8")
+    qa = knn.quantize_embeddings(p, reciprocal=True)[0]
+    del g, p, packed, want, got
+    torch.cuda.empty_cache()
+    int_mm, why = int_mm_call(qa, qb)
+    lib_ms = cuda_ms(int_mm, 3, 1) if int_mm else None
+    del int_mm
+    torch.cuda.empty_cache()
     print(f"knn design point M={m} N={n} D={d}: int8 bit-equal on {len(sub)} "
           f"probes (1 in {DESIGN_CHECK_STRIDE}), both epilogues; "
-          f"knn_int8q {q_ms:.3f} ms, knn_int8p {p_ms:.3f} ms, "
-          f"plain twin (chunked, all probes) {plain_ms:.3f} ms")
+          f"knn_int8q {q_ms:.3f} ms, knn_int8p {p_ms:.3f} ms "
+          f"({2.0 * m * n * d / p_ms / 1e9:.1f} T int8 ops/s), bound {b_ms:.3f} ms "
+          f"({b_by}), torch._int_mm "
+          + (f"{lib_ms:.3f} ms" if lib_ms is not None else f"refused ({why})")
+          + f", plain twin (chunked, all probes) {plain_ms:.3f} ms")
     results["design_point"] = {"M": m, "N": n, "D": d, "knn_int8q_ms": q_ms,
-                               "knn_int8p_ms": p_ms, "plain_ms": plain_ms}
+                               "knn_int8p_ms": p_ms, "plain_ms": plain_ms,
+                               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
 
 def check_knn_kernels():
@@ -529,7 +669,10 @@ def check_knn_kernels():
     results = {k: {"max_abs_err": 0.0} for k in ("knn_f32", "knn_int8q", "knn_int8p")}
     for name, m, n, d in KNN_SHAPES:
         check_knn_shape(gen, name, m, n, d, results)
+        torch.cuda.empty_cache()
     check_knn_design_point(gen, results)
+    check_knn_routed(gen, results)
+    torch.cuda.empty_cache()
     return results
 
 
@@ -968,10 +1111,24 @@ def identify_at_scale():
             probes[i * SERVE_BATCH:(i + 1) * SERVE_BATCH], qb, sb)
         if not same(got, want):
             raise AssertionError(f"serving query {i}: K2c differs from the twin")
+    # K2b at the shape the int8 evaluation runs it, on its operands (the
+    # normalized probes against the quantized normalized gallery): bit-equal
+    # to the twin on every SCALE_CHECK_STRIDE-th probe, and its answers give
+    # the evaluation's accuracy
+    pn = l2_normalize(probes)
+    sub = torch.arange(0, SCALE_M, SCALE_CHECK_STRIDE, device="cuda")
+    got = knn.nearest_neighbor_int8q(pn, qb, sb)
+    if not same((got[0][sub], got[1][sub]), int8_twin_rows(pn, qb, sb, sub, False)):
+        raise AssertionError("identify at scale: K2b differs from the twin")
+    acc_k2b = float(np.mean(labels[got[1].cpu().numpy()] == truth))
+    if acc_k2b != acc_q:
+        raise AssertionError(f"identify at scale: K2b's accuracy {acc_k2b}, "
+                             f"the int8 evaluation's {acc_q}")
+    del got
+    time_norms_choice("identify at scale", pn, qb, sb, 3)
     # the exact identifier answered what K2a on f32 operands answers, and
     # K2a agrees with the chunked f32 twin: where the two pick different
     # rows, the kernel's row ties the twin's minimum within the tolerance
-    pn = l2_normalize(probes)
     gd, gi = knn.nearest_neighbor_f32(pn, gn, bf16=False)
     wd, wi = knn.nearest_neighbor_chunked(pn, gn, chunk=256, bf16=False)
     if not np.array_equal(pred_exact, labels[gi.cpu().numpy()]):
@@ -985,8 +1142,22 @@ def identify_at_scale():
         raise AssertionError("identify at scale: K2a picked a row that does "
                              "not tie the twin's minimum")
     agree = 1.0 - float(diff.float().mean())
+    # where each evaluation's device time goes: the 1-NN kernels against
+    # the plain passes around them (normalize, quantize, norms, labels)
+    split = {}
+    for label, fn in (("exact", lambda: KNNIdentifier(device="cuda").fit(
+            g, labels).predict(probes)), ("int8", lambda: gallery_probe_eval(
+                g, labels, probes, truth, quantized=True, device="cuda"))):
+        rows, span = profile_calls(fn)
+        busy = sum(t for _, _, t, on_device in rows if on_device)
+        knn_ms = sum(t for key, _, t, on_device in rows if on_device and "knn_" in key)
+        split[label] = {"span_ms": round(span, 3), "device_ms": round(busy, 3),
+                        "knn_kernels_ms": round(knn_ms, 3)}
+    print("identify at scale, one profiled evaluation each: " + json.dumps(split))
     print(f"identify at scale: K2c bit-equal to the twin on {n_served} served "
-          f"probes; exact identifier = K2a (f32); K2a vs chunked f32 twin "
+          f"probes; K2b bit-equal to the twin on {len(sub)} probes (1 in "
+          f"{SCALE_CHECK_STRIDE}) of the int8 evaluation; exact identifier = "
+          f"K2a (f32); K2a vs chunked f32 twin "
           f"index agreement {agree}, max abs err "
           f"{float((gd - wd).abs().max()):.3g}")
     if agree < 0.99:
@@ -1303,8 +1474,8 @@ def main() -> None:
 
     # --- kernel vs plain ---
     rng = np.random.RandomState(SEED)
-    crop_results, crop_lib_ms = check_crop_kernel(rng)
-    check_pw_sass()
+    crop_results = check_crop_kernel(rng)
+    check_sass()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     pw = check_pw_kernel(gen, PW_BATCH, True, 20, 5)
     warp_result = check_warp_kernel()
@@ -1370,24 +1541,26 @@ def main() -> None:
     # alone); knn: the serve16 shape; pw_conv_int8: the sums over the 13
     # layers of one 16-face head batch (library: torch._int_mm), and of the
     # embedder's batch
-    errs, ms, plain, bounds = zip(*crop_results)
+    errs, ms, plain, bounds, lib = zip(*crop_results)
     kernels = [{
         "name": "crop_resize", "route": "cuda",
         "source": "hse_facerec_torch/csrc/crop_resize.cu",
         "replaces": "hse_facerec_tf_tpu/ops/pallas/crop.py:103",
         "launches": launches["crop_resize"], "max_abs_err": max(errs),
         "ms": sum(ms), "plain_ms": sum(plain), "bound_ms": sum(bounds),
-        "bound_by": "bytes", "library_ms": crop_lib_ms,
-        "library_site": f"head (16 x 224², s=1): kernel {ms[-1]:.4f} ms"}]
+        "bound_by": "bytes", "library_ms": sum(lib),
+        "sites_ms": {name: {"ms": t, "library_ms": t_lib} for (name, *_), t, t_lib
+                     in zip(CROP_SHAPES, ms, lib)}}]
+    design = knn_results["design_point"]
     for name, line in (("knn_f32", 159), ("knn_int8q", 313), ("knn_int8p", 439)):
-        r = knn_results[name]
+        r = dict(knn_results[name])
+        if name != "knn_f32":
+            r["design_point"] = {"ms": design[name + "_ms"], **{
+                k: design[k] for k in ("plain_ms", "bound_ms", "bound_by", "library_ms")}}
         kernels.append({
             "name": name, "route": "cuda", "source": "hse_facerec_torch/csrc/knn.cu",
             "replaces": f"hse_facerec_tf_tpu/ops/pallas/knn.py:{line}",
-            "launches": launches[name], "max_abs_err": r["max_abs_err"],
-            "equal": name != "knn_f32", "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
-            "shape": r["shape"]})
+            "launches": launches[name], "equal": name != "knn_f32", **r})
     kernels.append({
         "name": "pw_conv_int8", "route": "cuda",
         "source": "hse_facerec_torch/csrc/pw_conv.cu",

@@ -2,269 +2,566 @@
 // (int8).
 //
 // Replaces hse_facerec_tf_tpu/ops/pallas/knn.py: nearest_neighbor_tpu
-// (_make_kernel(int8=False)), nearest_neighbor_tpu_int8q and
-// nearest_neighbor_tpu_int8p (_make_kernel(int8=True) and
-// _make_kernel_packed). For each probe row it finds the gallery row with
-// the least ranking value, without writing the (M, N) matrix:
+// (_make_kernel(int8=False), _pallas_nn_call) with knn_f32_sweep_kernel, and
+// nearest_neighbor_tpu_int8q and nearest_neighbor_tpu_int8p
+// (_make_kernel(int8=True), _make_kernel_packed) with knn_int8_sweep_kernel.
+// For each probe row they find the gallery row with the least ranking
+// value, without writing the (M, N) matrix:
 //   K2a: d = (a2[m] + b2[n]) - 2 * dot(a[m], b[n]), f32 FMAs (bf16 operands
-//        are widened to f32 as they are loaded);
+//        are widened to f32 as they are read);
 //   K2b/K2c: e = b2v[n] - (float)dot(qa[m], qb[n]), an exact int32 dot of
-//        int8 rows by __dp4a. The host folds the scales, the +inf / sentinel
-//        of invalid rows and, for the packed mode, the offset into b2v.
+//        int8 rows on the tensor cores. The host folds the scales, the +inf /
+//        sentinel of invalid rows and, for the packed mode, the offset into
+//        b2v; for K2b's two-pass epilogue the kernel forms b2v itself (below).
 // The value ranked is v = bits(e) & mask: mask = ~0 for the two-pass
 // epilogue, ~1023 for the packed one (knn.py:257-283, whose reported value
 // is the masked one). The winner is the lexicographic minimum of
-// (v, gallery index), which is what both TPU epilogues compute whatever
-// their tiling, so the result here does not depend on the tiling either.
-// The int32 dot is exact; (float)dot rounds it once (not at all while
-// D <= 1024, as |q| <= 127 keeps it below 2^24) and e is one more
+// (v, gallery index), a total order, which is what both TPU epilogues
+// compute whatever their tiling, so no tiling or reduction order here
+// changes it. The int32 dot is exact; (float)dot rounds it once (not at all
+// while D <= 1024, as |q| <= 127 keeps it below 2^24) and e is one more
 // rounding, as in the plain twin, whose float64 dot is exact too: K2b/K2c
 // equal their twins bit for bit.
 //
-// Design. The TPU kernel sweeps (2048 x 1024) MXU tiles in sequence and
-// carries (min, argmin) in VMEM across the gallery axis. On the card the
-// blocks run in parallel, so the gallery is split across blocks as well as
-// the probes: block (mt, s) takes TM probes against the gallery rows of
-// split s, keeps a running (v, index) per probe in registers, and writes
-// one partial per (probe, split); a second small kernel reduces the
-// partials in the same lexicographic order. Serving asks 1-16 probes
-// against the whole gallery, which a probe-only grid would give to one
-// block; the splits fill the card. Each block stages (TM x 16 words) of
-// probes and (64 x 16 words) of gallery rows in shared memory per k-chunk;
-// each of 256 threads owns RM x 4 accumulators (RM = 1 for M <= 16, else
-// 4). At the serving shapes (M <= 16, N = 1M, D = 512) the sweep reads the
-// 512 MB int8 gallery once and is bound by bytes; at the design point
-// (M = 8192) it is bound by the __dp4a issue rate. wgmma, TMA and
-// mma.sync int8 are left for a later change.
+// The TPU kernel sweeps (2048 x 1024) MXU tiles in sequence and carries
+// (min, argmin) in VMEM across the gallery axis. On the card the blocks run
+// in parallel, so the gallery is split across blocks as well as the probes:
+// block (m-tile, split) takes a tile of probes against the 128-row gallery
+// tiles of its split, keeps a running (v, index) per probe in registers,
+// and writes one partial per (probe, split); knn_reduce_kernel reduces the
+// partials in the same lexicographic order. The split count
+// (ops/kernels/knn.py::sweep_config) fills the card in whole waves; m-tiles
+// vary fastest in the grid, so the blocks that share a split's gallery rows
+// run together and read them from device memory once.
+//
+// int8 sweep (K2b, K2c). What bounds it on an H100: at a serving query
+// (M <= 16, N = 1M, D = 512) the 512 MiB gallery read once, 0.16 ms at
+// 3.35 TB/s; at the design point (8192 x 1M x 512) its 8.8 T int8
+// operations, 4.4 ms at 1,979 T ops/s. Design:
+// - the block's probe tile (TM = 16 probes at M <= 16, where they fill one
+//   m16 tile, else 128) stays in shared memory for the whole sweep, every
+//   64-byte K tile of it, up to 128 KB at D = 1024;
+// - the gallery rows stream through a 4-stage cp.async ring of (128 rows x
+//   64 bytes) tiles, 16-byte copies (4-byte where D % 16 != 0), zero-filled
+//   past N and D; the ring runs on across gallery tiles, so loads never
+//   drain between them;
+// - warps run mma.sync.m16n8k32 s8 x s8 -> s32 on ldmatrix fragments of the
+//   XOR-swizzled tiles (mma_s8.cuh, shared with K4): 8 warps of 16 x 16
+//   (TM = 16) or 32 x 64 (TM = 128) outputs;
+// - after a gallery tile's last K step the epilogue works on the C
+//   fragments in registers: e, the mask and the running lexicographic
+//   minimum of each fragment row; at the end the 4 lanes of a row, then the
+//   warps that share it (through shared memory), reduce to one partial.
+// - K2b's norms in the sweep (two-pass epilogue, b2v == nullptr): the
+//   gallery's sums of squares are exact int32 diagonals of B·Bᵀ, taken on
+//   the tensor cores from the B fragments each warp already holds (two
+//   n-tiles as the A operand against each: one extra MMA per n-tile and
+//   k32 step, for one n-tile pair a warp), so no __dp4a and no pass over
+//   the gallery on the host; b2v[n] = n < valid_n ? (float)sumsq * c :
+//   +inf, the single rounding of the plain twin's where(valid, b2raw * c,
+//   inf). Every probe tile sums the squares again, so the wrapper asks for
+//   this only while the probes make at most 32 tiles (ops/kernels/knn.py,
+//   NORMS_MAX_M_TILES; on an H100 one host pass costs as much there). The
+//   packed epilogue needs max(b2raw) before the sweep and K2c has its norms
+//   precomputed: both take b2v from the host.
+//
+// f32 sweep (K2a). What bounds it: at its routed shape (2048 x 1M x 1024,
+// where the f32 matrix would pass 4 GiB) 4.4 T f32 operations, 66 ms at
+// 67 T FLOP/s outside the tensor cores (TF32 is not exact). Design: 128 x
+// 128 block tiles, 256 threads with 8 x 8 accumulators each, 16 k a stage,
+// two stages. Both operands lie k-major in shared memory, so each thread
+// reads its 8 probes and 8 gallery rows at one k as two 16-byte words each:
+// the probes arrive k-major from the host (a (D, M) copy, small) by
+// 16-byte cp.async; the gallery rows, row-major in device memory, pass
+// through registers (16-byte loads issued before the stage's FMAs, stored
+// transposed after them), since cp.async cannot transpose and reading them
+// row-major would double the shared-memory traffic. Each accumulator sums
+// fmaf(a[k], b[k], acc) in k order 0..D-1 (zeros past D), as the first
+// version of this kernel did, so the distances equal its distances bit for
+// bit. Small M runs the same kernel on a zero-padded probe tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_s8.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kTN = 64;        // gallery rows per tile: 16 threads x 4
-constexpr int kKC = 16;        // k-chunk: 16 words (64 int8 or 16 floats)
-constexpr int kPad = 4;        // smem row padding, keeps 16-byte alignment
+using namespace mma_s8;
+
+constexpr int kThreads = 256;
+constexpr int kTN = 128;          // gallery rows per tile, both sweeps
+constexpr int kRingStages = 4;    // int8 gallery ring
 
 __device__ __forceinline__ bool lex_less(float v, int i, float bv, int bi) {
   return v < bv || (v == bv && i < bi);
 }
 
-__device__ __forceinline__ float load_f32(const float* p, long long i) {
-  return p[i];
-}
-
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p, long long i) {
-  return __bfloat162float(p[i]);
-}
-
-// Reduce (v, i) over the 16 lanes that share one probe row group, then
-// write one partial per probe row.
-template <int RM>
-__device__ __forceinline__ void write_partials(float (&bv)[RM], int (&bi)[RM],
-                                               int m_base, int M, int split,
-                                               int splits, float* part_v,
-                                               int* part_i) {
-  const int tx = threadIdx.x % 16;
-#pragma unroll
-  for (int r = 0; r < RM; ++r) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv[r], off);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi[r], off);
-      if (lex_less(ov, oi, bv[r], bi[r])) {
-        bv[r] = ov;
-        bi[r] = oi;
-      }
-    }
-    const int m = m_base + r;
-    if (tx == 0 && m < M) {
-      part_v[static_cast<long long>(m) * splits + split] = bv[r];
-      part_i[static_cast<long long>(m) * splits + split] = bi[r];
-    }
+__device__ __forceinline__ void lex_min(float& bv, int& bi, float v, int i) {
+  if (lex_less(v, i, bv, bi)) {
+    bv = v;
+    bi = i;
   }
 }
 
-// qa (M, Dw) and qb (N, Dw) int8 rows packed 4 to a 32-bit word.
-template <int RM>
-__global__ void __launch_bounds__(kThreads)
-knn_int8_partial_kernel(const int* __restrict__ qa, const int* __restrict__ qb,
-                        const float* __restrict__ b2v, int M, int N, int Dw,
-                        unsigned mask, int tiles_per_split,
-                        float* __restrict__ part_v, int* __restrict__ part_i) {
-  constexpr int TM = 16 * RM;
-  __shared__ __align__(16) int As[kKC][TM + kPad];
-  __shared__ __align__(16) int Bs[kKC][kTN + kPad];
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int m0 = blockIdx.x * TM;
+__device__ __forceinline__ void lex_min_shfl(float& bv, int& bi, int off) {
+  const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+  const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+  lex_min(bv, bi, ov, oi);
+}
+
+// ---------------------------------------------------------------- int8 sweep
+
+// TM probes x kTN gallery rows a block, 8 warps of WM x WN outputs.
+template <int TM_, int WM_, int WN_>
+struct SweepTile {
+  static constexpr int TM = TM_, WM = WM_, WN = WN_;
+  static constexpr int kWarpsM = TM / WM, kWarpsN = kTN / WN;
+  static constexpr int kMT = WM / 16, kNT = WN / 8;   // mma tiles of a warp
+  static constexpr int kNG = kNT < 4 ? kNT : 4;       // n-tiles per B load group
+  static_assert(kWarpsM * kWarpsN * 32 == kThreads, "8 warps");
+  // the warps that share a band of n-tiles take one n-tile pair of norms each
+  static_assert(kNT / 2 == kWarpsM && kNG % 2 == 0, "one norm pair a warp");
+};
+using ServeTile = SweepTile<16, 16, 16>;    // 1 x 8 warps
+using BatchTile = SweepTile<128, 32, 64>;   // 4 x 2 warps
+
+// the resident probe tile, the gallery ring, the tile's row norms and a
+// b2v tile beside each ring stage
+__host__ __device__ constexpr int int8_smem_bytes(int tm, int Dp) {
+  return tm * ((Dp + kBK - 1) / kBK) * kBK + kRingStages * kTN * kBK + kTN * 4 +
+         kRingStages * kTN * 4;
+}
+
+// qa (M, Dp) and qb (N, Dp) int8, Dp a multiple of 4 (of 16 for LOAD 16).
+// NORMS: b2v is formed here from the rows' squares, c = sb / (2 sa) and
+// valid_n; else b2v (N,) comes from the host.
+template <class T, int LOAD, bool NORMS>
+__global__ void __launch_bounds__(kThreads, 2)
+knn_int8_sweep_kernel(const int8_t* __restrict__ qa, const int8_t* __restrict__ qb,
+                      const float* __restrict__ b2v, const float* __restrict__ c,
+                      int valid_n, int M, int N, int Dp, unsigned mask,
+                      int tiles_per_split, float* __restrict__ part_v,
+                      int* __restrict__ part_i) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  constexpr int TM = T::TM, kMT = T::kMT, kNT = T::kNT, kNG = T::kNG;
+  const int KT = (Dp + kBK - 1) / kBK;
+  uint8_t* const As = smem;                               // KT x (TM, 64)
+  uint8_t* const ring = smem + KT * TM * kBK;             // stages x (kTN, 64)
+  int* const nrm = reinterpret_cast<int*>(ring + kRingStages * kTN * kBK);
+  float* const b2s = reinterpret_cast<float*>(nrm + kTN);   // stages x kTN
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp / T::kWarpsN, wn = warp % T::kWarpsN;
+  const long long m0 = static_cast<long long>(blockIdx.x) * TM;
   const int split = blockIdx.y, splits = gridDim.y;
-  const long long n_begin = static_cast<long long>(split) * tiles_per_split * kTN;
-  const long long n_end_ll = n_begin + static_cast<long long>(tiles_per_split) * kTN;
-  const int n_end = static_cast<int>(n_end_ll < N ? n_end_ll : N);
+  const int n_tiles = (N + kTN - 1) / kTN;
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(t_begin + tiles_per_split, n_tiles);
+  const int steps = (t_end - t_begin) * KT;   // (gallery tile, K tile) pairs
 
-  float bv[RM];
-  int bi[RM];
+  // the probe tile, resident for the whole sweep (committed with stage 0)
+  for (int kt = 0; kt < KT; ++kt)
+    load_tile<LOAD, TM, kThreads>(As + kt * TM * kBK, qa, m0, M, Dp, kt * kBK);
+  auto load_stage = [&](int s) {
+    const long long row0 = static_cast<long long>(t_begin + s / KT) * kTN;
+    load_tile<LOAD, kTN, kThreads>(ring + (s % kRingStages) * kTN * kBK, qb, row0, N,
+                                   Dp, (s % KT) * kBK);
+    // the tile's b2v rides with its last K stage, so the epilogue reads it
+    // from shared memory; the slot is refilled only after that step
+    if (!NORMS && s % KT == KT - 1 && threadIdx.x < kTN) {
+      const long long n = row0 + threadIdx.x;
+      cp_async4(smem_addr(b2s + (s % kRingStages) * kTN + threadIdx.x),
+                n < N ? b2v + n : b2v, n < N ? 4 : 0);
+    }
+  };
 #pragma unroll
-  for (int r = 0; r < RM; ++r) {
-    bv[r] = __int_as_float(0x7f800000);  // +inf
-    bi[r] = 0x7fffffff;
+  for (int s = 0; s < kRingStages - 1; ++s) {
+    if (s < steps) load_stage(s);
+    cp_async_commit();
   }
+  const float cval = NORMS ? __ldg(c) : 0.0f;
 
-  const int lrow = tid / kKC, lk = tid % kKC;  // loader: 16 rows per pass
-  for (int n0 = static_cast<int>(n_begin); n0 < n_end; n0 += kTN) {
-    int acc[RM][4];
-#pragma unroll
-    for (int r = 0; r < RM; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[r][j] = 0;
+  // ldmatrix row addresses of this lane (mma_s8.cuh)
+  const int q = lane >> 3, r8 = lane & 7;
+  const int a_row = wm * T::WM + (q & 1) * 8 + r8, a_chunk = q >> 1;
+  const int b_row = wn * T::WN + (q >> 1) * 8 + r8, b_chunk = q & 1;
+  const int g = lane >> 2, t = lane & 3;
 
-    for (int k0 = 0; k0 < Dw; k0 += kKC) {
-      __syncthreads();
-      const int k = k0 + lk;
+  int acc[kMT][kNT][4];
+  int sq[2][4];                 // NORMS: the warp's n-tile pair, B·Bᵀ blocks
+  // Running minimum of rows g and g + 8. A thread meets its candidates in
+  // increasing index, so a strict v < bv keeps the lowest index of equal
+  // values; starting from (+inf, the split's first row), which is the
+  // lexicographic minimum whenever every value of the split is +inf,
+  // leaves the result the lexicographic minimum.
+  float bv[kMT][2];
+  int bi[kMT][2];
 #pragma unroll
-      for (int p = 0; p < TM / 16; ++p) {
-        const int row = m0 + lrow + 16 * p;
-        As[lk][lrow + 16 * p] =
-            (row < M && k < Dw) ? qa[static_cast<long long>(row) * Dw + k] : 0;
-      }
+  for (int i = 0; i < kMT; ++i)
 #pragma unroll
-      for (int p = 0; p < kTN / 16; ++p) {
-        const int row = n0 + lrow + 16 * p;
-        Bs[lk][lrow + 16 * p] =
-            (row < n_end && k < Dw) ? qb[static_cast<long long>(row) * Dw + k] : 0;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kKC; ++kk) {
-        int a[RM];
-        if constexpr (RM == 4) {
-          const int4 av = *reinterpret_cast<const int4*>(&As[kk][ty * 4]);
-          a[0] = av.x; a[1] = av.y; a[2] = av.z; a[3] = av.w;
-        } else {
-#pragma unroll
-          for (int r = 0; r < RM; ++r) a[r] = As[kk][ty * RM + r];
-        }
-        const int4 b4 = *reinterpret_cast<const int4*>(&Bs[kk][tx * 4]);
-        const int b[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-        for (int r = 0; r < RM; ++r)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[r][j] = __dp4a(a[r], b[j], acc[r][j]);
-      }
+    for (int h = 0; h < 2; ++h) {
+      bv[i][h] = __int_as_float(0x7f800000);   // +inf
+      bi[i][h] = t_begin * kTN;
     }
 
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<kRingStages - 2>();
+    __syncthreads();
+    if (s + kRingStages - 1 < steps) load_stage(s + kRingStages - 1);
+    cp_async_commit();
+    const int kt = s % KT;
+    if (kt == 0) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= n_end) continue;
-      const float b2 = b2v[n];
+      for (int i = 0; i < kMT; ++i)
 #pragma unroll
-      for (int r = 0; r < RM; ++r) {
-        const float e = __fsub_rn(b2, static_cast<float>(acc[r][j]));
-        const float v = __uint_as_float(__float_as_uint(e) & mask);
-        if (lex_less(v, n, bv[r], bi[r])) {
-          bv[r] = v;
-          bi[r] = n;
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sq[0][e] = sq[1][e] = 0;
+    }
+    const uint8_t* At = As + kt * TM * kBK;
+    const uint8_t* Bs = ring + (s % kRingStages) * kTN * kBK;
+#pragma unroll
+    for (int ks = 0; ks < kBK / 32; ++ks) {
+      if (kt * kBK + ks * 32 >= Dp) break;
+      uint32_t af[kMT][4];
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+        ldmatrix_x4(smem_addr(At + swizzle(a_row + i * 16, ks * 2 + a_chunk)), af[i]);
+#pragma unroll
+      for (int j0 = 0; j0 < kNT; j0 += kNG) {
+        uint32_t bfr[kNG][2];
+#pragma unroll
+        for (int j = 0; j < kNG; j += 2) {
+          uint32_t r[4];
+          ldmatrix_x4(smem_addr(Bs + swizzle(b_row + (j0 + j) * 8, ks * 2 + b_chunk)), r);
+          bfr[j][0] = r[0];
+          bfr[j][1] = r[1];
+          bfr[j + 1][0] = r[2];
+          bfr[j + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int i = 0; i < kMT; ++i)
+#pragma unroll
+          for (int j = 0; j < kNG; ++j) mma(acc[i][j0 + j], af[i], bfr[j]);
+        if constexpr (NORMS) {
+#pragma unroll
+          for (int j = 0; j < kNG; j += 2) {
+            if ((j0 + j) / 2 != wm) continue;      // warp-uniform
+            // rows 0-7 of this A: n-tile j, rows 8-15: n-tile j + 1
+            const uint32_t an[4] = {bfr[j][0], bfr[j + 1][0], bfr[j][1], bfr[j + 1][1]};
+            mma(sq[0], an, bfr[j]);
+            mma(sq[1], an, bfr[j + 1]);
+          }
         }
       }
     }
+    if (kt != KT - 1) continue;
+
+    // epilogue of gallery tile t_begin + s / KT, on the C fragments
+    const long long n_tile0 = static_cast<long long>(t_begin + s / KT) * kTN;
+    if constexpr (NORMS) {
+      // diagonal (g, g) of tile·tileᵀ: lane t == g / 2, element g % 2 (first
+      // n-tile, C rows 0-7) or 2 + g % 2 (second, C rows 8-15)
+      if (t == (g >> 1)) {
+        const int row = wn * T::WN + 16 * wm + g;
+        nrm[row] = (g & 1) ? sq[0][1] : sq[0][0];
+        nrm[row + 8] = (g & 1) ? sq[1][3] : sq[1][2];
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = wn * T::WN + j * 8 + 2 * t + e;
+        const long long n = n_tile0 + col;
+        if (n >= N) continue;
+        float b2;
+        if constexpr (NORMS)
+          b2 = n < valid_n ? __fmul_rn(__int2float_rn(nrm[col]), cval)
+                           : __int_as_float(0x7f800000);
+        else
+          b2 = b2s[(s % kRingStages) * kTN + col];
+#pragma unroll
+        for (int i = 0; i < kMT; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float ev = __fsub_rn(b2, __int2float_rn(acc[i][j][2 * h + e]));
+            const float v = __uint_as_float(__float_as_uint(ev) & mask);
+            if (v < bv[i][h]) {
+              bv[i][h] = v;
+              bi[i][h] = static_cast<int>(n);
+            }
+          }
+      }
   }
-  write_partials<RM>(bv, bi, m0 + ty * RM, M, split, splits, part_v, part_i);
+
+  // the 4 lanes of a row, then the warps that share it, through the ring
+  cp_async_wait<0>();
+  __syncthreads();
+  float* rv = reinterpret_cast<float*>(ring);
+  int* ri = reinterpret_cast<int*>(ring + TM * T::kWarpsN * 4);
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      lex_min_shfl(bv[i][h], bi[i][h], 1);
+      lex_min_shfl(bv[i][h], bi[i][h], 2);
+      if (t == 0) {
+        const int row = wm * T::WM + i * 16 + g + 8 * h;
+        rv[row * T::kWarpsN + wn] = bv[i][h];
+        ri[row * T::kWarpsN + wn] = bi[i][h];
+      }
+    }
+  __syncthreads();
+  for (int row = threadIdx.x; row < TM; row += kThreads) {
+    float v = rv[row * T::kWarpsN];
+    int idx = ri[row * T::kWarpsN];
+    for (int w = 1; w < T::kWarpsN; ++w)
+      lex_min(v, idx, rv[row * T::kWarpsN + w], ri[row * T::kWarpsN + w]);
+    const long long m = m0 + row;
+    if (m < M) {
+      part_v[m * splits + split] = v;
+      part_i[m * splits + split] = idx;
+    }
+  }
 }
 
-// a (M, D) and b (N, D) f32 or bf16 rows; a2 (M,), b2 (N,) f32 norms.
-template <int RM, typename T>
-__global__ void __launch_bounds__(kThreads)
-knn_f32_partial_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                       const float* __restrict__ a2, const float* __restrict__ b2,
-                       int M, int N, int D, int tiles_per_split,
-                       float* __restrict__ part_v, int* __restrict__ part_i) {
-  constexpr int TM = 16 * RM;
-  __shared__ __align__(16) float As[kKC][TM + kPad];
-  __shared__ __align__(16) float Bs[kKC][kTN + kPad];
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int m0 = blockIdx.x * TM;
-  const int split = blockIdx.y, splits = gridDim.y;
-  const long long n_begin = static_cast<long long>(split) * tiles_per_split * kTN;
-  const long long n_end_ll = n_begin + static_cast<long long>(tiles_per_split) * kTN;
-  const int n_end = static_cast<int>(n_end_ll < N ? n_end_ll : N);
+using Int8Sweep = void (*)(const int8_t*, const int8_t*, const float*, const float*,
+                           int, int, int, int, unsigned, int, float*, int*);
 
-  float bv[RM], a2r[RM];
-  int bi[RM];
-#pragma unroll
-  for (int r = 0; r < RM; ++r) {
-    bv[r] = __int_as_float(0x7f800000);
-    bi[r] = 0x7fffffff;
-    const int m = m0 + ty * RM + r;
-    a2r[r] = m < M ? a2[m] : 0.0f;
-  }
+template <class T>
+Int8Sweep int8_sweep(int load, bool norms) {
+  if (load == 16)
+    return norms ? &knn_int8_sweep_kernel<T, 16, true> : &knn_int8_sweep_kernel<T, 16, false>;
+  return norms ? &knn_int8_sweep_kernel<T, 4, true> : &knn_int8_sweep_kernel<T, 4, false>;
+}
 
-  const int lrow = tid / kKC, lk = tid % kKC;
-  for (int n0 = static_cast<int>(n_begin); n0 < n_end; n0 += kTN) {
-    float acc[RM][4];
-#pragma unroll
-    for (int r = 0; r < RM; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[r][j] = 0.0f;
-
-    for (int k0 = 0; k0 < D; k0 += kKC) {
-      __syncthreads();
-      const int k = k0 + lk;
-#pragma unroll
-      for (int p = 0; p < TM / 16; ++p) {
-        const int row = m0 + lrow + 16 * p;
-        As[lk][lrow + 16 * p] = (row < M && k < D)
-            ? load_f32(a, static_cast<long long>(row) * D + k) : 0.0f;
-      }
-#pragma unroll
-      for (int p = 0; p < kTN / 16; ++p) {
-        const int row = n0 + lrow + 16 * p;
-        Bs[lk][lrow + 16 * p] = (row < n_end && k < D)
-            ? load_f32(b, static_cast<long long>(row) * D + k) : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kKC; ++kk) {
-        float av[RM];
-        if constexpr (RM == 4) {
-          const float4 v = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-          av[0] = v.x; av[1] = v.y; av[2] = v.z; av[3] = v.w;
-        } else {
-#pragma unroll
-          for (int r = 0; r < RM; ++r) av[r] = As[kk][ty * RM + r];
-        }
-        const float4 b4 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-        const float bb[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-        for (int r = 0; r < RM; ++r)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(av[r], bb[j], acc[r][j]);
-      }
+// The int8 block tile for M probes of Dp bytes on the current device: TM =
+// 16 at M <= 16 (one m16 tile), else 128; the other where the first does
+// not fit a block's shared memory. *per_sm: blocks an SM that shared memory
+// admits, at most the 2 of __launch_bounds__.
+cudaError_t int8_tile(int M, int Dp, int* tm, int* per_sm) {
+  int dev, block_max, sm_max, reserved;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&block_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sm_max, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (e != cudaSuccess) return e;
+  const int first = M <= ServeTile::TM ? ServeTile::TM : BatchTile::TM;
+  const int order[2] = {first, ServeTile::TM + BatchTile::TM - first};
+  for (const int t : order) {
+    const int smem = Dp >= 4 && Dp <= (1 << 16) ? int8_smem_bytes(t, Dp) : block_max + 1;
+    if (smem <= block_max) {
+      const int fit = sm_max / (smem + reserved);
+      *tm = t;
+      *per_sm = fit < 2 ? fit : 2;
+      return cudaSuccess;
     }
+  }
+  return cudaErrorInvalidValue;
+}
 
+// ----------------------------------------------------------------- f32 sweep
+
+constexpr int kF32TM = 128;
+constexpr int kF32BK = 16;                 // k a stage
+constexpr int kF32BLd = kTN + 4;           // k-major gallery row, floats (2-way
+                                           // conflicts on the transposed stores)
+
+template <typename T>
+struct F32Io;
+
+template <>
+struct F32Io<float> {
+  static constexpr int kVec = 4;           // elements a 16-byte word
+  __device__ static void widen(const uint4& w, float* out) {
+    out[0] = __uint_as_float(w.x);
+    out[1] = __uint_as_float(w.y);
+    out[2] = __uint_as_float(w.z);
+    out[3] = __uint_as_float(w.w);
+  }
+  // 4 probes at p as f32
+  __device__ static float4 read4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+  }
+};
+
+template <>
+struct F32Io<__nv_bfloat16> {
+  static constexpr int kVec = 8;
+  __device__ static void widen(const uint4& w, float* out) {
+    const uint32_t v[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= n_end) continue;
-      const float bn = b2[n];
+    for (int i = 0; i < 4; ++i) {
+      out[2 * i] = __uint_as_float(v[i] << 16);           // bf16 -> f32: exact
+      out[2 * i + 1] = __uint_as_float(v[i] & 0xffff0000u);
+    }
+  }
+  __device__ static float4 read4(const __nv_bfloat16* p) {
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+    return make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
+                       __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+  }
+};
+
+// aT (Dp, Mp) k-major probes, Mp a multiple of 128; b (N, Dp) gallery rows;
+// T float or bf16, Dp a multiple of 16 bytes' worth, both 16-byte aligned.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+knn_f32_sweep_kernel(const T* __restrict__ aT, const T* __restrict__ b,
+                     const float* __restrict__ a2, const float* __restrict__ b2, int M,
+                     int Mp, int N, int Dp, int tiles_per_split,
+                     float* __restrict__ part_v, int* __restrict__ part_i) {
+  using Io = F32Io<T>;
+  constexpr int kVec = Io::kVec;
+  // both operands k-major: As[stage][k][m] of T, Bs[stage][k][n] of f32
+  __shared__ __align__(16) uint8_t as_raw[2 * kF32BK * kF32TM * sizeof(T)];
+  __shared__ __align__(16) float Bs[2][kF32BK][kF32BLd];
+  T* const as_base = reinterpret_cast<T*>(as_raw);
+  auto As = [as_base](int stage, int k) {
+    return as_base + (stage * kF32BK + k) * kF32TM;
+  };
+  // the stage's gallery words: (kTN rows x kF32BK k) / kVec, per thread
+  constexpr int kBWords = kTN * kF32BK / kVec / kThreads;    // 2 (f32), 1 (bf16)
+  constexpr int kAWords = kF32BK * kF32TM / kVec / kThreads;  // 2 (f32), 1 (bf16)
+  constexpr int kRowWords = kF32BK / kVec;                    // words a row a stage
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int m0 = blockIdx.x * kF32TM;
+  const int split = blockIdx.y, splits = gridDim.y;
+  const int n_tiles = (N + kTN - 1) / kTN;
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(t_begin + tiles_per_split, n_tiles);
+  const int KT = (Dp + kF32BK - 1) / kF32BK;
+  const int steps = (t_end - t_begin) * KT;
+
+  auto load_a = [&](int s) {
+    const int k0 = (s % KT) * kF32BK;
 #pragma unroll
-      for (int r = 0; r < RM; ++r) {
+    for (int w = 0; w < kAWords; ++w) {
+      const int i = tid + w * kThreads;
+      const int kk = i / (kF32TM / kVec), c = i % (kF32TM / kVec);
+      const bool ok = k0 + kk < Dp;
+      const T* src = ok ? aT + static_cast<long long>(k0 + kk) * Mp + m0 + c * kVec : aT;
+      cp_async16(smem_addr(As(s & 1, kk) + c * kVec), src, ok ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+  uint4 bw[kBWords];
+  auto load_b = [&](int s) {
+    const long long n0 = static_cast<long long>(t_begin + s / KT) * kTN;
+    const int k0 = (s % KT) * kF32BK;
+#pragma unroll
+    for (int w = 0; w < kBWords; ++w) {
+      const int i = tid + w * kThreads;
+      const long long n = n0 + i / kRowWords;
+      const int k = k0 + (i % kRowWords) * kVec;
+      bw[w] = n < N && k < Dp
+          ? __ldg(reinterpret_cast<const uint4*>(b + n * Dp + k)) : make_uint4(0, 0, 0, 0);
+    }
+  };
+  auto store_b = [&](int s) {
+#pragma unroll
+    for (int w = 0; w < kBWords; ++w) {
+      const int i = tid + w * kThreads;
+      const int r = i / kRowWords, kk = (i % kRowWords) * kVec;
+      float v[kVec];
+      Io::widen(bw[w], v);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) Bs[s & 1][kk + e][r] = v[e];
+    }
+  };
+
+  // thread rows ty*4 + {0..3} and 64 + ty*4 + {0..3}; columns tx*4 + {0..3}
+  // and 64 + tx*4 + {0..3}. The running minimum of row i of the 8 lives in
+  // the lanes with tx % 8 == i (two registers, not sixteen: no spills).
+  float acc[8][8];
+  float bv = __int_as_float(0x7f800000);
+  int bi = 0x7fffffff;
+
+  if (steps > 0) {
+    load_a(0);
+    load_b(0);
+    store_b(0);
+  }
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<0>();
+    __syncthreads();   // stage s is in; every thread is past stage s - 1
+    const bool more = s + 1 < steps;
+    if (more) {
+      load_a(s + 1);
+      load_b(s + 1);
+    }
+    const int kt = s % KT;
+    if (kt == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kF32BK; ++kk) {
+      const float4 a0 = Io::read4(As(s & 1, kk) + ty * 4);
+      const float4 a1 = Io::read4(As(s & 1, kk) + 64 + ty * 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[s & 1][kk][tx * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[s & 1][kk][64 + tx * 4]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bb[j], acc[i][j]);
+    }
+    if (more) store_b(s + 1);   // the other buffer: read last in stage s - 1
+    if (kt != KT - 1) continue;
+
+    // the tile's minimum of each row over the thread's 8 columns, then over
+    // the 16 lanes that share the row (same ty, tx 0-15 of a half warp)
+    const long long n0 = static_cast<long long>(t_begin + s / KT) * kTN;
+    float a2r[8], tv[8];
+    int ti[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+      a2r[i] = m < M ? __ldg(a2 + m) : 0.0f;
+      tv[i] = __int_as_float(0x7f800000);
+      ti[i] = 0x7fffffff;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const long long n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
+      if (n >= N) continue;
+      const float bn = __ldg(b2 + n);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
         // 2 * acc is exact, so this is the reference's a2 + b2 - 2ab with
         // or without a fused multiply-add
-        const float d = __fsub_rn(__fadd_rn(a2r[r], bn), 2.0f * acc[r][j]);
-        if (lex_less(d, n, bv[r], bi[r])) {
-          bv[r] = d;
-          bi[r] = n;
-        }
+        const float d = __fsub_rn(__fadd_rn(a2r[i], bn), 2.0f * acc[i][j]);
+        lex_min(tv[i], ti[i], d, static_cast<int>(n));
       }
     }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) lex_min_shfl(tv[i], ti[i], off);
+      if ((tx & 7) == i) lex_min(bv, bi, tv[i], ti[i]);
+    }
   }
-  write_partials<RM>(bv, bi, m0 + ty * RM, M, split, splits, part_v, part_i);
+  const int i = tx & 7;
+  const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+  if (tx < 8 && m < M) {
+    part_v[static_cast<long long>(m) * splits + split] = bv;
+    part_i[static_cast<long long>(m) * splits + split] = bi;
+  }
 }
+
+// ------------------------------------------------------------------ reduce
 
 // One warp per probe: the lexicographic minimum over its splits.
 __global__ void knn_reduce_kernel(const float* __restrict__ part_v,
@@ -307,75 +604,82 @@ int launch_reduce(const float* part_v, const int* part_i, int M, int splits,
   return static_cast<int>(cudaGetLastError());
 }
 
-bool bad_shape(int M, int N, int splits, int tiles_per_split, int row_probes) {
+bool bad_split(int M, int N, int tm, int splits, int tiles_per_split) {
   const long long tiles = (static_cast<long long>(N) + kTN - 1) / kTN;
-  return M < 1 || N < 1 || splits < 1 || tiles_per_split < 1 ||
+  const long long m_tiles = (static_cast<long long>(M) + tm - 1) / tm;
+  return M < 1 || N < 1 || splits < 1 || splits > 65535 || tiles_per_split < 1 ||
          static_cast<long long>(splits) * tiles_per_split < tiles ||
-         (row_probes != 1 && row_probes != 4);
+         static_cast<long long>(splits - 1) * tiles_per_split >= tiles ||
+         m_tiles >= (1LL << 31);
 }
 
 }  // namespace
 
 extern "C" {
 
-// int8 1-NN (K2b, K2c). qa (M, 4*Dw) and qb (N, 4*Dw) int8, b2v (N,) f32,
-// all contiguous on the current device. mask: 0xffffffff (two-pass) or
-// 0xfffffc00 (packed). part_v / part_i: (M, splits) scratch; out_v / out_i
-// (M,). row_probes (RM) is 1 or 4: probes per thread, 16 * RM per block.
-// The splits cover the gallery in whole 64-row tiles, tiles_per_split
-// each. Launches two kernels on `stream`; returns cudaGetLastError().
-int knn_int8(const void* qa, const void* qb, const float* b2v, int M, int N,
-             int Dw, unsigned mask, int row_probes, int splits,
-             int tiles_per_split, float* part_v, int* part_i, float* out_v,
-             int* out_i, void* stream) {
-  if (Dw < 1 || bad_shape(M, N, splits, tiles_per_split, row_probes))
+// The int8 sweep's block tile for M probes of Dp bytes on the current
+// device: *tm probes a block, *per_sm blocks an SM. Returns
+// cudaErrorInvalidValue where no tile fits shared memory.
+int knn_int8_tile(int M, int Dp, int* tm, int* per_sm) {
+  return static_cast<int>(int8_tile(M, Dp, tm, per_sm));
+}
+
+// int8 1-NN (K2b, K2c). qa (M, Dp) and qb (N, Dp) int8, Dp a multiple of 4
+// (of 16 with load = 16, which also needs 16-byte aligned bases; load = 4
+// needs 4-byte aligned ones), all contiguous on the current device. b2v (N,)
+// f32, or nullptr: then the kernel forms it from the rows' squares, the f32
+// scalar *c (on the device) and valid_n. mask: 0xffffffff (two-pass) or
+// 0xfffffc00 (packed). The block tile is knn_int8_tile's; the splits cover
+// the gallery in whole 128-row tiles, tiles_per_split each, none empty.
+// part_v / part_i: (M, splits) scratch; out_v / out_i (M,). Launches two
+// kernels on `stream`; returns cudaGetLastError().
+int knn_int8(const void* qa, const void* qb, const float* b2v, const float* c,
+             int valid_n, int M, int N, int Dp, unsigned mask, int load, int splits,
+             int tiles_per_split, float* part_v, int* part_i, float* out_v, int* out_i,
+             void* stream) {
+  int tm, per_sm;
+  const cudaError_t e = int8_tile(M, Dp, &tm, &per_sm);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (Dp % 4 || (load != 16 && load != 4) || Dp % load ||
+      (b2v == nullptr && c == nullptr) || bad_split(M, N, tm, splits, tiles_per_split))
     return static_cast<int>(cudaErrorInvalidValue);
+  const Int8Sweep kernel = tm == ServeTile::TM ? int8_sweep<ServeTile>(load, !b2v)
+                                               : int8_sweep<BatchTile>(load, !b2v);
+  const int smem = int8_smem_bytes(tm, Dp);
+  if (smem > 48 * 1024) {
+    const cudaError_t a =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (a != cudaSuccess) return static_cast<int>(a);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int m_tiles = (M + 16 * row_probes - 1) / (16 * row_probes);
-  const dim3 grid(m_tiles, splits);
-  const int* a = static_cast<const int*>(qa);
-  const int* b = static_cast<const int*>(qb);
-  if (row_probes == 4)
-    knn_int8_partial_kernel<4><<<grid, kThreads, 0, s>>>(
-        a, b, b2v, M, N, Dw, mask, tiles_per_split, part_v, part_i);
-  else
-    knn_int8_partial_kernel<1><<<grid, kThreads, 0, s>>>(
-        a, b, b2v, M, N, Dw, mask, tiles_per_split, part_v, part_i);
+  kernel<<<dim3((M + tm - 1) / tm, splits), kThreads, smem, s>>>(
+      static_cast<const int8_t*>(qa), static_cast<const int8_t*>(qb), b2v, c, valid_n, M, N,
+      Dp, mask, tiles_per_split, part_v, part_i);
   const int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   return launch_reduce(part_v, part_i, M, splits, out_v, out_i, s);
 }
 
-// f32 / bf16 1-NN (K2a). a (M, D), b (N, D) f32 (bf16 = 0) or bf16
-// (bf16 = 1); a2 (M,), b2 (N,) f32. Otherwise as knn_int8.
-int knn_f32(const void* a, const void* b, int bf16, const float* a2,
-            const float* b2, int M, int N, int D, int row_probes, int splits,
-            int tiles_per_split, float* part_v, int* part_i, float* out_v,
-            int* out_i, void* stream) {
-  if (D < 1 || bad_shape(M, N, splits, tiles_per_split, row_probes))
+// f32 / bf16 1-NN (K2a). aT (Dp, Mp): the probes k-major, zero past M and
+// D, Mp a multiple of 128; b (N, Dp) gallery rows; f32 (bf16 = 0) or bf16
+// (bf16 = 1), Dp a multiple of 16 bytes' worth, 16-byte aligned bases; a2
+// (M,), b2 (N,) f32 norms. Otherwise as knn_int8.
+int knn_f32(const void* aT, const void* b, int bf16, const float* a2, const float* b2,
+            int M, int Mp, int N, int Dp, int splits, int tiles_per_split, float* part_v,
+            int* part_i, float* out_v, int* out_i, void* stream) {
+  if (Dp < 1 || Dp % (bf16 ? 8 : 4) || Mp % kF32TM || Mp < M ||
+      bad_split(M, N, kF32TM, splits, tiles_per_split))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int m_tiles = (M + 16 * row_probes - 1) / (16 * row_probes);
-  const dim3 grid(m_tiles, splits);
-  if (bf16) {
-    const __nv_bfloat16* pa = static_cast<const __nv_bfloat16*>(a);
-    const __nv_bfloat16* pb = static_cast<const __nv_bfloat16*>(b);
-    if (row_probes == 4)
-      knn_f32_partial_kernel<4, __nv_bfloat16><<<grid, kThreads, 0, s>>>(
-          pa, pb, a2, b2, M, N, D, tiles_per_split, part_v, part_i);
-    else
-      knn_f32_partial_kernel<1, __nv_bfloat16><<<grid, kThreads, 0, s>>>(
-          pa, pb, a2, b2, M, N, D, tiles_per_split, part_v, part_i);
-  } else {
-    const float* pa = static_cast<const float*>(a);
-    const float* pb = static_cast<const float*>(b);
-    if (row_probes == 4)
-      knn_f32_partial_kernel<4, float><<<grid, kThreads, 0, s>>>(
-          pa, pb, a2, b2, M, N, D, tiles_per_split, part_v, part_i);
-    else
-      knn_f32_partial_kernel<1, float><<<grid, kThreads, 0, s>>>(
-          pa, pb, a2, b2, M, N, D, tiles_per_split, part_v, part_i);
-  }
+  const dim3 grid(Mp / kF32TM, splits);
+  if (bf16)
+    knn_f32_sweep_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(aT), static_cast<const __nv_bfloat16*>(b), a2,
+        b2, M, Mp, N, Dp, tiles_per_split, part_v, part_i);
+  else
+    knn_f32_sweep_kernel<float><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(aT), static_cast<const float*>(b), a2, b2, M, Mp, N,
+        Dp, tiles_per_split, part_v, part_i);
   const int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   return launch_reduce(part_v, part_i, M, splits, out_v, out_i, s);

@@ -31,7 +31,8 @@
 // - warps run mma.sync.m16n8k32 s8 x s8 -> s32 (IMMA), fragments loaded
 //   from shared memory by ldmatrix; tiles of 64 bytes of K lie in 64-byte
 //   rows whose 16-byte chunks are XOR-swizzled by (row / 2) % 4, so the
-//   8 rows an ldmatrix phase reads hit 8 distinct bank groups;
+//   8 rows an ldmatrix phase reads hit 8 distinct bank groups (the
+//   helpers, shared with the int8 1-NN sweep, are in mma_s8.cuh);
 // - a ring of 4 such K tiles is filled by cp.async (16-byte cg copies when
 //   K % 16 == 0 and the bases are 16-byte aligned, 4-byte copies when
 //   K % 4 == 0, plain byte loads otherwise), zero-filled past M, N and K
@@ -58,9 +59,12 @@
 
 #include <type_traits>
 
+#include "mma_s8.cuh"
+
 namespace {
 
-constexpr int kBK = 64;       // bytes of K per ring stage: two k32 MMA steps
+using namespace mma_s8;
+
 constexpr int kStages = 4;
 // float32(127 / 6) == float32(1 / (6 / 127)): the reference's 1 / ACT_SCALE
 constexpr float kInvActScale = 21.166666f;
@@ -76,93 +80,6 @@ struct Tile {
 };
 using BigTile = Tile<128, 128, 64, 32>;     // 8 warps
 using SmallTile = Tile<64, 64, 32, 32>;     // 4 warps
-
-// Byte offset of 16-byte chunk c (0-3) of row r of a (rows, 64-byte) tile.
-__device__ __forceinline__ int swizzle(int r, int c) {
-  return r * kBK + ((c ^ ((r >> 1) & 3)) << 4);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dst), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t r[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4],
-                                       const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Rows row0 .. row0+ROWS-1 of a (rows_total, K) int8 matrix, bytes k0 ..
-// k0+63, into a swizzled (ROWS, 64) tile; zero past rows_total and K.
-// LOAD is the copy width: 16 (K % 16 == 0, 16-byte aligned base), 4
-// (K % 4 == 0, 4-byte aligned) or 1 (byte loads, synchronous).
-template <int LOAD, int ROWS, int THREADS>
-__device__ __forceinline__ void load_tile(uint8_t* tile, const int8_t* __restrict__ g,
-                                          long long row0, long long rows_total,
-                                          int K, int k0) {
-  constexpr int kChunks = ROWS * (kBK / 16);
-  static_assert(kChunks % THREADS == 0, "whole chunks per thread");
-#pragma unroll
-  for (int it = 0; it < kChunks / THREADS; ++it) {
-    const int i = threadIdx.x + it * THREADS;
-    const int r = i >> 2, c = i & 3;
-    const long long row = row0 + r;
-    const bool row_ok = row < rows_total;
-    const int k = k0 + c * 16;
-    const int8_t* src = g + (row_ok ? row : 0) * static_cast<long long>(K);
-    uint8_t* dst = tile + swizzle(r, c);
-    if (LOAD == 16) {
-      const bool ok = row_ok && k < K;
-      cp_async16(smem_addr(dst), ok ? src + k : g, ok ? 16 : 0);
-    } else if (LOAD == 4) {
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        const bool ok = row_ok && k + 4 * w < K;
-        cp_async4(smem_addr(dst + 4 * w), ok ? src + k + 4 * w : g, ok ? 4 : 0);
-      }
-    } else {
-      uint32_t words[4];
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        uint32_t v = 0;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int kb = k + 4 * w + b;
-          if (row_ok && kb < K) v |= static_cast<uint32_t>(static_cast<uint8_t>(src[kb])) << (8 * b);
-        }
-        words[w] = v;
-      }
-      *reinterpret_cast<uint4*>(dst) = make_uint4(words[0], words[1], words[2], words[3]);
-    }
-  }
-}
 
 template <class T, int LOAD, bool REQUANT>
 __global__ void __launch_bounds__(T::kThreads)
@@ -234,7 +151,7 @@ pw_conv_int8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
 #pragma unroll
       for (int i = 0; i < kMT; ++i)
 #pragma unroll
-        for (int j = 0; j < kNT; ++j) mma_s8(acc[i][j], af[i], bfr[j]);
+        for (int j = 0; j < kNT; ++j) mma(acc[i][j], af[i], bfr[j]);
     }
   }
   cp_async_wait<0>();

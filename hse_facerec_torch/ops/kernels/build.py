@@ -2,9 +2,11 @@
 
 All of ``hse_facerec_torch/csrc/*.cu`` compile into one shared library with
 a plain C interface, for Hopper (``sm_90a``), at first use: one ``nvcc``
-per source, all started together, then one link. The library goes
-to ``hse_facerec_torch/_build/<hash>/``, keyed by a hash of the sources and
-flags, so an edited source rebuilds and an unchanged one loads at once.
+per source (``-I csrc`` for the shared ``*.cuh`` headers), all started
+together, then one link. The library goes to
+``hse_facerec_torch/_build/<hash>/``, keyed by a hash of the sources, the
+headers and the flags, so an edited source or header rebuilds and an
+unchanged tree loads at once.
 Nothing here falls back: a missing ``nvcc`` or a failed build raises.
 """
 
@@ -45,9 +47,13 @@ def sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> List[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -81,7 +87,7 @@ def build(lib_path: Path) -> str:
     with tempfile.TemporaryDirectory(dir=lib_path.parent) as tmp:
         tmp = Path(tmp)
         objs = [tmp / (src.stem + ".o") for src in sources()]
-        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        log = _run([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
                     for src, obj in zip(sources(), objs)],
                    [obj.with_suffix(".log") for obj in objs])
         lib = tmp / LIB_NAME

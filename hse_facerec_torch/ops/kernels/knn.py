@@ -14,12 +14,16 @@ running (value, index) per probe instead, so memory traffic is O(M·D + N·D).
   reference's packed epilogue: the value ranked and reported is the
   distance key with its low 10 mantissa bits cleared.
 - ``nearest_neighbor_int8p`` (K2c): the same sweep against
-  ``pack_quantized_gallery``, whose row norms were computed once; K2b is
-  that packing on every call, then K2c.
+  ``pack_quantized_gallery``, whose row norms were computed once. K2b's
+  two-pass sweep on CUDA sums the rows' squares itself, in the sweep,
+  while the probes make at most ``NORMS_MAX_M_TILES`` block tiles.
 
 Each wrapper routes by the device its tensors lie on: CPU tensors take the
 plain twin, CUDA tensors launch the kernel or raise. ``<wrapper>.launches``
-counts kernel launches. The host-side arithmetic around the int8 kernels
+counts kernel launches. ``sweep_config`` picks the gallery splits here,
+where the CPU tests reach it; the int8 block tile, which follows from the
+kernel's shared memory, comes from ``knn.cu`` (``int8_tile``). The
+host-side arithmetic around the int8 kernels
 (scales, norms, the packed offset) is computed as the jitted reference
 computes it, so K2b/K2c equal their twins, and the twins the reference, bit
 for bit in index and distance.
@@ -37,10 +41,19 @@ from ...numerics import div_const, fma
 from ..distance import pairwise_sqeuclidean
 from . import build
 
-TILE_N = 64                 # gallery rows per tile in csrc/knn.cu
 PACK_MASK = -1024           # the packed epilogue clears 10 mantissa bits
 HBM_LIMIT_BYTES = 4 * 1024 ** 3
 PLAIN_CHUNK = 1024          # probes per (chunk, N) matrix of the int8 twin
+
+# csrc/knn.cu's geometry (the int8 block tile comes from knn_int8_tile)
+TILE_N = 128                # gallery rows per tile, both sweeps
+F32_TM = 128                # probes a block of the f32 sweep, 2 blocks an SM
+MAX_SPLITS = 65535          # the grid's y extent
+CUDA_ERROR_INVALID_VALUE = 1
+# K2b forms the gallery norms in the sweep while the probes make at most
+# this many tiles; each tile sums the squares again, and past it one host
+# pass costs less (an H100 timed both level at 32 tiles of 128 probes)
+NORMS_MAX_M_TILES = 32
 
 
 # -- quantization --------------------------------------------------------
@@ -87,6 +100,8 @@ def _pad_to(qa, width: int):
     """Zero-pad quantized probes to the gallery's padded width."""
     if qa.shape[1] > width:
         raise ValueError(f"probe dim {qa.shape[1]} > gallery dim {width}")
+    if qa.shape[1] == width:
+        return qa
     return torch.nn.functional.pad(qa, (0, width - qa.shape[1]))
 
 
@@ -131,30 +146,41 @@ class _Int8Operands(NamedTuple):
     a2c: torch.Tensor      # sa / (2·sb): a2 = a2raw · a2c
     s: torch.Tensor        # 2·sa·sb
     offset: torch.Tensor   # packed offset, 0 for the two-pass epilogue
-    b2v: torch.Tensor      # (N,) the per-row term the kernel ranks against
+    b2v: Optional[torch.Tensor]  # (N,) the per-row term the kernel ranks against
+    c: torch.Tensor        # sb / (2·sa): b2 = b2raw · c
+
+
+def _valid_rows(n: int, valid_n) -> int:
+    return n if valid_n is None else max(0, min(int(valid_n), n))
 
 
 def _int8_operands(probes, b2raw, g_scale, valid_n, pack_idx: bool):
     """Host side of K2b/K2c (reference ``knn.py:358-382``): quantize the
     probes, fold the scales into the norms (``d = s·(a2 + b2 − qa·qb)``
     with ``s = 2·sa·sb``), and build the ranked per-row term: b2 with +inf
-    on invalid rows (two-pass), or the offset-shifted b2p (packed)."""
+    on invalid rows (two-pass), or the offset-shifted b2p (packed).
+    ``b2raw=None`` (two-pass only) leaves b2v to the kernel, which forms it
+    from ``c`` and the rows' squares in the sweep."""
     dev = probes.device
     qa, sa = quantize_embeddings(probes, reciprocal=True)
     sb = torch.as_tensor(g_scale, dtype=torch.float32, device=dev)
     c = sb / (2.0 * sa)
-    n = b2raw.shape[0]
-    lim = n if valid_n is None else min(int(valid_n), n)
-    valid = torch.arange(n, device=dev) < lim
     a2raw = _sumsq(qa)
-    if pack_idx:
-        offset, b2v = _packed_b2(a2raw, b2raw, c, valid)
-    else:
-        offset = torch.zeros((), dtype=torch.float32, device=dev)
-        b2v = torch.where(valid, b2raw * c,
-                          torch.tensor(float("inf"), device=dev))
-    return _Int8Operands(qa, a2raw, sa / (2.0 * sb), 2.0 * sa * sb, offset,
-                         b2v.contiguous())
+    offset = torch.zeros((), dtype=torch.float32, device=dev)
+    b2v = None
+    if b2raw is not None:
+        n = b2raw.shape[0]
+        if not pack_idx and valid_n is None:    # every row valid: the same values
+            b2v = b2raw * c
+        else:
+            valid = torch.arange(n, device=dev) < _valid_rows(n, valid_n)
+            if pack_idx:
+                offset, b2v = _packed_b2(a2raw, b2raw, c, valid)
+            else:
+                b2v = torch.where(valid, b2raw * c,
+                                  torch.tensor(float("inf"), device=dev))
+        b2v = b2v.contiguous()
+    return _Int8Operands(qa, a2raw, sa / (2.0 * sb), 2.0 * sa * sb, offset, b2v, c)
 
 
 def _int8_distances(ops: _Int8Operands, emin, pack_idx: bool):
@@ -191,33 +217,72 @@ def _rank_int8_plain(qa, qb, b2v, pack_idx: bool):
 @functools.lru_cache(maxsize=None)
 def _kernels():
     lib = build.load_library()
-    common = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_void_p]
+    tail = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     int8 = lib.knn_int8
     int8.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
-                     *common]
+                     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_int, ctypes.c_uint, ctypes.c_int, *tail]
     int8.restype = ctypes.c_int
+    lib.knn_int8_tile.argtypes = [ctypes.c_int, ctypes.c_int,
+                                  ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.knn_int8_tile.restype = ctypes.c_int
     f32 = lib.knn_f32
     f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_int, *common]
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, *tail]
     f32.restype = ctypes.c_int
     return lib, int8, f32
 
 
-def _grid(m: int, n: int, device):
-    """(row_probes, splits, tiles_per_split): 1 probe per thread up to 16
-    probes, else 4; the gallery is split until about four blocks per SM
-    are in flight, in whole tiles and with no empty split."""
-    row_probes = 1 if m <= 16 else 4
-    m_tiles = -(-m // (16 * row_probes))
-    n_tiles = -(-n // TILE_N)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = max(1, min(n_tiles, -(-4 * sms // m_tiles)))
-    per_split = -(-n_tiles // splits)
-    return row_probes, -(-n_tiles // per_split), per_split
+class SweepConfig(NamedTuple):
+    tm: int                  # probes a block
+    splits: int              # gallery splits, one block each per probe tile
+    tiles_per_split: int     # 128-row gallery tiles a split
+
+
+@functools.lru_cache(maxsize=1024)
+def sweep_config(m: int, n: int, sms: int, tm: int, per_sm: int) -> SweepConfig:
+    """Gallery splits of a 1-NN sweep of m probes, ``tm`` a block, against
+    n gallery rows on a card of ``sms`` SMs that holds ``per_sm`` such
+    blocks each: the fewest waves of resident blocks times the tiles a
+    block sweeps, over split counts that fill 1-16 waves, with at least two
+    blocks an SM launched where the work allows (then the fewest blocks);
+    no split is empty."""
+    m_tiles, n_tiles = -(-m // tm), -(-n // TILE_N)
+    slots = sms * per_sm
+    floor = min(2 * sms, m_tiles * n_tiles)
+    best = None
+    for waves in range(1, 17):
+        s = min(n_tiles, MAX_SPLITS, -(-max(waves * slots, floor) // m_tiles))
+        per = -(-n_tiles // s)
+        s = -(-n_tiles // per)
+        blocks = m_tiles * s
+        key = (blocks < floor, -(-blocks // slots) * per, blocks)
+        if best is None or key < best[0]:
+            best = (key, s, per)
+    return SweepConfig(tm, best[1], best[2])
+
+
+@functools.lru_cache(maxsize=1024)
+def int8_tile(m: int, dp: int, device_index: int):
+    """(probes a block, blocks an SM) of the int8 sweep for m probes of
+    ``dp`` bytes on a CUDA device, from ``knn.cu``'s ``knn_int8_tile``: 16
+    probes at m <= 16 (one m16 MMA tile), else 128 while the resident probe
+    tile fits a block's shared memory. Raises where no tile fits."""
+    lib = _kernels()[0]
+    tm, per_sm = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device_index):
+        code = lib.knn_int8_tile(m, dp, ctypes.byref(tm), ctypes.byref(per_sm))
+    if code == CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(f"int8 1-NN: a {dp}-byte probe row is too wide for "
+                         "the probe tile's shared memory")
+    build.check(lib, code, "knn_int8_tile")
+    return tm.value, per_sm.value
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_cuda(what: str, *tensors):
@@ -229,34 +294,44 @@ def _check_cuda(what: str, *tensors):
     return dev
 
 
-def _launch(what: str, fn, lib, m: int, n: int, dev, args):
-    row_probes, splits, per_split = _grid(m, n, dev)
-    part_v = torch.empty((m, splits), dtype=torch.float32, device=dev)
-    part_i = torch.empty((m, splits), dtype=torch.int32, device=dev)
+def _launch(what: str, fn, lib, m: int, cfg: SweepConfig, dev, args):
+    part_v = torch.empty((m, cfg.splits), dtype=torch.float32, device=dev)
+    part_i = torch.empty((m, cfg.splits), dtype=torch.int32, device=dev)
     out_v = torch.empty((m,), dtype=torch.float32, device=dev)
     out_i = torch.empty((m,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(*args, row_probes, splits, per_split, part_v.data_ptr(),
+        code = fn(*args, cfg.splits, cfg.tiles_per_split, part_v.data_ptr(),
                   part_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), stream)
     build.check(lib, code, f"{what} launch")
     return out_v, out_i.to(torch.int64)
 
 
-def _rank_int8_cuda(qa, qb, b2v, pack_idx: bool):
-    """Launch the int8 sweep; qb must already be padded to whole words."""
-    dev = _check_cuda("int8 1-NN", qa, qb, b2v)
+def _aligned(t, align: int):
+    """``t`` itself, or a copy where its base is off ``align`` bytes."""
+    return t if t.data_ptr() % align == 0 else t.clone()
+
+
+def _rank_int8_cuda(qa, qb, b2v, pack_idx: bool, c=None, valid_n: int = 0):
+    """Launch the int8 sweep; qb must already be padded to whole words.
+    ``b2v=None``: the kernel forms the two-pass b2v itself from the rows'
+    squares, the device scalar ``c`` and ``valid_n``."""
+    dev = _check_cuda("int8 1-NN", qa, qb, b2v if b2v is not None else c)
     qa = _pad_to(qa, qb.shape[1]).contiguous()
     m, dp = qa.shape
     n = qb.shape[0]
     if dp % 4 or not qb.is_contiguous():
         raise ValueError(f"gallery must be contiguous int8 rows of whole "
                          f"words, got {tuple(qb.shape)}")
+    qa, qb = _aligned(qa, 4), _aligned(qb, 4)
+    load = 16 if dp % 16 == 0 and qa.data_ptr() % 16 == 0 and qb.data_ptr() % 16 == 0 else 4
+    cfg = sweep_config(m, n, _sms(dev), *int8_tile(m, dp, dev.index))
     lib, fn, _ = _kernels()
     mask = (PACK_MASK if pack_idx else -1) & 0xFFFFFFFF
-    return _launch("knn_int8", fn, lib, m, n, dev,
-                   (qa.data_ptr(), qb.data_ptr(), b2v.data_ptr(), m, n, dp // 4,
-                    mask))
+    return _launch("knn_int8", fn, lib, m, cfg, dev,
+                   (qa.data_ptr(), qb.data_ptr(),
+                    None if b2v is None else b2v.data_ptr(),
+                    None if c is None else c.data_ptr(), valid_n, m, n, dp, mask, load))
 
 
 def _check_int8_args(probes, q_gallery):
@@ -277,7 +352,7 @@ def nearest_neighbor_f32(probes, gallery, bf16: bool = True):
     (M,)), lowest index on ties. ``bf16`` feeds bf16 operands (norms stay
     f32, the dot accumulates in f32), as the reference's default; False is
     exact f32. CPU tensors take ``nearest_neighbor_plain``."""
-    if probes.device.type == "cpu" and gallery.device.type == "cpu":
+    if _on_cpu(probes, gallery):
         return nearest_neighbor_plain(probes, gallery, bf16)
     dev = _check_cuda("nearest_neighbor_f32", probes, gallery)
     if probes.dim() != 2 or gallery.dim() != 2 or probes.shape[1] != gallery.shape[1]:
@@ -291,11 +366,19 @@ def nearest_neighbor_f32(probes, gallery, bf16: bool = True):
     b2 = torch.sum(b * b, dim=1)
     if bf16:
         a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
-    m, d = a.shape
+    (m, d), n = a.shape, b.shape[0]
+    cfg = sweep_config(m, n, _sms(dev), F32_TM, 2)
+    # rows of whole 16-byte words; the probes k-major, zero past m and d
+    vec = 16 // a.element_size()
+    dp = -(-d // vec) * vec
+    mp = -(-m // cfg.tm) * cfg.tm
+    a_t = torch.zeros((dp, mp), dtype=a.dtype, device=dev)
+    a_t[:d, :m] = a.T
+    b = _aligned(torch.nn.functional.pad(b, (0, dp - d)) if dp != d else b, 16)
     lib, _, fn = _kernels()
-    dmin, idx = _launch("knn_f32", fn, lib, m, b.shape[0], dev,
-                        (a.data_ptr(), b.data_ptr(), int(bf16), a2.data_ptr(),
-                         b2.data_ptr(), m, b.shape[0], d))
+    dmin, idx = _launch("knn_f32", fn, lib, m, cfg, dev,
+                        (a_t.data_ptr(), b.data_ptr(), int(bf16), a2.data_ptr(),
+                         b2.data_ptr(), m, mp, n, dp))
     nearest_neighbor_f32.launches += 1
     return torch.clamp(dmin, min=0.0), idx
 
@@ -306,7 +389,7 @@ def _nn_int8(probes, gallery: PackedGallery, valid_n, pack_idx: bool, counter):
     (``counter.launches`` counts the launch)."""
     _check_int8_args(probes, gallery.q)
     ops = _int8_operands(probes, gallery.b2i, gallery.scale, valid_n, pack_idx)
-    if probes.device.type == "cpu" and gallery.q.device.type == "cpu":
+    if _on_cpu(probes, gallery.q):
         emin, idx = _rank_int8_plain(ops.qa, gallery.q, ops.b2v, pack_idx)
     else:
         emin, idx = _rank_int8_cuda(ops.qa, gallery.q, ops.b2v, pack_idx)
@@ -314,18 +397,38 @@ def _nn_int8(probes, gallery: PackedGallery, valid_n, pack_idx: bool, counter):
     return _int8_distances(ops, emin, pack_idx), idx
 
 
+def _on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
 def nearest_neighbor_int8q(probes, q_gallery, g_scale, valid_n=None,
                            pack_idx: bool = False):
     """K2b: 1-NN of f32 probes against a gallery quantized by
-    ``quantize_embeddings``: ``pack_quantized_gallery`` on every call, then
-    K2c's sweep. Ranks ``e = b2/s − qa·qb`` and returns the exact squared
-    L2 between the dequantized vectors, ``s·(e + a2)``, and the argmin.
-    ``valid_n``: only the first rows are real; the rest get +inf
-    (two-pass) or the sentinel (packed). ``pack_idx`` ranks and reports the
-    key with 10 low mantissa bits cleared, as the reference's packed
-    epilogue; the default is the two-pass epilogue every path of the port
-    runs. CPU tensors take the plain twin."""
+    ``quantize_embeddings``. Ranks ``e = b2/s − qa·qb`` and returns the
+    exact squared L2 between the dequantized vectors, ``s·(e + a2)``, and
+    the argmin. ``valid_n``: only the first rows are real; the rest get
+    +inf (two-pass) or the sentinel (packed). ``pack_idx`` ranks and
+    reports the key with 10 low mantissa bits cleared, as the reference's
+    packed epilogue; the default is the two-pass epilogue every path of the
+    port runs. On CUDA the two-pass sweep sums the gallery rows' squares
+    itself, so a call makes no pass over the gallery but the kernel's; the
+    packed epilogue needs the largest norm first, so it (and the CPU's
+    plain twin) takes ``pack_quantized_gallery`` and then K2c's sweep.
+    Every probe tile sums the squares again, so past
+    ``NORMS_MAX_M_TILES`` tiles the two-pass sweep takes that host pass
+    too."""
     _check_int8_args(probes, q_gallery)
+    if not (pack_idx or _on_cpu(probes, q_gallery)):
+        dev = _check_cuda("nearest_neighbor_int8q", probes, q_gallery)
+        m, dp = probes.shape[0], -(-q_gallery.shape[1] // 4) * 4
+        tm, _ = int8_tile(m, dp, dev.index)
+        if -(-m // tm) <= NORMS_MAX_M_TILES:
+            ops = _int8_operands(probes, None, g_scale, valid_n, False)
+            emin, idx = _rank_int8_cuda(ops.qa, _pad_dim(q_gallery), None, False,
+                                        c=ops.c,
+                                        valid_n=_valid_rows(q_gallery.shape[0], valid_n))
+            nearest_neighbor_int8q.launches += 1
+            return _int8_distances(ops, emin, False), idx
     return _nn_int8(probes, pack_quantized_gallery(q_gallery, g_scale), valid_n,
                     pack_idx, nearest_neighbor_int8q)
 

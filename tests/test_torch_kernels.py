@@ -97,12 +97,23 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
         build.build(tmp_path / "lib.so")
 
 
-def test_build_key_tracks_sources():
+def test_build_key_tracks_sources(tmp_path, monkeypatch):
     assert [p.name for p in build.sources()] == ["crop_resize.cu", "knn.cu",
                                                  "pw_conv.cu", "warp.cu"]
+    assert [p.name for p in build.headers()] == ["mma_s8.cuh"]
     key = build.source_hash()
     assert key == build.source_hash() and len(key) == 16
     assert build.library_path().parent.name == key
+    # an edit to a header (not compiled on its own) changes the key too
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in build.sources() + build.headers():
+        (csrc / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(build, "CSRC", csrc)
+    assert build.source_hash() == key
+    with open(csrc / "mma_s8.cuh", "a") as f:
+        f.write("// edited\n")
+    assert build.source_hash() != key
 
 
 def test_port_imports_no_jax():
@@ -183,9 +194,13 @@ def test_knn_wrappers_reject_other_devices():
                                    torch.zeros(16, 8, dtype=torch.int8), 1.0)
 
 
-# (M, N, D): ragged and tiny, tile edges, the serving shapes
+# (M, N, D): ragged and tiny, tile edges, the serving shapes; then D off
+# whole 32- and 64-byte K steps (30, 100, 1000: 4-byte copies where D % 16
+# != 0) and M at the probe tiles' edges (16 and 128 probes a block)
 KNN_CARD_SHAPES = [(1, 5, 30), (7, 129, 64), (37, 1000, 30), (1, 100_000, 512),
-                   (16, 100_000, 512), (300, 20_000, 512)]
+                   (16, 100_000, 512), (300, 20_000, 512), (1, 300, 1000),
+                   (16, 777, 100), (17, 5000, 100), (128, 3000, 1000),
+                   (129, 2000, 30)]
 
 
 @pytest.mark.cuda
@@ -230,8 +245,56 @@ def test_knn_int8_kernel_ties_and_valid_n_on_card(cuda, pack_idx):
 
 
 @pytest.mark.cuda
+def test_knn_int8_tile_on_card(cuda):
+    """The int8 block tile from the kernel's shared memory: 16 probes at M
+    <= 16; 128 and two blocks an SM at D = 512; 128 and one at D = 1024
+    (the 128 KB probe tile, within 227 KB)."""
+    idx = torch.cuda.current_device()
+    assert knn.int8_tile(16, 512, idx) == (16, 2)
+    assert knn.int8_tile(8192, 512, idx) == (128, 2)
+    assert knn.int8_tile(2048, 1024, idx) == (128, 1)
+
+
+@pytest.mark.cuda
+def test_knn_sweep_config_falls_back_to_the_small_tile(cuda):
+    """Past D = 1568 the 128-probe tile no longer fits: 16 probes a block;
+    past about 12 KB a row nothing fits."""
+    idx = torch.cuda.current_device()
+    assert knn.int8_tile(4096, 2048, idx)[0] == 16
+    with pytest.raises(ValueError):
+        knn.int8_tile(4096, 16384, idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_sweep", [True, False])
+@pytest.mark.parametrize("m,n,d", [(5, 5000, 100), (129, 3001, 1000)])
+def test_knn_int8q_norms_in_sweep_under_valid_n_on_card(cuda, monkeypatch, m, n, d,
+                                                        in_sweep):
+    """K2b's two-pass sweep forms b2v from the rows' squares itself, or past
+    ``NORMS_MAX_M_TILES`` probe tiles takes it from one host pass: one
+    launch, bit-equal to the twin with valid_n inside, at and past the
+    128-row tile edges."""
+    if not in_sweep:
+        monkeypatch.setattr(knn, "NORMS_MAX_M_TILES", 0)
+    rng = np.random.RandomState(n + d)
+    g = _t(_unit_rows(rng, n, d)).to(cuda)
+    p = _t(_unit_rows(rng, m, d)).to(cuda)
+    qb, sb = knn.quantize_embeddings(g)
+    for valid_n in (None, n - 1, 129, 128, 127, 1, 0):
+        before = _knn_launches()
+        got = knn.nearest_neighbor_int8q(p, qb, sb, valid_n=valid_n)
+        want = knn.nearest_neighbor_int8_plain(p, qb, sb, valid_n=valid_n)
+        torch.cuda.synchronize()
+        assert _knn_launches() == (before[0], before[1] + 1, before[2])
+        np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].cpu().numpy())
+        np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].cpu().numpy())
+        if valid_n:
+            assert int(got[1].max()) < valid_n
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("m,n,d", KNN_CARD_SHAPES)
+@pytest.mark.parametrize("m,n,d", KNN_CARD_SHAPES + [(1100, 100_000, 512)])
 def test_knn_f32_kernel_matches_plain_on_card(cuda, m, n, d, bf16):
     rng = np.random.RandomState(m * n + d)
     p = _t(rng.randn(m, d).astype(np.float32)).to(cuda)

@@ -1,5 +1,13 @@
-"""The host-side choices of the Hopper kernels K3 (warp) and K4 (int8
-pointwise conv), on the CPU, where the CUDA kernels cannot run:
+"""The host-side choices of the Hopper kernels K2 (1-NN), K3 (warp) and K4
+(int8 pointwise conv), on the CPU, where the CUDA kernels cannot run:
+
+- K2's gallery splits (``knn.sweep_config``) at the serving, design and
+  routed shapes, with the block tiles an H100 gives: the splits cover every
+  gallery tile, none is empty, at least two blocks an SM are launched (the
+  int8 tile itself, from the kernel's shared memory, is held on the card);
+- K2b's in-sweep norms: a numpy mirror of what the kernel forms (an int32
+  sum of squares per row, one f32 multiply by c, +inf from valid_n on)
+  equals the host's b2v bit for bit;
 
 - K4's block tile (``tile_config``): at every pointwise layer of the int8
   MobileNet, at a head batch of 16 faces and at the embedder's batch of
@@ -17,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from hse_facerec_torch.ops.kernels import knn
 from hse_facerec_torch.ops.kernels import pw_conv
 from hse_facerec_torch.ops.kernels import warp
 from hse_facerec_torch.train.augment import AugmentConfig, sample_affine
@@ -119,3 +128,75 @@ def test_kernel_prologue_equals_warp_scalars_bitwise(cfg, flips):
     assert got.dtype == want.dtype == np.float32
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
 
+
+
+# (M probes, N gallery rows, D, int8): serving queries, the int8 design
+# point, K2a's routed shape and the int8 identify at scale, K2a at serving
+KNN_SWEEPS = [(1, 1 << 20, 512, True), (16, 1 << 20, 512, True),
+              (8192, 1 << 20, 512, True), (2048, 1 << 20, 1024, True),
+              (2048, 1 << 20, 1024, False), (16, 1 << 20, 512, False)]
+
+
+def _h100_tile(m, d, int8):
+    """(probes a block, blocks an SM) on an H100: ``knn.int8_tile``'s answer
+    for the int8 sweep (held on the card by ``test_knn_int8_tile_on_card``:
+    at D = 1024 the 128 KB probe tile leaves room for one block an SM), and
+    the f32 sweep's fixed tile."""
+    if not int8:
+        return knn.F32_TM, 2
+    return (16, 2) if m <= 16 else (128, 1 if d > 768 else 2)
+
+
+@pytest.mark.parametrize("m,n,d,int8", KNN_SWEEPS)
+def test_knn_sweep_config_fills_the_card(m, n, d, int8):
+    tm, per_sm = _h100_tile(m, d, int8)
+    cfg = knn.sweep_config(m, n, SMS, tm, per_sm)
+    n_tiles = -(-n // knn.TILE_N)
+    assert cfg.tm == tm
+    assert cfg.splits * cfg.tiles_per_split >= n_tiles          # every tile
+    assert (cfg.splits - 1) * cfg.tiles_per_split < n_tiles     # none empty
+    assert cfg.splits <= knn.MAX_SPLITS
+    blocks = -(-m // cfg.tm) * cfg.splits
+    assert blocks >= 2 * SMS
+
+
+def test_knn_sweep_config_in_whole_waves():
+    """At the design point the 2,112 blocks of 128 probes make 8 whole waves
+    of 2 blocks an SM; at D = 1024, one block an SM, 528 blocks make 4
+    waves; a serving query takes 16 probes a block and 512 splits of 16
+    tiles."""
+    design = knn.sweep_config(8192, 1 << 20, SMS, 128, 2)
+    assert (design.tm, design.splits, design.tiles_per_split) == (128, 33, 249)
+    routed = knn.sweep_config(2048, 1 << 20, SMS, 128, 1)
+    assert 16 * routed.splits == 528
+    serve = knn.sweep_config(16, 1 << 20, SMS, 16, 2)
+    assert (serve.tm, serve.splits, serve.tiles_per_split) == (16, 512, 16)
+    assert knn.sweep_config(1, 5, SMS, 16, 2) == (16, 1, 1)
+
+
+def _in_sweep_b2v(q, c, valid_n):
+    """What the int8 sweep forms per gallery row: the exact int32 sum of
+    squares, converted to f32 and multiplied by c once (float32 x float32
+    rounds once in numpy), +inf from valid_n on."""
+    sumsq = np.sum(q.astype(np.int32) ** 2, axis=1, dtype=np.int32)
+    b2 = sumsq.astype(np.float32) * np.float32(c)
+    n = q.shape[0]
+    lim = n if valid_n is None else max(0, min(valid_n, n))
+    return np.where(np.arange(n) < lim, b2, np.float32(np.inf)).astype(np.float32)
+
+
+@pytest.mark.parametrize("valid_n", [None, 0, 1, 127, 128, 299, 10_000])
+@pytest.mark.parametrize("d", [30, 512, 1024])
+def test_in_sweep_norms_equal_host_b2v_bitwise(d, valid_n):
+    rng = np.random.RandomState(d)
+    n = 300
+    g = torch.from_numpy(rng.randn(n, d).astype(np.float32))
+    p = torch.from_numpy(rng.randn(7, d).astype(np.float32))
+    qb, sb = knn.quantize_embeddings(g)
+    q = knn._pad_dim(qb)
+    ops = knn._int8_operands(p, knn._sumsq(q), sb, valid_n, False)
+    got = _in_sweep_b2v(q.numpy(), ops.c.numpy(), valid_n)
+    want = ops.b2v.numpy()
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert np.isinf(got).sum() == n - knn._valid_rows(n, valid_n)
