@@ -10,14 +10,22 @@ kernels are built for sm_90a). It:
    (fp32, no TF32);
 2. builds the CUDA kernels from ``hse_facerec_torch/csrc`` with nvcc;
 3. holds K1 (crop) against its plain PyTorch version at the analyze
-   path's three call sites (each beside ``F.grid_sample``), and K4 (int8
+   path's three call sites, at the same sites over a batch of 8 images
+   and in ragged lane cases (each with its device time by
+   ``torch.profiler``, its host µs a call and ``F.grid_sample``), and K4 (int8
    pointwise conv) at the 13 pointwise layers of a 16-face head batch and
    a ragged shape, and times both with CUDA events, K4 per layer beside
    its bound and ``torch._int_mm``; counts the IMMA (tensor-core) and
    IDP.4A instructions in the SASS of K4 and of the int8 1-NN sweep;
 4. drives the analyze path: ``FacialAnalyzer.analyze_with_rotations``
    (K1), timed, then checked against the same analyzer on the CPU; then
-   the same with ``Int8MultiheadHeads`` (analyze --int8-heads: K1 + K4),
+   the batch path at batch 8 (``analyze_batch``: one K1 launch per crop
+   site for the whole batch, the head crops with a lane index), timed
+   beside 8 single-image analyses and ``detect_batch``, checked against
+   the card's single-image ``analyze`` and the CPU's ``analyze_batch``,
+   and ``analyze_batch_retry_padded`` through the rotation pair; then
+   ``analyze_with_rotations`` again with ``Int8MultiheadHeads`` (analyze
+   --int8-heads: K1 + K4),
    whose boxes must equal the f32 analyzer's, and whose int8 activations
    on the CPU's own crops must match the CPU's stage by stage; then the
    int8 embedder at
@@ -95,7 +103,9 @@ from hse_facerec_torch.ops.kernels import warp
 from hse_facerec_torch.ops.distance import l2_normalize
 from hse_facerec_torch.ops.kernels.crop import crop_resize
 from hse_facerec_torch.ops.preprocess import IMAGENET_MEANS_BGR
-from hse_facerec_torch.ops.resize import crop_resize_bilinear
+from hse_facerec_torch.ops.resize import (_crop_weights, crop_resize_bilinear,
+                                          crop_resize_bilinear_batch,
+                                          crop_resize_bilinear_lanes)
 from hse_facerec_torch.params import to_numpy, to_torch
 from hse_facerec_torch.pipelines.analyzer import FacialAnalyzer
 from hse_facerec_torch.pipelines.gallery import EnrollmentGallery
@@ -117,6 +127,16 @@ KERNEL_ATOL = 1e-3      # 0-255 pixel units; only the summation order differs
 CROP_SHAPES = [("stage2", 128, 24, 2, "zero"),
                ("stage3", 64, 48, 2, "zero"),
                ("head", 16, 224, 1, "clamp")]
+# the batch path: analyze_batch at batch 8 shares max(16, 2 x 8) head slots
+# across the batch; K1's lane cases at the head site (every crop_boxes set
+# has two boxes wholly outside the image): all boxes in one lane, lanes
+# left empty, and the 80 crops of 16 oversampled faces (5 each)
+BATCH = 8
+BATCH_HEAD_SLOTS = max(16, 2 * BATCH)
+ROOMY_SLOTS = 16 * BATCH        # analyze_batch's timed runs: no lane re-runs
+CROP_LANE_CASES = [("head, all in one lane", [3] * 16),
+                   ("head, lanes 1-6 empty", [0] * 8 + [7] * 8),
+                   ("head, oversample 80", [i // 10 for i in range(80)])]
 # 1-NN checks, (name, M probes, N gallery rows, D): ragged with ties, then
 # serving (identify_many asks 1-16 probes of the whole gallery)
 KNN_SHAPES = [("ragged", 37, 1000, 30), ("serve1", 1, 1 << 20, 512),
@@ -254,64 +274,169 @@ def crop_boxes(rng, k: int):
     return boxes
 
 
-def grid_sample_crop(img, boxes, out: int, padding: str = "border"):
+def grid_sample_crop(images, boxes, out: int, padding: str = "border"):
     """One ``F.grid_sample`` call sampling K1's grid of ``out`` x ``out``
-    points per box: bilinear, on the image expanded over the boxes, each
-    box's grid an affine map of the output grid (output i samples
-    y1 + (i + 0.5)·(y2 - y1)/out - 0.5, as K1). At the head site (s = 1,
-    clamp: border padding) it is K1's function; at the supersampled sites
-    (zero: zeros padding) it samples the s·out grid and leaves out the s²
-    average. The library yardstick for K1. Returns the call and its output
-    as (K, out, out, C)."""
-    h, w, c = img.shape
-    k = boxes.shape[0]
-    y1, x1, y2, x2 = boxes.unbind(1)
+    points per box, bilinear: images (B, H, W, C), boxes (B, K, 4), box k
+    of image b sampling image b. Each box's grid is an affine map of the
+    output grid (output i samples y1 + (i + 0.5)·(y2 - y1)/out - 0.5, as
+    K1), and the K grids of an image stack along the output rows, so the
+    call reads each image once. At the head site (s = 1, clamp: border
+    padding) it is K1's function; at the supersampled sites (zero: zeros
+    padding) it samples the s·out grid and leaves out the s² average. The
+    library yardstick for K1. Returns the call and its output as (B, K,
+    out, out, C)."""
+    b, h, w, c = images.shape
+    k = boxes.shape[1]
+    y1, x1, y2, x2 = boxes.reshape(b * k, 4).unbind(1)
     sy, sx = (y2 - y1) / out, (x2 - x1) / out
-    theta = torch.zeros((k, 2, 3), device=img.device)
+    theta = torch.zeros((b * k, 2, 3), device=images.device)
     theta[:, 0, 0] = sx * (out - 1) / (w - 1)
     theta[:, 0, 2] = 2 * (x1 - 0.5 + sx * out / 2) / (w - 1) - 1
     theta[:, 1, 1] = sy * (out - 1) / (h - 1)
     theta[:, 1, 2] = 2 * (y1 - 0.5 + sy * out / 2) / (h - 1) - 1
-    grid = F.affine_grid(theta, (k, c, out, out), align_corners=True)
-    x = img.permute(2, 0, 1).contiguous()[None].expand(k, -1, -1, -1)
+    grid = F.affine_grid(theta, (b * k, c, out, out), align_corners=True)
+    grid = grid.reshape(b, k * out, out, 2)
+    x = images.permute(0, 3, 1, 2).contiguous()
 
     def call():
         return F.grid_sample(x, grid, mode="bilinear", padding_mode=padding,
                              align_corners=True)
-    return call, call().permute(0, 2, 3, 1)
+    return call, call().reshape(b, c, k, out, out).permute(0, 2, 3, 4, 1)
+
+
+def k1_device_ms(call, calls: int = 20) -> float:
+    """K1's device time a call by ``torch.profiler``, which must see exactly
+    one K1 kernel a call."""
+    rows, _ = profile_calls(call, calls)
+    k1 = [(n, ms) for key, n, ms, on_device in rows if on_device and "crop_resize" in key]
+    launched = sum(n for n, _ in k1)
+    if launched != calls:
+        raise AssertionError(f"K1: the profiler saw {launched} K1 kernels in "
+                             f"{calls} calls ({k1})")
+    return sum(ms for _, ms in k1) / calls
+
+
+def touched_bytes(images, boxes, out: int, s: int, outside: str, lanes=None) -> int:
+    """The bytes of image pixels the crops depend on: those K1's taps read
+    with a nonzero weight. A box touches the grid of its touched rows and
+    columns (where the plain version's weight matrices are nonzero); the
+    boxes of one image share pixels, and an image no box reads costs
+    nothing."""
+    imgs = images if images.dim() == 4 else images[None]
+    n_img, h, w, c = imgs.shape
+    flat = boxes.reshape(-1, 4)
+    lane = lanes.long() if lanes is not None else torch.arange(
+        n_img, device=flat.device).repeat_interleave(flat.shape[0] // n_img)
+    rows, cols = _crop_weights(flat, h, w, out, s, outside)
+    rows, cols = (rows > 0).any(1).float(), (cols > 0).any(1).float()
+    touched = sum(int(((rows[lane == i].T @ cols[lane == i]) > 0).sum())
+                  for i in range(n_img))
+    return touched * c * imgs.element_size()
+
+
+def check_crop_site(name, images, boxes, out: int, s: int, outside: str,
+                    lanes=None):
+    """K1 at one site against its plain version: images (H, W, C) with
+    boxes (K, 4), or (L, H, W, C) with boxes (L, K, 4), or with ``lanes``.
+    Times a call (CUDA events over wrapper calls), its device time
+    (``torch.profiler``), the host µs a call (the difference), the plain
+    version, the bound (``touched_bytes`` read once, the output written
+    once; beside it the bound with every image read whole) and
+    ``grid_sample_crop``; at a lane site the library call samples the
+    pre-gathered ``images[lanes]``, the gather outside the timed call."""
+    call = lambda: crop_resize(images, boxes, out, s, outside, lanes=lanes)
+    if lanes is not None:
+        plain = lambda: crop_resize_bilinear_lanes(images, lanes, boxes, out, s, outside)
+    elif images.dim() == 4:
+        plain = lambda: crop_resize_bilinear_batch(images, boxes, out, s, outside)
+    else:
+        plain = lambda: crop_resize_bilinear(images, boxes, out, s, outside)
+    got, want = call(), plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ms = cuda_ms(call, 200)
+    device_ms = k1_device_ms(call)
+    plain_ms = cuda_ms(plain, 10)
+    small = (boxes,) + (() if lanes is None else (lanes,))
+    # at most (2s)² taps per output value, a multiply-add each
+    ops = 2.0 * got.numel() * (2 * s) ** 2
+    b_ms, b_by = bound(touched_bytes(images, boxes, out, s, outside, lanes)
+                       + nbytes(*small, got), ops, "f32")
+    whole_ms, _ = bound(nbytes(images, *small, got), ops, "f32")
+    padding = "border" if outside == "clamp" else "zeros"
+    if lanes is not None:
+        lib_images, lib_boxes, lib_note = images[lanes.long()], boxes[:, None], \
+            "on the pre-gathered images[lanes]"
+    elif images.dim() == 4:
+        lib_images, lib_boxes, lib_note = images, boxes, "one call for the batch"
+    else:
+        lib_images, lib_boxes, lib_note = images[None], boxes[None], "one call"
+    lib_call, lib_out = grid_sample_crop(lib_images, lib_boxes, s * out, padding)
+    lib_ms = cuda_ms(lib_call, 200)
+    # the s x s average grid_sample leaves out, for the printed difference
+    lib_out = lib_out.reshape(-1, s * out, s * out, got.shape[-1]).permute(0, 3, 1, 2)
+    lib_out = F.avg_pool2d(lib_out, s).permute(0, 2, 3, 1).reshape(got.shape)
+    n_boxes = got.numel() // (out * out * got.shape[-1])
+    print(f"crop_resize {name}: {n_boxes} boxes out={out} s={s} outside={outside} "
+          f"max_abs_err={err:.3g} call_ms={ms:.4f} device_ms={device_ms:.4f} "
+          f"host_us={(ms - device_ms) * 1e3:.1f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={b_ms:.5f} ({b_by}; {whole_ms:.5f} with every image read "
+          f"whole) grid_sample_ms={lib_ms:.4f} ({padding}, "
+          f"{s * out}² grid, {lib_note}; mean |diff| after the s² average "
+          f"{float((lib_out - got).abs().mean()):.3g})")
+    if not err <= KERNEL_ATOL:
+        raise AssertionError(f"crop_resize {name}: max abs err {err} > {KERNEL_ATOL}")
+    return {"max_abs_err": err, "ms": ms, "device_ms": device_ms,
+            "host_us": (ms - device_ms) * 1e3, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_whole_images_ms": whole_ms,
+            "library_ms": lib_ms}
 
 
 def check_crop_kernel(rng):
-    """K1 against its plain version at the analyze path's three sites,
-    timed, each beside ``grid_sample_crop`` (on the s·out grid, zeros
-    padding, at the supersampled sites). Returns (err, ms, plain ms, bound
-    ms, library ms) per site."""
-    img = torch.from_numpy((rng.rand(H, W, 3) * 255).astype(np.float32)).cuda()
-    results = []
+    """K1 at the analyze path's three single-image sites, then at the three
+    sites of a batch of ``BATCH`` images (stage 2/3 with (L, K, 4) boxes,
+    the head crops with a lane index) and the ragged lane cases. Returns
+    {site: ``check_crop_site``'s numbers}."""
+    images = torch.from_numpy((rng.rand(BATCH, H, W, 3) * 255).astype(np.float32)).cuda()
+    results = {}
     for name, k, out, s, outside in CROP_SHAPES:
         boxes = torch.from_numpy(crop_boxes(rng, k)).cuda()
-        got = crop_resize(img, boxes, out, s, outside)
-        want = crop_resize_bilinear(img, boxes, out, s, outside)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        ms = cuda_ms(lambda: crop_resize(img, boxes, out, s, outside), 200)
-        plain_ms = cuda_ms(lambda: crop_resize_bilinear(img, boxes, out, s, outside), 50)
-        # at most (2s)² taps per output value, a multiply-add each
-        b_ms, b_by = bound(nbytes(img, boxes, got), 2.0 * got.numel() * (2 * s) ** 2, "f32")
-        padding = "border" if outside == "clamp" else "zeros"
-        lib_call, lib_out = grid_sample_crop(img, boxes, s * out, padding)
-        lib_ms = cuda_ms(lib_call, 200)
-        # the s x s average grid_sample leaves out, for the printed difference
-        lib_out = F.avg_pool2d(lib_out.permute(0, 3, 1, 2), s).permute(0, 2, 3, 1)
-        print(f"crop_resize {name}: K={k} out={out} s={s} outside={outside} "
-              f"max_abs_err={err:.3g} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={b_ms:.5f} ({b_by}) grid_sample_ms={lib_ms:.4f} ({padding}, "
-              f"{s * out}² grid; mean |diff| after the s² average "
-              f"{float((lib_out - got).abs().mean()):.3g})")
-        if not err <= KERNEL_ATOL:
-            raise AssertionError(f"crop_resize {name}: max abs err {err} > {KERNEL_ATOL}")
-        results.append((err, ms, plain_ms, b_ms, lib_ms))
+        results[name] = check_crop_site(name, images[0], boxes, out, s, outside)
+    for name, k, out, s, outside in CROP_SHAPES:
+        if name == "head":
+            boxes = torch.from_numpy(crop_boxes(rng, BATCH_HEAD_SLOTS)).cuda()
+            lanes = torch.arange(BATCH, dtype=torch.int32, device="cuda").repeat_interleave(
+                BATCH_HEAD_SLOTS // BATCH)
+            results[f"{name} x{BATCH}"] = check_crop_site(
+                f"{name} x{BATCH} (lanes)", images, boxes, out, s, outside, lanes)
+        else:
+            boxes = torch.from_numpy(np.stack([crop_boxes(rng, k) for _ in range(BATCH)])).cuda()
+            results[f"{name} x{BATCH}"] = check_crop_site(
+                f"{name} x{BATCH}", images, boxes, out, s, outside)
+    for name, lanes in CROP_LANE_CASES:
+        lanes = torch.tensor(lanes, dtype=torch.int32, device="cuda")
+        boxes = torch.from_numpy(crop_boxes(rng, len(lanes))).cuda()
+        results[name] = check_crop_site(name, images, boxes, 224, 1, "clamp", lanes)
     return results
+
+def check_crop_kernel_apart():
+    """``check_crop_kernel`` in a child process, its lines printed here.
+    Its nine profiler sessions, run in this process, made later sessions
+    lose kernel records (K3's one-call check saw no kernel, ten K4 calls
+    none; H100 runs), where the same later sessions never did without
+    them."""
+    code = ("import json, numpy as np, chip_smoke as cs\n"
+            "cs.set_parity_numerics()\n"
+            "print(json.dumps(cs.check_crop_kernel(np.random.RandomState(cs.SEED))))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=os.path.dirname(os.path.abspath(__file__)), timeout=900)
+    lines = out.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]))
+    if out.returncode != 0:
+        raise AssertionError(f"K1 checks failed ({out.returncode}): "
+                             f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    return json.loads(lines[-1])
+
 
 def pw_operands(gen, m: int, k: int, n: int):
     """Seeded K4 operands made on the card: activations in [0, 127],
@@ -715,6 +840,26 @@ def load_params():
             random_multihead_params(np.random.RandomState(SEED + 100)))
 
 
+def worst_face_diffs(got, want, label: str, tol=F32_TOL):
+    """Per-image face lists ``got`` against ``want``: the same face counts,
+    and the worst box (px), age, P(male) and least identity cosine within
+    ``tol``. Returns the worst values."""
+    counts = ([len(f) for f in got], [len(f) for f in want])
+    if counts[0] != counts[1]:
+        raise AssertionError(f"{label}: face counts {counts[0]} vs {counts[1]}")
+    worst = {"box_px": 0.0, "age": 0.0, "gender": 0.0, "min_cos": 1.0}
+    for a, b in ((a, b) for fa, fb in zip(got, want) for a, b in zip(fa, fb)):
+        worst["box_px"] = max(worst["box_px"],
+                              float(np.abs(np.subtract(a.raw_bbox, b.raw_bbox)).max()))
+        worst["age"] = max(worst["age"], abs(a.age - b.age))
+        worst["gender"] = max(worst["gender"], abs(a.gender_prob - b.gender_prob))
+        worst["min_cos"] = min(worst["min_cos"], float(cosine(a.identity, b.identity)))
+    if not (worst["box_px"] <= tol["box_px"] and worst["age"] <= tol["age"]
+            and worst["gender"] <= tol["gender"] and worst["min_cos"] > tol["min_cos"]):
+        raise AssertionError(f"{label} disagree: {worst}")
+    return worst
+
+
 def compare_analyzers(gpu, cpu, img, label: str = "f32 heads", tol=F32_TOL):
     """The card's results against the CPU's on one image, within ``tol``
     (boxes in px, ages, P(male), least identity cosine)."""
@@ -724,22 +869,9 @@ def compare_analyzers(gpu, cpu, img, label: str = "f32 heads", tol=F32_TOL):
     if not np.array_equal(g_valid, c_valid):
         raise AssertionError(f"valid masks differ: cuda {g_valid} cpu {c_valid}")
     faces_g, faces_c = gpu.analyze(img), cpu.analyze(img)
-    if len(faces_g) != len(faces_c):
-        raise AssertionError(f"face count: cuda {len(faces_g)} cpu {len(faces_c)}")
-    worst = {"box_px": 0.0, "age": 0.0, "gender": 0.0, "min_cos": 1.0}
-    for a, b in zip(faces_g, faces_c):
-        worst["box_px"] = max(worst["box_px"],
-                              float(np.abs(np.subtract(a.raw_bbox, b.raw_bbox)).max()))
-        worst["age"] = max(worst["age"], abs(a.age - b.age))
-        worst["gender"] = max(worst["gender"], abs(a.gender_prob - b.gender_prob))
-        cos = float(np.dot(a.identity, b.identity)
-                    / (np.linalg.norm(a.identity) * np.linalg.norm(b.identity)))
-        worst["min_cos"] = min(worst["min_cos"], cos)
+    worst = worst_face_diffs([faces_g], [faces_c], f"cuda vs cpu ({label})", tol)
     print(f"cuda vs cpu on image 0 ({label}): {len(faces_g)} faces, valid "
           f"masks equal, worst {json.dumps(worst)}")
-    if not (worst["box_px"] <= tol["box_px"] and worst["age"] <= tol["age"]
-            and worst["gender"] <= tol["gender"] and worst["min_cos"] > tol["min_cos"]):
-        raise AssertionError(f"cuda vs cpu ({label}) disagree: {worst}")
 
 
 def head_crops(analyzer, img):
@@ -894,7 +1026,11 @@ def profile_calls(fn, calls: int = 1):
     """``fn()`` ``calls`` times under ``torch.profiler``: every event it saw
     as (name, count, self device ms, ran on the device) rows, and the
     calls' span on the card by CUDA events, per call, the profiler's own
-    overhead included."""
+    overhead included. After the calls a sentinel kernel runs inside the
+    session and is left out of the rows: a session can lose its last
+    kernel record (after the K4 check, one K3 call under the profiler
+    showed no kernel and ten calls showed nine, an H100 run), and then it
+    is the sentinel's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -906,9 +1042,12 @@ def profile_calls(fn, calls: int = 1):
         for _ in range(calls):
             fn()
         end.record()
+        torch.cuda._sleep(1000)               # the sentinel: spin_kernel
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
+        if "spin_kernel" in e.key:
+            continue
         us = getattr(e, "self_device_time_total", None)
         us = us if us is not None else e.self_cuda_time_total
         rows.append((e.key, e.count, us / 1e3, e.device_type == DeviceType.CUDA))
@@ -1163,6 +1302,138 @@ def identify_at_scale():
     if agree < 0.99:
         raise AssertionError(f"K2a index agreement {agree}")
     return launches
+
+
+def median_ms(fn, repeats: int = ANALYZE_REPEATS) -> float:
+    """Median host ms of ``repeats`` synced calls of ``fn`` after one."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def counting(obj, name: str, calls: list):
+    """Wrap ``obj.name`` so that each call appends its first argument's
+    shape to ``calls``; ``del obj.name`` undoes it."""
+    fn = getattr(obj, name)
+    setattr(obj, name, lambda x, *a: calls.append(tuple(x.shape)) or fn(x, *a))
+
+
+def analyze_batch_path(mtcnn_params, mh_params, rng):
+    """The batch path at full width, batch ``BATCH`` of seeded 640x480
+    photos: ``analyze_batch`` with head slots for every face (exactly 3 K1
+    launches a call, timed beside ``BATCH`` x the single-image ``analyze``
+    and ``detect_batch``, launches per image from one profiled call); the
+    reference's default slots, max(16, 2 x lanes), where lanes past them
+    re-run through ``analyze``; with a blank and a noise lane added, equal
+    to the card's own single-image ``analyze``; on 4 photos equal to the
+    CPU's ``analyze_batch``; ``analyze_batch_retry_padded`` with two blank
+    lanes runs the rotation pair and equals ``analyze_batch_padded`` over
+    host-rotated copies. Returns the kernel launches of the path and its
+    numbers."""
+    photos = np.stack(smooth_images(rng, BATCH))
+    blank = np.zeros((H, W, 3), np.uint8)
+    noise = rng.randint(0, 256, (H, W, 3)).astype(np.uint8)
+    # head slots for every face (these weights find 2-8 faces a photo)
+    roomy = FacialAnalyzer(mtcnn_params, mh_params, device="cuda",
+                           batch_head_total=ROOMY_SLOTS)
+    default = FacialAnalyzer(mtcnn_params, mh_params, device="cuda")
+    roomy.analyze_batch(photos)                     # warm-up: cuDNN, allocator
+    torch.cuda.synchronize()
+    reset_launches()
+    fallbacks = []
+    counting(roomy, "analyze", fallbacks)
+    out = roomy.analyze_batch(photos)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    if fallbacks or launches["crop_resize"] != 3:
+        raise AssertionError(f"analyze_batch: {len(fallbacks)} lanes re-ran, K1 "
+                             f"launched {launches['crop_resize']} times (want 3)")
+    counting(default, "analyze", fallbacks)
+    out_default = default.analyze_batch(photos)
+    n_default = len(fallbacks)
+    del roomy.analyze, default.analyze
+
+    single = [roomy.analyze(img) for img in photos]
+    mixed = np.concatenate([photos, blank[None], noise[None]])
+    got = roomy.analyze_batch(mixed)
+    worst = worst_face_diffs(got, single + [roomy.analyze(blank), roomy.analyze(noise)],
+                             "analyze_batch vs analyze on the card")
+    worst_default = worst_face_diffs(out_default, single, "default slots vs analyze")
+    worst_roomy = worst_face_diffs(out, single, "analyze_batch vs analyze")
+    if got[BATCH]:
+        raise AssertionError(f"the blank lane found {len(got[BATCH])} faces")
+    print(f"analyze_batch x{BATCH + 2} (8 photos, a blank and a noise lane) vs "
+          f"the card's analyze: faces {[len(f) for f in got]}, worst "
+          f"{json.dumps(worst)}; at the default {BATCH_HEAD_SLOTS} head slots "
+          f"{n_default} of {BATCH} lanes re-ran through analyze (worst "
+          f"{json.dumps(worst_default)}); with {ROOMY_SLOTS} slots none "
+          f"(worst {json.dumps(worst_roomy)})")
+
+    cpu = FacialAnalyzer(mtcnn_params, mh_params, device="cpu",
+                         batch_head_total=ROOMY_SLOTS)
+    worst_cpu = worst_face_diffs(roomy.analyze_batch(photos[:4]), cpu.analyze_batch(photos[:4]),
+                                 "analyze_batch cuda vs cpu")
+    print(f"analyze_batch x4 cuda vs cpu: worst {json.dumps(worst_cpu)}")
+
+    batch_ms = median_ms(lambda: roomy.analyze_batch(photos))
+    default_ms = median_ms(lambda: default.analyze_batch(photos))
+    single_ms = median_ms(lambda: [roomy.analyze(img) for img in photos]) / BATCH
+    detect_ms = median_ms(lambda: roomy.detector.detect_batch(photos))
+    rows, window_ms = profile_calls(lambda: roomy.analyze_batch(photos))
+    kernels = sum(n for key, n, _, dev in rows if dev and not key.startswith("Mem"))
+    copies = sum(n for key, n, _, dev in rows if dev and key.startswith("Memcpy"))
+    busy = sum(ms for key, _, ms, dev in rows if dev)
+    rows1, window1 = profile_calls(lambda: roomy.analyze(photos[0]))
+    kernels1 = sum(n for key, n, _, dev in rows1 if dev and not key.startswith("Mem"))
+    copies1 = sum(n for key, n, _, dev in rows1 if dev and key.startswith("Memcpy"))
+    numbers = {"batch_ms": batch_ms, "images_per_s": BATCH * 1e3 / batch_ms,
+               "default_slots_batch_ms": default_ms,
+               "default_slots_fallback_lanes": n_default,
+               "single_ms_per_image": single_ms, "single_x8_ms": BATCH * single_ms,
+               "detect_batch_images_per_s": BATCH * 1e3 / detect_ms,
+               "kernels_per_image": kernels / BATCH, "copies_per_image": copies / BATCH,
+               "device_busy_ms": busy, "profiled_ms": window_ms,
+               "single_kernels_per_image": kernels1, "single_copies_per_image": copies1,
+               "single_device_busy_ms": sum(ms for _, _, ms, dev in rows1 if dev),
+               "single_profiled_ms": window1}
+    print(f"analyze_batch x{BATCH} 640x480: median {batch_ms:.3f} ms a batch, "
+          f"{numbers['images_per_s']:.1f} images/s, against {BATCH} x analyze "
+          f"{BATCH * single_ms:.3f} ms ({single_ms:.3f} ms/image); at the default "
+          f"slots {default_ms:.3f} ms ({n_default} lanes re-run); detect_batch "
+          f"{numbers['detect_batch_images_per_s']:.1f} images/s; one profiled call: "
+          f"{kernels / BATCH:.1f} kernels and {copies / BATCH:.2f} copies per image, "
+          f"device busy {busy:.3f} of {window_ms:.3f} ms (analyze: {kernels1} kernels, "
+          f"{copies1} copies, busy {numbers['single_device_busy_ms']:.3f} of "
+          f"{window1:.3f} ms)")
+
+    # the rotation retry: two blank lanes find no face upright
+    imgs = np.concatenate([photos[:4], blank[None], blank[None]])
+    cores = []
+    counting(roomy, "analyze_batch_core", cores)
+    retry = roomy.analyze_batch_retry_padded(imgs, BATCH)
+    del roomy.analyze_batch_core
+    if cores != [(BATCH, H, W, 3), (BATCH, W, H, 3), (BATCH, W, H, 3)]:
+        raise AssertionError(f"analyze_batch_retry_padded ran {cores}, not the "
+                             "upright pass and the rotation pair")
+    upright = roomy.analyze_batch_padded(imgs, BATCH)
+    r90 = roomy.analyze_batch_padded(np.rot90(imgs, 3, axes=(1, 2)), BATCH)
+    r270 = roomy.analyze_batch_padded(np.rot90(imgs, 1, axes=(1, 2)), BATCH)
+    want = [(u, 0) if u else (a, 90) if a else (b, 270) for u, a, b in zip(upright, r90, r270)]
+    if [r for _, r in retry] != [r for _, r in want]:
+        raise AssertionError(f"retry rotations {[r for _, r in retry]} vs "
+                             f"{[r for _, r in want]}")
+    worst_retry = worst_face_diffs([f for f, _ in retry], [f for f, _ in want],
+                                   "analyze_batch_retry_padded vs host-rotated copies")
+    print(f"analyze_batch_retry_padded: passes {cores}, rotations "
+          f"{[r for _, r in retry]}, equal to analyze_batch_padded over "
+          f"host-rotated copies (worst {json.dumps(worst_retry)})")
+    return launches, numbers
 
 
 def analyze_gallery_path(gpu, images, tmp: str):
@@ -1474,7 +1745,7 @@ def main() -> None:
 
     # --- kernel vs plain ---
     rng = np.random.RandomState(SEED)
-    crop_results = check_crop_kernel(rng)
+    crop_results = check_crop_kernel_apart()
     check_sass()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     pw = check_pw_kernel(gen, PW_BATCH, True, 20, 5)
@@ -1497,6 +1768,11 @@ def main() -> None:
     cpu = FacialAnalyzer(mtcnn_params, mh_params, device="cpu")
     compare_analyzers(gpu, cpu, images[0])
     phase_done("analyze")
+
+    batch_launches, batch_numbers = analyze_batch_path(
+        mtcnn_params, mh_params, np.random.RandomState(SEED + 7))
+    path_launches.append(batch_launches)
+    phase_done("analyze_batch")
 
     int8_launches, int8_median = int8_analyze_path(mtcnn_params, mh_params,
                                                    images, outputs)
@@ -1536,21 +1812,24 @@ def main() -> None:
     phase_done("train cuda vs cpu")
     launches = {k: sum(p[k] for p in path_launches) for k in path_launches[0]}
 
-    # crop ms / plain_ms: the sum over the three call-site shapes, i.e. one
-    # image's crop passes at the default caps (library: the head site
-    # alone); knn: the serve16 shape; pw_conv_int8: the sums over the 13
-    # layers of one 16-face head batch (library: torch._int_mm), and of the
-    # embedder's batch
-    errs, ms, plain, bounds, lib = zip(*crop_results)
+    # crop: the sums over the three single-image call sites, i.e. one image's
+    # crop passes at the default caps; beside them every site's numbers.
+    # knn: the serve16 shape; pw_conv_int8: the sums over the 13 layers of
+    # one 16-face head batch (library: torch._int_mm), and of the embedder's
+    # batch
+    singles = [crop_results[name] for name, *_ in CROP_SHAPES]
     kernels = [{
         "name": "crop_resize", "route": "cuda",
         "source": "hse_facerec_torch/csrc/crop_resize.cu",
         "replaces": "hse_facerec_tf_tpu/ops/pallas/crop.py:103",
-        "launches": launches["crop_resize"], "max_abs_err": max(errs),
-        "ms": sum(ms), "plain_ms": sum(plain), "bound_ms": sum(bounds),
-        "bound_by": "bytes", "library_ms": sum(lib),
-        "sites_ms": {name: {"ms": t, "library_ms": t_lib} for (name, *_), t, t_lib
-                     in zip(CROP_SHAPES, ms, lib)}}]
+        "launches": launches["crop_resize"],
+        "max_abs_err": max(r["max_abs_err"] for r in crop_results.values()),
+        **{k: sum(r[k] for r in singles) for k in (
+            "ms", "device_ms", "host_us", "plain_ms", "bound_ms",
+            "bound_whole_images_ms", "library_ms")},
+        "bound_by": "bytes",
+        "sites": {name: {k: v for k, v in r.items() if k != "max_abs_err"}
+                  for name, r in crop_results.items()}}]
     design = knn_results["design_point"]
     for name, line in (("knn_f32", 159), ("knn_int8q", 313), ("knn_int8p", 439)):
         r = dict(knn_results[name])
@@ -1581,6 +1860,7 @@ def main() -> None:
           + json.dumps({k: round(v, 1) for k, v in embed["ips"].items()}) + " img/s")
     print("knn design point: " + json.dumps(knn_results["design_point"]))
     print("train: " + json.dumps(train))
+    print(f"analyze_batch x{BATCH}: " + json.dumps(batch_numbers))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

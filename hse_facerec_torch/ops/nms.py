@@ -2,8 +2,9 @@
 
 Counterpart of ``hse_facerec_tf_tpu/ops/nms.py``: the reference's greedy
 MTCNN NMS (``facial_analysis.py:397-428``) as a keep-mask over padded boxes,
-solved as a Jacobi fixpoint over a pairwise-overlap matrix. The loop reads
-its ``changed`` flag on the host once per round.
+solved as a Jacobi fixpoint over a pairwise-overlap matrix, over a leading
+lane dimension too. The loop reads its ``changed`` flag on the host once
+per round.
 """
 
 from __future__ import annotations
@@ -12,42 +13,45 @@ import torch
 
 
 def pairwise_overlap(boxes, method: str = "union"):
-    """(N, 4) [x1, y1, x2, y2] -> (N, N) overlap ratios (+1 widths)."""
-    x1, y1, x2, y2 = boxes[:, 0], boxes[:, 1], boxes[:, 2], boxes[:, 3]
+    """(..., N, 4) [x1, y1, x2, y2] -> (..., N, N) overlap ratios (+1 widths)."""
+    x1, y1, x2, y2 = boxes.unbind(-1)
     area = (x2 - x1 + 1.0) * (y2 - y1 + 1.0)
-    xx1 = torch.maximum(x1[:, None], x1[None, :])
-    yy1 = torch.maximum(y1[:, None], y1[None, :])
-    xx2 = torch.minimum(x2[:, None], x2[None, :])
-    yy2 = torch.minimum(y2[:, None], y2[None, :])
+    xx1 = torch.maximum(x1[..., :, None], x1[..., None, :])
+    yy1 = torch.maximum(y1[..., :, None], y1[..., None, :])
+    xx2 = torch.minimum(x2[..., :, None], x2[..., None, :])
+    yy2 = torch.minimum(y2[..., :, None], y2[..., None, :])
     w = torch.clamp(xx2 - xx1 + 1.0, min=0.0)
     h = torch.clamp(yy2 - yy1 + 1.0, min=0.0)
     inter = w * h
     if method == "min":
-        denom = torch.minimum(area[:, None], area[None, :])
+        denom = torch.minimum(area[..., :, None], area[..., None, :])
     else:
-        denom = area[:, None] + area[None, :] - inter
+        denom = area[..., :, None] + area[..., None, :] - inter
     return inter / torch.clamp(denom, min=1e-10)
 
 
 def nms_mask(boxes, scores, valid, threshold: float, method: str = "union"):
-    """Greedy NMS over padded boxes -> keep (N,) bool, a subset of valid.
+    """Greedy NMS over padded boxes (..., N, 4) -> keep (..., N) bool, a
+    subset of valid, each lane on its own.
 
     In (score desc, index asc) order the greedy result satisfies
     keep[i] = valid[i] and no higher-ranked kept j overlaps i past the
     threshold; Jacobi iteration from keep = valid reaches it in at most
-    longest-suppression-chain rounds."""
-    n = boxes.shape[0]
+    longest-suppression-chain rounds. The rounds go on until no lane
+    changes; a lane that has converged is a fixpoint and stays, so each
+    lane's mask is its single-image mask."""
+    n = boxes.shape[-2]
     overlap = pairwise_overlap(boxes, method)
-    # rank in (score desc, index asc) order; invalid lanes rank last
+    # rank in (score desc, index asc) order; invalid entries rank last
     key = torch.where(valid, -scores, torch.full_like(scores, torch.inf))
-    order = torch.argsort(key, stable=True)
-    rank = torch.empty_like(order)
-    rank[order] = torch.arange(n, device=boxes.device)
-    # suppressor[j, i]: j outranks i and overlaps it past the threshold
-    suppressor = (overlap > threshold) & (rank[:, None] < rank[None, :])
+    order = torch.argsort(key, dim=-1, stable=True)
+    rank = torch.empty_like(order).scatter_(
+        -1, order, torch.arange(n, device=boxes.device).expand_as(order))
+    # suppressor[..., j, i]: j outranks i and overlaps it past the threshold
+    suppressor = (overlap > threshold) & (rank[..., :, None] < rank[..., None, :])
     keep = valid
     while True:
-        keep2 = valid & ~torch.any(suppressor & keep[:, None], dim=0)
+        keep2 = valid & ~torch.any(suppressor & keep[..., :, None], dim=-2)
         if not bool(torch.any(keep2 != keep)):
             return keep2
         keep = keep2

@@ -5,8 +5,10 @@ bilinear crop+resize.
 Counterpart of ``hse_facerec_tf_tpu/ops/resize.py``. Each 1-D resampling is
 a small weight matrix, built in numpy (copied from the reference, whose
 module imports jax), applied as a matmul.
-``crop_resize_bilinear`` is the plain PyTorch version of the CUDA crop
-kernel (``ops/kernels/crop.py``): the CPU path and the kernel's oracle.
+``crop_resize_bilinear`` and its batch forms ``crop_resize_bilinear_batch``
+(one image per lane) and ``crop_resize_bilinear_lanes`` (a lane index per
+box) are the plain PyTorch version of the CUDA crop kernel
+(``ops/kernels/crop.py``): the CPU path and the kernel's oracle.
 """
 
 from __future__ import annotations
@@ -153,20 +155,21 @@ def resize_host(img: np.ndarray, out_hw: Tuple[int, int],
 
 
 def resize_pyramid(img, out_hws: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
-    """cv2 INTER_AREA resize of one (H, W, C) image to several sizes: the
+    """cv2 INTER_AREA resize of (..., H, W, C) images to several sizes: the
     row passes of all levels stack into one (Σoh, H) matmul, the column
     passes run per level."""
-    h, w, c = img.shape
+    h, w, c = img.shape[-3:]
+    lead = img.shape[:-3]
     dev = img.device
     stacked = torch.from_numpy(
         np.concatenate([_area_weights_cv2(h, oh) for oh, _ in out_hws])).to(dev)
     x = img.to(torch.float32)
-    rows = (stacked @ x.reshape(h, w * c)).reshape(-1, w, c)
+    rows = (stacked @ x.reshape(*lead, h, w * c)).reshape(*lead, -1, w, c)
     outs = []
     off = 0
     for oh, ow in out_hws:
         mw = torch.from_numpy(_area_weights_cv2(w, ow)).to(dev)
-        outs.append(torch.einsum("pw,owc->opc", mw, rows[off:off + oh]))
+        outs.append(torch.einsum("pw,...owc->...opc", mw, rows[..., off:off + oh, :, :]))
         off += oh
     return outs
 
@@ -216,4 +219,34 @@ def crop_resize_bilinear(img, boxes, out_size: int, supersample: int = 2,
     H, W, C = img.shape
     R, Cw = _crop_weights(boxes, H, W, out_size, supersample, outside)
     rows = (R @ img.reshape(H, W * C)).reshape(R.shape[0], out_size, W, C)
+    return torch.einsum("niwc,njw->nijc", rows, Cw)
+
+
+def crop_resize_bilinear_batch(images, boxes, out_size: int,
+                               supersample: int = 2, outside: str = "zero"):
+    """``crop_resize_bilinear`` for each lane of a batch, the vmapped form:
+    images (L, H, W, C), boxes (L, K, 4) [y1, x1, y2, x2], lane l's boxes
+    cropping from image l -> (L, K, out_size, out_size, C)."""
+    images = images.to(torch.float32)
+    L, H, W, C = images.shape
+    K = boxes.shape[1]
+    R, Cw = _crop_weights(boxes.reshape(L * K, 4), H, W, out_size, supersample,
+                          outside)
+    rows = torch.matmul(R.reshape(L, K * out_size, H), images.reshape(L, H, W * C))
+    rows = rows.reshape(L * K, out_size, W, C)
+    out = torch.einsum("niwc,njw->nijc", rows, Cw)
+    return out.reshape(L, K, out_size, out_size, C)
+
+
+def crop_resize_bilinear_lanes(images, lanes, boxes, out_size: int,
+                               supersample: int = 1, outside: str = "clamp"):
+    """``crop_resize_bilinear`` where each box crops from its own image of a
+    batch: images (L, H, W, C), lanes (N,) integer image index per box,
+    boxes (N, 4) [y1, x1, y2, x2] -> (N, out_size, out_size, C). What lets
+    the batch analyzer compact boxes across lanes before the head crops."""
+    images = images.to(torch.float32)
+    R, Cw = _crop_weights(boxes, images.shape[1], images.shape[2], out_size,
+                          supersample, outside)
+    per_box = images[lanes.long()]                                # (N, H, W, C)
+    rows = torch.einsum("nih,nhwc->niwc", R, per_box)
     return torch.einsum("niwc,njw->nijc", rows, Cw)

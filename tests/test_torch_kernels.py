@@ -8,9 +8,10 @@ on a machine without it, without the repo's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
 Tests marked ``cuda`` skip where ``torch.cuda.is_available()`` is False. On
-the card K1 must match ``crop_resize_bilinear`` within 1e-3 (0-255 pixel
-units) on noise images: sample positions and hat weights are bit-identical,
-only the order of the sums differs. K2b/K2c must equal
+the card K1 must match ``crop_resize_bilinear`` (and its batch forms, one
+launch each) within 1e-3 (0-255 pixel units) on noise images: sample
+positions and hat weights are bit-identical, only the order of the sums
+differs; a lane out of range writes NaN. K2b/K2c must equal
 ``nearest_neighbor_int8_plain`` bit for bit in index and distance (an
 exact int32 dot, one f32 rounding per key). K2a sums in another order than
 its twin: distances within rtol 1e-4 / atol 1e-3, and the same index
@@ -148,6 +149,52 @@ def test_crop_kernel_matches_plain_on_card(cuda, rng, k, out_size, supersample,
     torch.cuda.synchronize()
     assert crop_resize.launches == before + 1
     assert float((got - want).abs().max()) <= 1e-3
+
+
+# K1's batch forms: (L, K, 4) boxes, or a lane per box (ragged, all in one
+# lane, lanes left empty), at the analyze path's sizes and odd ones
+CROP_LANES = {"ragged": [0, 0, 2, 2, 2, 0, 2, 1] * 4, "one_lane": [1] * 16,
+              "empty_lanes": [0, 3] * 5}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["batch"] + sorted(CROP_LANES))
+@pytest.mark.parametrize("out_size,supersample,outside,c", [
+    (24, 2, "zero", 3), (48, 2, "zero", 3), (224, 1, "clamp", 3),
+    (17, 3, "zero", 1), (30, 2, "clamp", 4)])
+def test_crop_kernel_batch_forms_match_plain_on_card(cuda, rng, form, out_size,
+                                                     supersample, outside, c):
+    L, H, W = 4, 120, 160
+    imgs = _t((rng.rand(L, H, W, c) * 255).astype(np.float32)).to(cuda)
+    before = crop_resize.launches
+    if form == "batch":
+        boxes = _t(np.stack([_crop_boxes(rng, 9, H, W) for _ in range(L)])).to(cuda)
+        got = crop_resize(imgs, boxes, out_size, supersample, outside)
+        want = tr.crop_resize_bilinear_batch(imgs, boxes, out_size, supersample,
+                                             outside)
+    else:
+        lanes = _t(np.asarray(CROP_LANES[form], np.int32)).to(cuda)
+        boxes = _t(_crop_boxes(rng, len(lanes), H, W)).to(cuda)
+        got = crop_resize(imgs, boxes, out_size, supersample, outside, lanes=lanes)
+        want = tr.crop_resize_bilinear_lanes(imgs, lanes, boxes, out_size,
+                                             supersample, outside)
+    torch.cuda.synchronize()
+    assert crop_resize.launches == before + 1
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_crop_kernel_writes_nan_for_a_lane_out_of_range(cuda, rng):
+    imgs = _t((rng.rand(2, 40, 50, 3) * 255).astype(np.float32)).to(cuda)
+    boxes = _t(_crop_boxes(rng, 4, 40, 50)).to(cuda)
+    lanes = torch.tensor([0, 2, -1, 1], dtype=torch.int32, device=cuda)
+    got = crop_resize(imgs, boxes, 24, 2, "zero", lanes=lanes)
+    torch.cuda.synchronize()
+    assert bool(got[1].isnan().all()) and bool(got[2].isnan().all())
+    want = tr.crop_resize_bilinear_lanes(imgs, lanes[[0, 3]], boxes[[0, 3]], 24, 2,
+                                         "zero")
+    assert float((got[[0, 3]] - want).abs().max()) <= 1e-3
 
 
 def _unit_rows(rng, n, d):
