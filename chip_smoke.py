@@ -23,7 +23,15 @@ kernels are built for sm_90a). It:
    site for the whole batch, the head crops with a lane index), timed
    beside 8 single-image analyses and ``detect_batch``, checked against
    the card's single-image ``analyze`` and the CPU's ``analyze_batch``,
-   and ``analyze_batch_retry_padded`` through the rotation pair; then
+   and ``analyze_batch_retry_padded`` through the rotation pair; then the
+   album organizer (``process_album`` on 108 seeded BMP photos in two
+   shapes, 4 of them found only after the 90° retry, and 2 clips served
+   through ``_open_video``: the scan on the batch path with K1, clustering,
+   Dempster-Shafer, naming from an int8 gallery on K2c), timed beside
+   ``analyze_batch``, with a cached re-run, a one-flush-thread scan, a CPU
+   organizer on 8 of the photos, the CPU's distances, clusters and labels,
+   one profiled flush, and clustering at 4096 x 1024-d faces (the distance
+   matrix on the card, HAC and native rank-order on the host); then
    ``analyze_with_rotations`` again with ``Int8MultiheadHeads`` (analyze
    --int8-heads: K1 + K4),
    whose boxes must equal the f32 analyzer's, and whose int8 activations
@@ -79,6 +87,8 @@ import importlib.util
 import json
 import os
 import re
+import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -89,25 +99,28 @@ import torch
 import torch.nn.functional as F
 
 from hse_facerec_torch import set_parity_numerics
-from hse_facerec_torch.config import TrainConfig
+from hse_facerec_torch.config import AlbumConfig, TrainConfig
 from hse_facerec_torch.models import zoo
 from hse_facerec_torch.models.int8_infer import (block_int8, multihead_apply_int8,
                                                  quantize_multihead_int8, stem_int8)
 from hse_facerec_torch.models.mobilenet import MOBILENET_V1_BLOCKS, init_mobilenet_params
 from hse_facerec_torch.models.mtcnn import import_mtcnn_params
 from hse_facerec_torch.models.multihead import import_multihead_params, multihead_apply
+from hse_facerec_torch.native import rankorder
 from hse_facerec_torch.ops.kernels import build
 from hse_facerec_torch.ops.kernels import knn
 from hse_facerec_torch.ops.kernels import pw_conv
 from hse_facerec_torch.ops.kernels import warp
-from hse_facerec_torch.ops.distance import l2_normalize
+from hse_facerec_torch.ops.distance import l2_normalize, pairwise_sqeuclidean
 from hse_facerec_torch.ops.kernels.crop import crop_resize
 from hse_facerec_torch.ops.preprocess import IMAGENET_MEANS_BGR
 from hse_facerec_torch.ops.resize import (_crop_weights, crop_resize_bilinear,
                                           crop_resize_bilinear_batch,
                                           crop_resize_bilinear_lanes)
 from hse_facerec_torch.params import to_numpy, to_torch
+from hse_facerec_torch.pipelines.album import AlbumOrganizer, fused_distance_matrix
 from hse_facerec_torch.pipelines.analyzer import FacialAnalyzer
+from hse_facerec_torch.pipelines.clustering import get_facial_clusters
 from hse_facerec_torch.pipelines.gallery import EnrollmentGallery
 from hse_facerec_torch.pipelines.heads import Int8MultiheadHeads
 from hse_facerec_torch.pipelines.identification import (KNNIdentifier,
@@ -233,6 +246,19 @@ PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
 SASS_KERNELS = [("pw_conv_int8", "K4"), ("knn_int8", "K2b/K2c")]
 
 
+# the album phase: 24 landscape scenes x 4 variants (640x480), 2 portrait
+# scenes x 4 (480x640), 4 photos found only after the 90° retry, 2 clips
+ALBUM_SCENES, ALBUM_VARIANTS, ALBUM_PORTRAIT_SCENES = 24, 4, 2
+ALBUM_ROTATED, ALBUM_CLIPS, CLIP_FRAMES, ALBUM_SUBSET = 4, 2, 60, 8
+ALBUM_GALLERY = 4               # scenes with one face enrolled in the int8 gallery
+ALBUM_MINSIZE = 112             # the reference album's (process_photos.py:385)
+ALBUM_TOL = {"age": 1e-3, "gender": 1e-4, "min_cos": 0.9999}
+FADES = (0.15, 0.25, 0.35, 0.5, 0.7)   # contrasts of the turned photos' search
+CLUSTER_SCALE = (4096, 1024, 64)    # faces, dims, centres
+CLUSTER_SPREAD = 0.3            # noise per dim around a centre (same-centre L2 ~0.56)
+
+PROFILE_TRIES = 3               # profiler sessions before a lost record counts
+
 T_START = time.perf_counter()
 
 
@@ -307,7 +333,7 @@ def grid_sample_crop(images, boxes, out: int, padding: str = "border"):
 def k1_device_ms(call, calls: int = 20) -> float:
     """K1's device time a call by ``torch.profiler``, which must see exactly
     one K1 kernel a call."""
-    rows, _ = profile_calls(call, calls)
+    rows, _ = profile_calls(call, calls, "crop_resize")
     k1 = [(n, ms) for key, n, ms, on_device in rows if on_device and "crop_resize" in key]
     launched = sum(n for n, _ in k1)
     if launched != calls:
@@ -494,9 +520,15 @@ def check_pw_kernel(gen, batch: int, ragged: bool, iters: int, plain_iters: int)
         ms = cuda_ms(lambda: pw_conv.pw_conv_int8(*ops, requant=requant), iters)
         plain_ms = cuda_ms(lambda: pw_conv.pw_conv_int8_plain(*ops, requant=requant),
                            plain_iters, warmup=1)
-        rows, _ = profile_calls(lambda: pw_conv.pw_conv_int8(*ops, requant=requant), 10)
-        dev_ms = sum(t for key, _, t, on_device in rows
-                     if on_device and "pw_conv_int8" in key) / 10
+        rows, _ = profile_calls(lambda: pw_conv.pw_conv_int8(*ops, requant=requant), 10,
+                                "pw_conv_int8")
+        k4 = [(n, t) for key, n, t, on_device in rows if on_device and "pw_conv_int8" in key]
+        records = sum(n for n, _ in k4)
+        if not records:
+            raise AssertionError(f"pw_conv_int8 {name}: no K4 kernel record in "
+                                 f"{PROFILE_TRIES} profiler sessions")
+        # the mean kernel record, one a call: a session may keep fewer than 10
+        dev_ms = sum(t for _, t in k4) / records
         lib_call, why = int_mm_call(ops[0], ops[1])
         lib_ms = cuda_ms(lib_call, iters) if lib_call else None
         moved = nbytes(*ops) + m * n * (1 if requant else 4)
@@ -504,7 +536,7 @@ def check_pw_kernel(gen, batch: int, ragged: bool, iters: int, plain_iters: int)
         print(f"pw_conv_int8 {name}: M={m} K={k} N={n} tile "
               f"{pw_conv.tile_config(m, n, sms)} differing int8 {diffs['int8']} f32 "
               f"{diffs['f32']}; {'int8' if requant else 'f32'} out kernel_ms={ms:.4f} "
-              f"device_ms={dev_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              f"device_ms={dev_ms:.4f} ({records} of 10 records) bound_ms={b_ms:.4f} ({b_by}) "
               f"{moved / dev_ms / 1e6:.1f} GB/s {2.0 * m * k * n / dev_ms / 1e9:.2f} T "
               f"int8 ops/s plain_ms={plain_ms:.4f} "
               + (f"int_mm_ms={lib_ms:.4f}" if lib_call else f"int_mm refused ({why})"))
@@ -705,7 +737,7 @@ def check_knn_shape(gen, name, m, n, d, results):
 def knn_device_ms(fn, calls: int = 10) -> float:
     """Device ms a call of the 1-NN kernels (the sweep and the reduce) in
     ``fn``, by ``torch.profiler`` over ``calls`` calls."""
-    rows, _ = profile_calls(fn, calls)
+    rows, _ = profile_calls(fn, calls, "knn_")
     return sum(t for key, _, t, on_device in rows if on_device and "knn_" in key) / calls
 
 
@@ -801,11 +833,11 @@ def check_knn_kernels():
     return results
 
 
-def smooth_images(rng, n: int):
+def smooth_images(rng, n: int, shape=(H, W)):
     """Seeded synthetic photos: low-frequency colour fields plus noise."""
     low = torch.from_numpy(rng.rand(n, 3, 12, 16).astype(np.float32) * 255)
-    img = F.interpolate(low, size=(H, W), mode="bilinear", align_corners=False)
-    img = img + torch.from_numpy(rng.randn(n, 3, H, W).astype(np.float32) * 12)
+    img = F.interpolate(low, size=shape, mode="bilinear", align_corners=False)
+    img = img + torch.from_numpy(rng.randn(n, 3, *shape).astype(np.float32) * 12)
     img = img.clamp(0, 255).round().to(torch.uint8).permute(0, 2, 3, 1)
     return [np.ascontiguousarray(a) for a in img.numpy()]
 
@@ -1022,7 +1054,7 @@ def int8_analyze_path(mtcnn_params, mh_params, images, f32_outputs):
     return launches, median
 
 
-def profile_calls(fn, calls: int = 1):
+def profile_calls(fn, calls: int = 1, expect: str = ""):
     """``fn()`` ``calls`` times under ``torch.profiler``: every event it saw
     as (name, count, self device ms, ran on the device) rows, and the
     calls' span on the card by CUDA events, per call, the profiler's own
@@ -1030,7 +1062,23 @@ def profile_calls(fn, calls: int = 1):
     session and is left out of the rows: a session can lose its last
     kernel record (after the K4 check, one K3 call under the profiler
     showed no kernel and ten calls showed nine, an H100 run), and then it
-    is the sentinel's."""
+    is the sentinel's. A session can also lose every kernel record (the
+    first K4 layer's, an H100 run) or half of them (K4's layers at batch
+    1024 often kept 5 of 10, another H100 run): a session that saw fewer than
+    ``calls`` device kernels whose name holds ``expect`` runs again, up to
+    ``PROFILE_TRIES`` sessions in all, and the last one's rows return."""
+    for attempt in range(1, PROFILE_TRIES + 1):
+        rows, span = _profile_once(fn, calls)
+        seen = sum(n for key, n, _, on_device in rows if on_device and expect in key)
+        if seen >= calls:
+            break
+        print(f"profiler session {attempt} of {PROFILE_TRIES} saw {seen} device "
+              f"kernel records{f' of {expect}' if expect else ''} in {calls} calls")
+    return rows, span
+
+
+def _profile_once(fn, calls: int):
+    """One ``profile_calls`` session."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1477,6 +1525,381 @@ def analyze_gallery_path(gpu, images, tmp: str):
     return launches
 
 
+# ---------- the album phase ----------
+
+def write_bmp(path: str, rgb: np.ndarray) -> None:
+    """A 24-bit uncompressed BMP (bottom-up BGR rows padded to 4 bytes): the
+    card's machine has no JPEG or PNG codec."""
+    h, w = rgb.shape[:2]
+    row = (3 * w + 3) & ~3
+    px = np.zeros((h, row), np.uint8)
+    px[:, :3 * w] = rgb[::-1, :, ::-1].reshape(h, 3 * w)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<2sIHHI", b"BM", 54 + px.size, 0, 0, 54))
+        f.write(struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, px.size, 2835, 2835, 0, 0))
+        f.write(px.tobytes())
+
+
+def read_bmp(path: str) -> np.ndarray:
+    """``write_bmp``'s files -> RGB uint8 (H, W, 3)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    offset, = struct.unpack_from("<I", data, 10)
+    w, h, _, bits, compression = struct.unpack_from("<iiHHI", data, 18)
+    if data[:2] != b"BM" or bits != 24 or compression != 0:
+        raise ValueError(f"{path}: not a 24-bit uncompressed BMP")
+    row = (3 * w + 3) & ~3
+    px = np.frombuffer(data, np.uint8, row * abs(h), offset).reshape(abs(h), row)
+    px = px[:, :3 * w].reshape(abs(h), w, 3)
+    return np.ascontiguousarray((px[::-1] if h > 0 else px)[:, :, ::-1])
+
+
+class FrameCapture:
+    """A capture over BGR frames in memory (``isOpened/grab/retrieve/release``),
+    as ``AlbumOrganizer._open_video`` may return."""
+
+    def __init__(self, frames):
+        self.frames, self.pos, self.opened = frames, 0, True
+
+    def isOpened(self):
+        return self.opened
+
+    def grab(self):
+        self.pos += 1
+        return self.pos <= len(self.frames)
+
+    def retrieve(self):
+        return True, self.frames[self.pos - 1]
+
+    def release(self):
+        self.opened = False
+
+
+class SmokeOrganizer(AlbumOrganizer):
+    """The album organizer on the smoke's files: photos through ``read_bmp``,
+    clips (``*.mp4`` placeholders) served from ``clips`` by name."""
+
+    clips: dict = {}
+
+    def _read_photo(self, path: str) -> np.ndarray:
+        return read_bmp(path)
+
+    def _open_video(self, path: str):
+        return FrameCapture(self.clips[os.path.basename(path)])
+
+
+def variant(img: np.ndarray, seed: int) -> np.ndarray:
+    """``img`` with light seeded noise: the same faces, another photo."""
+    noise = np.random.RandomState(seed).randint(-3, 4, img.shape)
+    return np.clip(img.astype(np.int16) + noise, 0, 255).astype(np.uint8)
+
+
+def turned_photos(an, rng, need: int):
+    """Photos the retry recovers: seeded scenes faded toward their mean
+    (``FADES``: at full contrast the seeded weights find faces in every
+    orientation, at none in no orientation, and between them the cascade,
+    not rotation-invariant, finds faces in some orientations only), stored
+    turned by 90° counter-clockwise (``np.rot90(scene, 1)``) where the
+    turned photo shows no face upright and the retry's 90° turn, which
+    gives the faded scene back, does. Returns the turned photos and the
+    number of faded scenes tried."""
+    found, tried = [], 0
+    while len(found) < need and tried < 4 * len(FADES) * BATCH:
+        scenes = np.stack(smooth_images(rng, BATCH)).astype(np.float32)
+        mean = scenes.mean(axis=(1, 2, 3), keepdims=True)
+        for fade in FADES:
+            faded = np.clip(np.rint(mean + fade * (scenes - mean)), 0, 255).astype(np.uint8)
+            turned = np.ascontiguousarray(np.rot90(faded, 1, axes=(1, 2)))
+            found += [t for t, up, back in zip(turned, an.analyze_batch(turned),
+                                               an.analyze_batch(faded)) if back and not up]
+            tried += BATCH
+            if len(found) >= need:
+                break
+    if len(found) < need:
+        raise AssertionError(f"{tried} faded scenes gave {len(found)} photos found only "
+                             f"after the 90° turn, want {need}")
+    return found[:need], tried
+
+
+def build_album(root: str, an, rng):
+    """The album's files in ``root`` with modification times 0-60 days old;
+    returns the rotated photos' file names, the clips and the base scenes
+    (for the gallery)."""
+    scenes = smooth_images(rng, ALBUM_SCENES)
+    portraits = smooth_images(rng, ALBUM_PORTRAIT_SCENES, (W, H))
+    turned, tried = turned_photos(an, rng, ALBUM_ROTATED)
+    now, files = time.time() - 3600, []
+    for kind, bases in (("scene", scenes), ("portrait", portraits)):
+        for s, base in enumerate(bases):
+            for v in range(ALBUM_VARIANTS):
+                name = f"{kind}{s:02d}_v{v}.bmp"
+                write_bmp(os.path.join(root, name), variant(base, 1000 * s + v) if v else base)
+                files.append((name, 15 * v + s % 7))
+    rotated = [f"turned{i}.bmp" for i in range(len(turned))]
+    for name, img in zip(rotated, turned):
+        write_bmp(os.path.join(root, name), img)
+        files.append((name, 20))
+    clips = {}
+    for c in range(ALBUM_CLIPS):
+        name = f"clip{c}.mp4"
+        clips[name] = [np.ascontiguousarray(variant(scenes[c], 5000 + i)[:, :, ::-1])
+                       for i in range(CLIP_FRAMES)]
+        with open(os.path.join(root, name), "wb") as f:
+            f.write(b"frames served by SmokeOrganizer._open_video")
+        files.append((name, 10 + c))
+    for name, days in files:
+        t = now - days * 86400.0
+        os.utime(os.path.join(root, name), (t, t))
+    print(f"album: {len(files) - len(clips)} photos ({ALBUM_SCENES} x {ALBUM_VARIANTS} at "
+          f"{W}x{H}, {ALBUM_PORTRAIT_SCENES} x {ALBUM_VARIANTS} at {H}x{W}, "
+          f"{len(rotated)} turned by 90° from {tried} scenes tried), {len(clips)} clips of "
+          f"{CLIP_FRAMES} frames, as 24-bit BMP")
+    return rotated, clips, scenes
+
+
+def record_boxes(org):
+    """The face boxes per analyzed image with faces, keyed by its bytes."""
+    boxes = {}
+    assemble = org._faces_to_outputs
+
+    def record(img, faces, content_w=None):
+        if faces:
+            key = hash(np.ascontiguousarray(img).tobytes())
+            boxes[(key, img.shape)] = [f.bbox for f in faces]
+        return assemble(img, faces, content_w)
+
+    org._faces_to_outputs = record
+    return boxes
+
+
+def album_faces_diffs(got, want, label: str, crops_atol: int = 1):
+    """Two scans' ``AlbumFaces``: the same faces photo for photo, born
+    years, P(male) and identities within ``ALBUM_TOL``, crops within
+    ``crops_atol`` levels. Returns the worst values."""
+    if got.files != want.files or got.indices != want.indices:
+        raise AssertionError(f"{label}: faces per photo differ")
+    worst = {"age": float(np.abs(got.born_years - want.born_years).max(initial=0.0)),
+             "gender": float(np.abs(got.genders - want.genders).max(initial=0.0)),
+             "min_cos": float(cosine(got.features, want.features).min(initial=1.0)),
+             "crop_levels": max((int(np.abs(a.astype(np.int16) - b).max())
+                                 for a, b in zip(got.facial_images, want.facial_images)),
+                                default=0)}
+    if not (worst["age"] <= ALBUM_TOL["age"] and worst["gender"] <= ALBUM_TOL["gender"]
+            and worst["min_cos"] > ALBUM_TOL["min_cos"]
+            and worst["crop_levels"] <= crops_atol
+            and got.private_photo_indices == want.private_photo_indices):
+        raise AssertionError(f"{label}: {worst} beyond {ALBUM_TOL}")
+    return worst
+
+
+def same_result(got: dict, want: dict, label: str) -> None:
+    keys = ("n_photos", "n_videos", "n_faces", "clusters", "cluster_genders",
+            "cluster_born_years", "cluster_labels")
+    diff = [k for k in keys if got[k] != want[k]]
+    if diff:
+        raise AssertionError(f"{label}: {diff} differ: " + json.dumps(
+            {k: (got[k], want[k]) for k in diff})[:2000])
+
+
+def distance_diffs(fused, feature) -> dict:
+    """Card and CPU distance matrices, each a (cuda, cpu) pair: ``fused``
+    (what clustering reads) and ``feature`` (the same with age weight 0).
+    The squared feature distances, float32 sums of 1024 products in
+    cuBLAS's order and the CPU's, agree within 1e-5 off the diagonal, so a
+    distance d agrees within 1e-5 / 2d; on the diagonal either side holds
+    the square root of a rounding residual, under 2e-3, which HAC never
+    reads. The age penalty is the same float64 host arithmetic on both."""
+    off = ~np.eye(len(fused[0]), dtype=bool)
+    sq = np.abs(feature[0][off] ** 2 - feature[1][off] ** 2)
+    err = np.abs(fused[0][off] - fused[1][off])
+    far = np.minimum(feature[0][off], feature[1][off]) >= 0.05
+    worst = {"feature_sq_max_abs": float(sq.max(initial=0.0)),
+             "fused_max_abs": float(err.max(initial=0.0)),
+             "fused_max_abs_at_d_0.05_up": float(err[far].max(initial=0.0)),
+             "diag_max": float(max(np.abs(np.diag(m)).max(initial=0.0)
+                                   for m in fused + feature))}
+    if not (worst["feature_sq_max_abs"] <= 1e-5 and worst["diag_max"] < 2e-3):
+        raise AssertionError(f"distance matrices cuda vs cpu: {worst}")
+    return worst
+
+
+def linkage_heights(dist: np.ndarray) -> np.ndarray:
+    """The single-linkage merge heights HAC cuts at the threshold."""
+    import scipy.cluster.hierarchy as hac
+    from scipy.spatial.distance import squareform
+
+    return hac.linkage(squareform(dist, checks=False), method="single")[:, 2]
+
+
+def clustering_at_scale(device: str):
+    """``CLUSTER_SCALE`` synthetic L2-normalized faces around seeded centres,
+    two a photo over 2048 days: ``fused_distance_matrix`` on the card
+    (synced host clock, and the matmul alone by CUDA events), HAC with the
+    same-photo constraint on the host, and native rank-order."""
+    n, d, k = CLUSTER_SCALE
+    rng = np.random.RandomState(SEED + 21)
+    labels = rng.randint(0, k, n)
+    feats = rng.randn(k, d)[labels] + CLUSTER_SPREAD * rng.randn(n, d)
+    feats /= np.linalg.norm(feats, axis=1, keepdims=True)
+    born = 1960 + rng.rand(n) * 50
+    photos = list(np.arange(n) // 2)
+    mdates = [time.gmtime(1.5e9 + i * 86400.0) for i in range(n // 2)]
+    fused_distance_matrix(feats[:64], born[:64], photos[:64], mdates, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dist = fused_distance_matrix(feats, born, photos, mdates, device=device)
+    fused_ms = (time.perf_counter() - t0) * 1e3
+    f = torch.from_numpy(feats.astype(np.float32)).to(device)
+    matmul_ms = cuda_ms(lambda: pairwise_sqeuclidean(f, f), 10)
+    if not rankorder.available():
+        raise AssertionError("the native rank-order core did not build (g++)")
+    out = {"faces": n, "dims": d, "centres": k, "fused_ms": fused_ms,
+           "pairwise_sqeuclidean_device_ms": matmul_ms}
+    for method, thr, idx in (("scipy", AlbumConfig().distance_threshold, photos),
+                             ("rankorder", AlbumConfig().distance_threshold, None)):
+        t0 = time.perf_counter()
+        clusters = get_facial_clusters(dist, thr, idx, 2, method=method)
+        out[f"{method}_s"] = time.perf_counter() - t0
+        out[f"{method}_clusters"] = len(clusters)
+        out[f"{method}_pure"] = sum(len(set(labels[c])) == 1 for c in clusters)
+    print("clustering at scale: " + json.dumps(out))
+    return out
+
+
+def album_path(gpu, cpu, rng, batch_ips: float):
+    """The album organizer at full width on the card (``SmokeOrganizer``:
+    the batch path with K1, clustering, Dempster-Shafer, naming from an
+    int8 gallery on K2c), timed, against a CPU organizer on a subset, the
+    CPU's clustering and gallery, a cached re-run and a one-worker scan;
+    then clustering at scale. Returns the launches of the timed run and
+    the phase's numbers."""
+    minsize = ALBUM_MINSIZE
+    probe = np.stack(smooth_images(np.random.RandomState(SEED + 30), BATCH))
+    if not any(gpu.with_minsize(minsize).analyze_batch(probe)):
+        print(f"album: the seeded weights find no face at minsize {minsize} in "
+              f"{BATCH} photos; the album runs at 40")
+        minsize = 40
+    cfg = AlbumConfig(minsize=minsize)
+    card = SmokeOrganizer(gpu, cfg, analyze_batch=BATCH)
+    with tempfile.TemporaryDirectory() as root:
+        album = os.path.join(root, "album")
+        os.makedirs(album)
+        rotated, SmokeOrganizer.clips, scenes = build_album(album, card.analyzer, rng)
+        # the gallery: one face of each of the first scenes (int8: K2c)
+        enrolled = card.analyzer.analyze_batch(np.stack(scenes[:ALBUM_GALLERY]))
+        names = [f"person{i}" for i, faces in enumerate(enrolled) if faces]
+        feats = np.stack([faces[0].identity for faces in enrolled if faces])
+        galleries = {dev: EnrollmentGallery(device=dev) for dev in ("cuda", "cpu")}
+        for g in galleries.values():
+            g.enroll_many(names, feats)
+        card.gallery = galleries["cuda"]
+        card.process_album(album, use_cache=False, write_outputs=False)   # warm-up
+        card.timer.reset()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        result = card.process_album(album, use_cache=False, write_outputs=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernel_launches()
+        n_photos = result["n_photos"]
+        scan_s = result["timings"]["phases"]["scan_photos_s"]
+        print(f"album: {n_photos} photos, {result['n_videos']} clips, "
+              f"{result['n_faces']} faces, {len(result['clusters'])} clusters "
+              f"(sizes {[len(c) for c in result['clusters']][:12]}), genders "
+              f"{result['cluster_genders'][:12]}, born years "
+              f"{result['cluster_born_years'][:12]}, labels {result['cluster_labels'][:12]}; "
+              f"launches {json.dumps(launches)}; K1 "
+              f"{launches['crop_resize'] / n_photos:.3f} launches per photo (clips "
+              "included in the count)")
+        if launches["crop_resize"] <= 0 or launches["knn_int8p"] <= 0:
+            raise AssertionError("the album did not launch K1 and K2c")
+        if result["n_faces"] <= 0 or not result["clusters"]:
+            raise AssertionError("the album found no face or no cluster passed "
+                                 "the size and date filters")
+
+        faces = card.scan_album(album, use_cache=True)              # writes the cache
+        per_file = {f: faces.indices.count(i) for i, f in enumerate(faces.files)}
+        if not all(per_file[f] for f in rotated):
+            raise AssertionError(f"the retry recovered {[per_file[f] for f in rotated]} "
+                                 "faces in the turned photos")
+        cached = card.process_album(album, use_cache=True, write_outputs=False)
+        same_result(cached, result, "the cached re-run")
+
+        # two flush threads against one
+        one = SmokeOrganizer(gpu, cfg, analyze_batch=BATCH)
+        one.flush_workers = 1
+        t0 = time.perf_counter()
+        faces_one = one.scan_album(album, use_cache=False)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        worst_workers = album_faces_diffs(faces, faces_one, "2 vs 1 flush workers", 0)
+
+        # the card against the CPU on a subset, both organizers
+        subset_dir = os.path.join(root, "subset")
+        os.makedirs(subset_dir)
+        picks = ([f"scene{s:02d}_v{s % ALBUM_VARIANTS}.bmp"
+                  for s in range(min(5, ALBUM_SCENES))]
+                 + ["portrait00_v1.bmp"] + rotated[:2])
+        for name in picks:
+            shutil.copy2(os.path.join(album, name), subset_dir)
+        on_cpu = SmokeOrganizer(cpu, cfg, analyze_batch=BATCH)
+        sub_card, sub_cpu = (SmokeOrganizer(gpu, cfg, analyze_batch=BATCH), on_cpu)
+        boxes = [record_boxes(o) for o in (sub_card, sub_cpu)]
+        subset = [o.scan_album(subset_dir, use_cache=False) for o in (sub_card, sub_cpu)]
+        if boxes[0] != boxes[1]:
+            raise AssertionError("the card's and the CPU's boxes differ on the subset")
+        worst_subset = album_faces_diffs(*subset, "the album subset cuda vs cpu")
+        print(f"album subset of {len(picks)} photos cuda vs cpu: faces "
+              f"{[subset[0].indices.count(i) for i in range(len(picks))]}, boxes equal, "
+              f"worst {json.dumps(worst_subset)}")
+
+        # clustering and naming: the card's faces on the card and on the CPU
+        dists = [[fused_distance_matrix(faces.features, faces.born_years, faces.indices,
+                                        faces.mdates, weight, dev)
+                  for dev in ("cuda", "cpu")] for weight in (cfg.age_penalty_weight, 0.0)]
+        worst_dist = distance_diffs(*dists)
+        heights = linkage_heights(dists[0][0])
+        worst_dist["threshold_margin"] = float(np.abs(heights - cfg.distance_threshold).min())
+        clusters = [o.perform_clustering(faces, cfg.min_no_photos) for o in (card, on_cpu)]
+        if clusters[0] != clusters[1]:
+            raise AssertionError("perform_clustering differs between cuda and cpu")
+        on_cpu.gallery = galleries["cpu"]
+        labels = [o._label_clusters(faces, clusters[0]) for o in (card, on_cpu)]
+        if labels[0] != labels[1]:
+            raise AssertionError(f"cluster labels cuda {labels[0]} vs cpu {labels[1]}")
+        print(f"album clustering cuda vs cpu: {len(clusters[0])} clusters equal, labels "
+              f"equal, distances {json.dumps(worst_dist)}; cached re-run equal; "
+              f"1 vs 2 flush workers {json.dumps(worst_workers)}")
+
+        # kernels and copies per photo of one profiled flush
+        imgs = np.stack([read_bmp(os.path.join(album, f"scene{s % ALBUM_SCENES:02d}_v0.bmp"))
+                         for s in range(BATCH)])
+        card.analyzer.analyze_batch_retry_padded(imgs, BATCH)
+        rows, window_ms = profile_calls(
+            lambda: card.analyzer.analyze_batch_retry_padded(imgs, BATCH), 1, "crop_resize")
+    kernels = sum(n for key, n, _, dev in rows if dev and not key.startswith("Mem"))
+    copies = sum(n for key, n, _, dev in rows if dev and key.startswith("Memcpy"))
+    busy = sum(ms for _, _, ms, dev in rows if dev)
+    numbers = {"minsize": minsize, "photos": n_photos, "faces": result["n_faces"],
+               "clusters": len(result["clusters"]), "wall_s": wall,
+               "scan_photos_per_s": n_photos / scan_s,
+               "scan_one_worker_photos_per_s": n_photos / one_s,
+               "analyze_batch_images_per_s": batch_ips,
+               "timings": result["timings"],
+               "flush_kernels_per_photo": kernels / BATCH,
+               "flush_copies_per_photo": copies / BATCH,
+               "flush_device_busy_ms": busy, "flush_profiled_ms": window_ms}
+    print(f"album scan at batch {BATCH}: {numbers['scan_photos_per_s']:.1f} photos/s "
+          f"({numbers['scan_one_worker_photos_per_s']:.1f} with one flush worker) beside "
+          f"analyze_batch {batch_ips:.1f} images/s; one profiled flush: "
+          f"{kernels / BATCH:.1f} kernels and {copies / BATCH:.2f} copies per photo, "
+          f"device busy {busy:.3f} of {window_ms:.3f} ms; timings "
+          + json.dumps(result["timings"]))
+    numbers["clustering_at_scale"] = clustering_at_scale("cuda")
+    return launches, numbers
+
+
 def bound(nbytes: float, ops: float, kind: str):
     """(ms, "bytes" or "operations"): the least time the card could take
     for work that must move ``nbytes`` (each input read once, each output
@@ -1544,7 +1967,7 @@ def check_warp_kernel():
             raise AssertionError(f"warp_batch {name}: max abs err {err} > {WARP_ATOL}")
         if report is None:
             rows, call_ms = profile_calls(
-                lambda: warp.warp_batch(imgs, mats, cfg.fill_value))
+                lambda: warp.warp_batch(imgs, mats, cfg.fill_value), 1, "warp_kernel")
             device = [(key[:80], count, round(dev_ms, 4))
                       for key, count, dev_ms, on_device in rows if on_device]
             kernels = sum(count for _, count, _ in device)
@@ -1774,6 +2197,11 @@ def main() -> None:
     path_launches.append(batch_launches)
     phase_done("analyze_batch")
 
+    album_launches, album_numbers = album_path(
+        gpu, cpu, np.random.RandomState(SEED + 11), batch_numbers["images_per_s"])
+    path_launches.append(album_launches)
+    phase_done("album")
+
     int8_launches, int8_median = int8_analyze_path(mtcnn_params, mh_params,
                                                    images, outputs)
     path_launches.append(int8_launches)
@@ -1861,6 +2289,7 @@ def main() -> None:
     print("knn design point: " + json.dumps(knn_results["design_point"]))
     print("train: " + json.dumps(train))
     print(f"analyze_batch x{BATCH}: " + json.dumps(batch_numbers))
+    print("album: " + json.dumps(album_numbers))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

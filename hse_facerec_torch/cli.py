@@ -3,11 +3,19 @@
   analyze  — detect faces in one image and print age, gender and box per
              face; with ``--gallery`` also the matched enrolled person,
              with ``--int8-heads`` on the int8 serving path
+  images   — annotate a directory of images (process_all_images)
+  video    — annotate a video file (show_video)
+  webcam   — live webcam demo (show_webcam)
+  album    — organize a photo/video album by person (process_photos)
   identify — gallery/probe 1-NN identification (tf_train_test_recognition)
   enroll   — bulk-enroll a people directory of pre-cropped faces into a
              gallery .npz (``--mode image``)
+  cluster  — clustering-quality benchmark on directory-per-person datasets
   train    — train the face-ID backbone on a directory-per-identity
              dataset (augmentation on the warp kernel)
+
+Every subcommand runs on ``--device cuda`` unless asked for another. The
+two-model configuration (``--age-pb``/``--gender-pb``) is not ported.
 
 Usage: ``python -m hse_facerec_torch.cli <subcommand> ...``
 """
@@ -31,7 +39,22 @@ def _build_analyzer(args):
             sys.exit(f"error: weights not found: {path}")
     return FacialAnalyzer.from_reference_models(
         mtcnn_pb, agegender_pb, device=args.device, minsize=args.minsize,
-        int8_heads=args.int8_heads)
+        int8_heads=args.int8_heads, oversample=args.oversample)
+
+
+def _add_model_args(p, minsize=40):
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--mtcnn-pb", default=None)
+    p.add_argument("--agegender-pb", default=None)
+    p.add_argument("--minsize", type=int, default=minsize)
+    p.add_argument("--oversample", action="store_true",
+                   help="5-crop oversampling: average age/gender over the "
+                        "base crop + four ±10 px diagonal shifts "
+                        "(facial_analysis.py:248-253, disabled upstream)")
+    p.add_argument("--int8-heads", action="store_true",
+                   help="run the per-face multi-head net on the full-int8 "
+                        "serving path (int8 activations, pointwise layers "
+                        "on the int8 kernel; models/int8_infer.py)")
 
 
 def _load_gallery(path, device):
@@ -43,6 +66,35 @@ def _load_gallery(path, device):
         sys.exit(f"error: enrollment gallery {path} is empty or missing "
                  "(create one with the 'enroll' subcommand)")
     return gallery
+
+
+def _gallery_labeler(args):
+    """Optional per-face person-name source for the demo overlays: one
+    batched gallery ranking per analyze batch (``--gallery``), or None."""
+    if not args.gallery:
+        return None
+    import numpy as np
+
+    gallery = _load_gallery(args.gallery, args.device)
+    threshold = args.match_threshold
+
+    def labeler(faces):
+        idents = gallery.identify_many(
+            np.stack([np.asarray(f.identity, np.float32) for f in faces]),
+            threshold=threshold)
+        return [label for label, _, _ in idents]
+
+    return labeler
+
+
+def _add_gallery_args(p):
+    p.add_argument("--gallery", default=None, metavar="NPZ",
+                   help="enrollment gallery: name the matched person per "
+                        "face (see the 'enroll' subcommand)")
+    p.add_argument("--match-threshold", type=float, default=0.82,
+                   help="L2 distance below which a face matches an "
+                        "enrollment (reference DistanceThreshold, "
+                        "process_photos.py:26)")
 
 
 def cmd_analyze(args):
@@ -82,6 +134,114 @@ def cmd_analyze(args):
         annotated = draw_faces(img, faces)
         cv2.imwrite(args.out, cv2.cvtColor(annotated, cv2.COLOR_RGB2BGR))
         print(f"annotated -> {args.out}", file=sys.stderr)
+
+
+def cmd_images(args):
+    import cv2
+
+    from .numerics import set_parity_numerics
+    from .pipelines.video import process_image_dir
+
+    set_parity_numerics()
+    analyzer = _build_analyzer(args)
+    os.makedirs(args.out_dir, exist_ok=True)
+    for name, annotated, faces in process_image_dir(
+            analyzer, args.image_dir, labeler=_gallery_labeler(args),
+            batch=args.batch):
+        out = os.path.join(args.out_dir, name)
+        cv2.imwrite(out, cv2.cvtColor(annotated, cv2.COLOR_RGB2BGR))
+        print(f"{name}: {len(faces)} faces")
+
+
+def cmd_video(args):
+    import cv2
+
+    from .numerics import set_parity_numerics
+    from .pipelines.video import annotated_video_frames
+
+    if args.frame_skip < 1:
+        sys.exit("error: --frame-skip must be >= 1")
+    set_parity_numerics()
+    analyzer = _build_analyzer(args)
+    writer = None
+    n = 0
+    for annotated, faces in annotated_video_frames(
+            analyzer, args.video, frame_skip=args.frame_skip,
+            batch=args.batch, labeler=_gallery_labeler(args)):
+        if args.out and writer is None:
+            h, w = annotated.shape[:2]
+            # annotated frames are every frame_skip-th source frame: write
+            # at the source rate / skip so playback speed is preserved
+            cap = cv2.VideoCapture(args.video)
+            src_fps = cap.get(cv2.CAP_PROP_FPS) or 0.0
+            cap.release()
+            fps = max(1.0, (src_fps if src_fps > 0 else 30.0) / args.frame_skip)
+            writer = cv2.VideoWriter(args.out, cv2.VideoWriter_fourcc(*"mp4v"),
+                                     fps, (w, h))
+        if writer is not None:
+            writer.write(cv2.cvtColor(annotated, cv2.COLOR_RGB2BGR))
+        n += 1
+        print(f"frame {n}: {len(faces)} faces", end="\r", file=sys.stderr)
+    if writer is not None:
+        writer.release()
+    print(f"\nprocessed {n} frames", file=sys.stderr)
+
+
+def cmd_webcam(args):
+    """Live webcam demo (reference ``show_webcam``, facial_analysis.py:
+    607-617): annotate camera frames in a window; ESC quits."""
+    import cv2
+
+    from .numerics import set_parity_numerics
+    from .pipelines.video import annotated_camera_frames
+
+    set_parity_numerics()
+    analyzer = _build_analyzer(args)
+    try:
+        for annotated, _ in annotated_camera_frames(
+                analyzer, args.camera_index, labeler=_gallery_labeler(args)):
+            cv2.imshow("hse_facerec_torch webcam", cv2.cvtColor(
+                annotated, cv2.COLOR_RGB2BGR))
+            if cv2.waitKey(1) == 27:   # esc to quit (reference :614-615)
+                break
+    finally:
+        cv2.destroyAllWindows()
+
+
+def cmd_album(args):
+    from .config import AlbumConfig
+    from .numerics import set_parity_numerics
+    from .pipelines.album import AlbumOrganizer
+
+    cfg = AlbumConfig.from_file(args.config) if args.config else AlbumConfig()
+    if args.threshold is not None:
+        cfg.distance_threshold = args.threshold
+    downscale = None
+    if args.downscale:
+        try:
+            w, h = (int(v) for v in args.downscale.lower().split("x"))
+        except ValueError:
+            sys.exit(f"error: --downscale expects WxH, got {args.downscale!r}")
+        if w <= 0 or h <= 0:
+            sys.exit(f"error: --downscale dimensions must be positive, "
+                     f"got {args.downscale!r}")
+        downscale = (w, h)
+    if args.minsize is None:
+        # album parity: the reference organizer builds its engine with
+        # minsize=112 (process_photos.py:385); --minsize overrides
+        args.minsize = cfg.minsize
+    else:
+        # AlbumConfig.minsize is authoritative inside AlbumOrganizer:
+        # carry an explicit --minsize into the config so the override holds
+        cfg.minsize = args.minsize
+    set_parity_numerics()
+    analyzer = _build_analyzer(args)
+    gallery = _load_gallery(args.gallery, args.device) if args.gallery else None
+    organizer = AlbumOrganizer(analyzer, cfg, analyze_batch=args.batch_size,
+                               downscale=downscale, gallery=gallery)
+    result = organizer.process_album(args.album_dir, use_cache=not args.no_cache)
+    print(json.dumps({k: v for k, v in result.items() if k != "clusters"}, indent=2))
+    print(f"{len(result['clusters'])} clusters -> {args.album_dir}/clusters/")
 
 
 def cmd_identify(args):
@@ -150,6 +310,68 @@ def cmd_enroll(args):
     }))
 
 
+def cmd_cluster(args):
+    """Clustering-quality benchmark on labeled directory-per-person datasets
+    (the reference's facial_clustering_test.py flow): per-dataset statistics,
+    mean±std across datasets (test_avg_clustering :433-445), and optional
+    threshold grid search (:447-499) via --search-threshold."""
+    import numpy as np
+    import torch
+
+    from .eval import lfw
+    from .eval.clustering_metrics import clustering_statistics
+    from .models.zoo import build_extractor, weights_origin
+    from .numerics import set_parity_numerics
+    from .ops.distance import pairwise_euclidean
+    from .pipelines.clustering import clusters_to_labels, get_facial_clusters
+
+    set_parity_numerics()
+    extractor = build_extractor(args.model, batch_size=args.batch_size,
+                                device=args.device)
+    datasets = []
+    for ds in args.datasets:
+        cache = args.cache and f"{args.cache}_{os.path.basename(ds.rstrip('/'))}.npz"
+        feats, labels, _ = lfw.extract_dataset_features(ds, extractor,
+                                                        cache_file=cache)
+        feats = feats / np.maximum(np.linalg.norm(feats, axis=1, keepdims=True),
+                                   1e-12)
+        f = torch.from_numpy(np.asarray(feats, np.float32)).to(args.device)
+        dist = pairwise_euclidean(f, f).cpu().numpy()
+        np.fill_diagonal(dist, 0.0)
+        datasets.append((ds, dist, labels))
+
+    out = {"weights": weights_origin(args.model), "method": args.method}
+    threshold = args.threshold
+    if args.search_threshold:
+        from .eval.threshold_search import (search_distance_threshold,
+                                            search_rankorder_thresholds)
+
+        val = [(d, y) for _, d, y in datasets]
+        if args.method in ("rankorder", "rankorder_py"):
+            found = search_rankorder_thresholds(val)
+        else:
+            found = search_distance_threshold(val, method=args.method)
+        threshold = found["best_threshold"]
+        out["search"] = {"best_threshold": threshold,
+                         "best_score": found["best_score"],
+                         "trace": found["trace"]}
+
+    per_dataset = {}
+    for ds, dist, labels in datasets:
+        clusters = get_facial_clusters(dist, threshold, method=args.method)
+        y_pred = clusters_to_labels(clusters, len(labels))
+        per_dataset[ds] = dict(clustering_statistics(labels, y_pred))
+    out["datasets"] = per_dataset
+    if len(per_dataset) > 1:
+        # mean±std rows (reference test_avg_clustering :439-444)
+        keys = next(iter(per_dataset.values())).keys()
+        out["mean"] = {k: float(np.mean([s[k] for s in per_dataset.values()]))
+                       for k in keys}
+        out["std"] = {k: float(np.std([s[k] for s in per_dataset.values()]))
+                      for k in keys}
+    print(json.dumps(out, indent=2))
+
+
 def cmd_train(args):
     """Train the face-ID backbone on a directory-per-identity dataset
     (the reference's facerec_keras_train.py recipe)."""
@@ -197,22 +419,55 @@ def main(argv=None):
     p = sub.add_parser("analyze", help="annotate one image")
     p.add_argument("image")
     p.add_argument("--out", default=None, help="write the annotated image here")
-    p.add_argument("--device", default="cuda")
-    p.add_argument("--mtcnn-pb", default=None)
-    p.add_argument("--agegender-pb", default=None)
-    p.add_argument("--minsize", type=int, default=40)
-    p.add_argument("--int8-heads", action="store_true",
-                   help="run the per-face multi-head net on the full-int8 "
-                        "serving path (int8 activations, pointwise layers "
-                        "on the int8 kernel; models/int8_infer.py)")
-    p.add_argument("--gallery", default=None, metavar="NPZ",
-                   help="enrollment gallery: report the matched person per "
-                        "face (see the 'enroll' subcommand)")
-    p.add_argument("--match-threshold", type=float, default=0.82,
-                   help="L2 distance below which a face matches an "
-                        "enrollment (reference DistanceThreshold, "
-                        "process_photos.py:26)")
+    _add_model_args(p)
+    _add_gallery_args(p)
     p.set_defaults(fn=cmd_analyze)
+
+    i = sub.add_parser("images", help="annotate a directory of images")
+    i.add_argument("image_dir")
+    i.add_argument("out_dir")
+    i.add_argument("--batch", type=int, default=8,
+                   help="same-shape images per batch-path call (1 = per-image)")
+    _add_model_args(i)
+    _add_gallery_args(i)
+    i.set_defaults(fn=cmd_images)
+
+    v = sub.add_parser("video", help="annotate a video file")
+    v.add_argument("video")
+    v.add_argument("--out", default=None, help="write annotated mp4")
+    v.add_argument("--frame-skip", type=int, default=5)
+    v.add_argument("--batch", type=int, default=8,
+                   help="frames per batch-path call (1 = per-frame)")
+    _add_model_args(v)
+    _add_gallery_args(v)
+    v.set_defaults(fn=cmd_video)
+
+    wc = sub.add_parser("webcam", help="live webcam demo (ESC quits)")
+    wc.add_argument("--camera-index", type=int, default=0)
+    _add_model_args(wc)
+    _add_gallery_args(wc)
+    wc.set_defaults(fn=cmd_webcam)
+
+    al = sub.add_parser("album", help="organize a photo/video album by person")
+    al.add_argument("album_dir")
+    al.add_argument("--config", default=None, help="reference-format config.txt")
+    al.add_argument("--threshold", type=float, default=None)
+    al.add_argument("--no-cache", action="store_true")
+    al.add_argument("--gallery", default=None, metavar="NPZ",
+                    help="enrollment gallery: clusters whose member faces "
+                         "majority-match an enrolled person are written "
+                         "under that person's name instead of a number")
+    al.add_argument("--batch-size", type=int, default=8,
+                    help="photos per batch-path call (same-shape photos "
+                         "batch together; 1 = sequential)")
+    al.add_argument("--downscale", default=None, metavar="WxH",
+                    help="downscale larger photos before analysis (e.g. "
+                         "640x480): one analysis shape for mixed-resolution "
+                         "albums")
+    # None = "not explicitly set", so cmd_album applies the reference album
+    # default minsize=112 (process_photos.py:385) over the generic 40
+    _add_model_args(al, minsize=None)
+    al.set_defaults(fn=cmd_album)
 
     idn = sub.add_parser("identify", help="gallery/probe 1-NN identification")
     idn.add_argument("gallery")
@@ -251,6 +506,26 @@ def main(argv=None):
                          "each person in the directory")
     en.add_argument("--device", default="cuda")
     en.set_defaults(fn=cmd_enroll)
+
+    cl = sub.add_parser("cluster", help="clustering-quality benchmark")
+    cl.add_argument("datasets", nargs="+",
+                    help="one or more directory-per-person datasets; with "
+                         "several, mean±std rows are reported "
+                         "(facial_clustering_test.py:433-445)")
+    cl.add_argument("--model", default="agegender_identity",
+                    choices=sorted(MODEL_ZOO))
+    cl.add_argument("--method", default="scipy",
+                    choices=["scipy", "rankorder", "rankorder_py", "dbscan"])
+    cl.add_argument("--threshold", type=float, default=1.0)
+    cl.add_argument("--search-threshold", action="store_true",
+                    help="grid-search the distance threshold (2-D distance x "
+                         "rank grid for rankorder) with the reference's "
+                         "early-stop rules before scoring (:447-499)")
+    cl.add_argument("--batch-size", type=int, default=64)
+    cl.add_argument("--cache", default=None,
+                    help="feature-cache prefix (per-dataset .npz)")
+    cl.add_argument("--device", default="cuda")
+    cl.set_defaults(fn=cmd_cluster)
 
     tr = sub.add_parser("train", help="train the face-ID backbone")
     tr.add_argument("train_dir")

@@ -141,17 +141,53 @@ def resize(img, out_hw: Tuple[int, int], method: str = "cv2_linear"):
     return torch.einsum("pw,...owc->...opc", mw, x)
 
 
+@functools.lru_cache(maxsize=256)
+def _taps(method: str, src: int, dst: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The nonzero entries of a 1-D weight matrix, row by row in source
+    order: (dst, T) source indices and (dst, T) weights, padded with
+    weight 0 at index 0."""
+    w = _WEIGHT_FNS[method](src, dst)
+    n = np.count_nonzero(w, axis=1)
+    idx = np.zeros((dst, max(1, int(n.max()))), np.intp)
+    val = np.zeros(idx.shape, np.float32)
+    for i in range(dst):
+        cols = np.nonzero(w[i])[0]
+        idx[i, :len(cols)] = cols
+        val[i, :len(cols)] = w[i, cols]
+    return idx, val
+
+
 def resize_host(img: np.ndarray, out_hw: Tuple[int, int],
                 method: str = "cv2_linear") -> np.ndarray:
     """Host-side (numpy) resize with the same 1-D weight matrices as
-    ``resize``, for collapsing mixed-size datasets onto one input size.
-    Accepts (..., H, W, C); returns float32 (..., out_h, out_w, C)."""
+    ``resize``, for collapsing mixed-size datasets onto one input size and
+    for the album's 224² output crops and downscales.
+    Accepts (..., H, W, C); returns float32 (..., out_h, out_w, C).
+    Each pass sums only the nonzero taps of its weight matrix, in source
+    order, so the result equals the dense ``einsum`` of the JAX package's
+    ``resize_host`` bit for bit (the zeros it adds are exact) at a cost that
+    grows with the output, not with output x input."""
     h, w = img.shape[-3], img.shape[-2]
     oh, ow = out_hw
-    wfn = _WEIGHT_FNS[method]
-    x = np.einsum("oh,...hwc->...owc", wfn(h, oh), np.asarray(img, np.float32))
-    x = np.einsum("pw,...owc->...opc", wfn(w, ow), x)
-    return np.ascontiguousarray(x, dtype=np.float32)
+    x = np.asarray(img, np.float32)
+    idx, val = _taps(method, h, oh)
+    acc = val[:, 0, None, None] * x[..., idx[:, 0], :, :]
+    for t in range(1, idx.shape[1]):
+        acc += val[:, t, None, None] * x[..., idx[:, t], :, :]
+    idx, val = _taps(method, w, ow)
+    out = val[:, 0, None] * acc[..., idx[:, 0], :]
+    for t in range(1, idx.shape[1]):
+        out += val[:, t, None] * acc[..., idx[:, t], :]
+    return np.ascontiguousarray(out, dtype=np.float32)
+
+
+def resize_host_u8(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, (out_w, out_h))`` (INTER_LINEAR) of a uint8 image
+    without cv2: ``resize_host``'s cv2 weights in float32, rounded to
+    uint8. cv2's uint8 path uses fixed-point weights, so the two can differ
+    by one level (``tests/test_torch_album.py`` bounds it)."""
+    out = resize_host(img, out_hw, "cv2_linear")
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
 
 
 def resize_pyramid(img, out_hws: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:

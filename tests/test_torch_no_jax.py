@@ -1,10 +1,12 @@
 """The port stands alone: no module of ``hse_facerec_torch``, and not
 ``chip_smoke.py``, imports JAX, optax or the JAX package, not even inside a
-function or a numpy-only module of it.
+function or a numpy-only module of it. The host libraries the card's
+machine lacks (cv2, PIL, matplotlib, sklearn) are imported only inside the
+functions that need them.
 
 The ast check reads every ``import`` and ``from`` in the sources, the
-function-local ones too; the subprocess check imports every module of the
-port in a fresh interpreter and looks at what was loaded.
+function-local ones too; the subprocess checks import every module of the
+port in a fresh interpreter and look at what was loaded.
 """
 
 import ast
@@ -16,6 +18,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "optax", "hse_facerec_tf_tpu")
+HOST_ONLY_INSIDE = ("cv2", "PIL", "matplotlib", "sklearn")
 SOURCES = sorted((REPO / "hse_facerec_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -44,17 +47,28 @@ def test_source_imports_nothing_of_jax(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
-def test_importing_the_port_loads_nothing_of_jax():
-    code = (
+def _import_all(forbidden):
+    return (
         "import importlib, pkgutil, sys\n"
         "import hse_facerec_torch as pkg\n"
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for m in mods + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
-        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {forbidden!r})\n"
         "assert not bad, bad\n"
         "print('ok', len(mods))\n")
+
+
+def _run(code):
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok") and int(out.stdout.split()[1]) >= 30
+
+
+def test_importing_the_port_loads_nothing_of_jax():
+    _run(_import_all(FORBIDDEN))
+
+
+def test_importing_the_port_loads_no_host_only_library():
+    _run(_import_all(HOST_ONLY_INSIDE))
