@@ -60,6 +60,22 @@ kernels are built for sm_90a). It:
      the int8 twin;
    - analyze --gallery: ``analyze_with_rotations`` then
      ``EnrollmentGallery.identify_many`` per photo (K1 + K2c);
+   - serve: the HTTP server wired as ``serve.build_server`` wires it
+     (seeded weights, a BMP decoder): the embed worker on
+     ``agegender_identity_int8`` (K4), the analyze worker at 8 lanes
+     (K1), an int8 gallery of 65,536 seeded 1024-d identities (K2c);
+     8 people enrolled through ``/enroll?mode=face``, then 16 client
+     threads x 12 requests mixing ``/analyze?identify=1``,
+     ``/identify?mode=face`` and ``/embed``, then ``/profile``,
+     ``/stats``, ``/gallery`` and ``/healthz``: every response 200 and
+     equal to the direct call, requests/s, p50/p95 per endpoint and the
+     workers' queue_wait/assemble/process split;
+   - zoo: ``vgg2_mobilenet``, ``vgg2_mobilenet_int8`` (K4 at 192²) and
+     ``vgg2_resnet`` from seeded params exported to a pb and imported
+     back (equal bit for bit), a batch of 64 embedded and timed; then
+     ``graph_extractor`` on the exported MobileNet pb against
+     ``mobilenet_embed``; then K4 against its plain version at the 13
+     layers of that batch at 192²;
 7. holds K3 (the augmentation warp) against its plain version at the
    training shape (256 x 224 x 224 x 3, two augmentation configs) and at
    edge shapes, timed beside ``F.grid_sample``, and profiles one call at
@@ -256,6 +272,24 @@ ALBUM_TOL = {"age": 1e-3, "gender": 1e-4, "min_cos": 0.9999}
 FADES = (0.15, 0.25, 0.35, 0.5, 0.7)   # contrasts of the turned photos' search
 CLUSTER_SCALE = (4096, 1024, 64)    # faces, dims, centres
 CLUSTER_SPREAD = 0.3            # noise per dim around a centre (same-centre L2 ~0.56)
+
+# the serve phase: an organisation-sized int8 gallery (65,536 x 1024-d, 64
+# MiB), 8 people enrolled from 2 photos each through /enroll?mode=face,
+# then 16 client threads x 12 requests mixing /analyze?identify=1 (640x480
+# photos with 2-5 faces), /identify?mode=face (each person's third photo)
+# and /embed (224² crops) on the int8 embedder (K4)
+SERVE_GALLERY, SERVE_DIM = 1 << 16, 1024
+SERVE_PEOPLE, SERVE_CLIENTS, SERVE_REQUESTS = 8, 16, 12
+SERVE_ANALYZE_PHOTOS, SERVE_CROPS = 16, 16
+SERVE_FACES = (2, 5)            # faces a served photo holds
+SERVE_MAX_BATCH = 32            # the embed worker's (serve --max-batch)
+SERVE_TIMEOUT_S = 120.0
+# the zoo phase: each backbone's seeded params exported to a pb and
+# imported back, then a batch of 64 embedded; graph_extractor on the
+# exported MobileNet pb against mobilenet_embed
+ZOO_MODELS = ("vgg2_mobilenet", "vgg2_mobilenet_int8", "vgg2_resnet")
+ZOO_BATCH, ZOO_REPEATS = 64, 5
+GRAPH_ATOL = 1e-4
 
 PROFILE_TRIES = 3               # profiler sessions before a lost record counts
 
@@ -491,9 +525,11 @@ def int_mm_call(a, w):
     return (lambda: torch._int_mm(a, b)), None
 
 
-def check_pw_kernel(gen, batch: int, ragged: bool, iters: int, plain_iters: int):
+def check_pw_kernel(gen, batch: int, ragged: bool, iters: int, plain_iters: int,
+                    size: int = 224):
     """K4 against its plain version at the 13 pointwise layers of ``batch``
-    faces at 224² (and the ragged shape): int8 and f32 out both bit-equal
+    faces at ``size``² (224², or 192² for ``vgg2_mobilenet_int8``: feature
+    maps 96²…6²) (and the ragged shape): int8 and f32 out both bit-equal
     (the count of differing elements is printed and must be 0). Per layer,
     at its own output type (CUDA events): the kernel's ms, its bound, the
     GB/s and T int8 ops/s it reaches, the plain version's ms and
@@ -505,6 +541,8 @@ def check_pw_kernel(gen, batch: int, ragged: bool, iters: int, plain_iters: int)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     bound_by = {"bytes": 0.0, "operations": 0.0}
     for name, pixels, k, n in PW_LAYERS + ([PW_RAGGED] if ragged else []):
+        if name != PW_RAGGED[0]:
+            pixels = (int(np.sqrt(pixels)) * size // 224) ** 2
         m = pixels * (batch if name != PW_RAGGED[0] else 1)
         ops = pw_operands(gen, m, k, n)
         diffs = {}
@@ -554,7 +592,7 @@ def check_pw_kernel(gen, batch: int, ragged: bool, iters: int, plain_iters: int)
                 refused.append(name)
         del ops, lib_call
     bound_sum = sum(bound_by.values())
-    print(f"pw_conv_int8 at batch {batch}: 13 layers {ms_sum:.4f} ms (device "
+    print(f"pw_conv_int8 at batch {batch}, {size}²: 13 layers {ms_sum:.4f} ms (device "
           f"{dev_sum:.4f} ms by the profiler), plain "
           f"{plain_sum:.4f} ms, bound {bound_sum:.4f} ms (layers bound by bytes "
           f"{bound_by['bytes']:.4f} ms, by operations {bound_by['operations']:.4f} ms), "
@@ -1527,31 +1565,45 @@ def analyze_gallery_path(gpu, images, tmp: str):
 
 # ---------- the album phase ----------
 
-def write_bmp(path: str, rgb: np.ndarray) -> None:
+def bmp_bytes(rgb: np.ndarray) -> bytes:
     """A 24-bit uncompressed BMP (bottom-up BGR rows padded to 4 bytes): the
     card's machine has no JPEG or PNG codec."""
     h, w = rgb.shape[:2]
     row = (3 * w + 3) & ~3
     px = np.zeros((h, row), np.uint8)
     px[:, :3 * w] = rgb[::-1, :, ::-1].reshape(h, 3 * w)
+    return (struct.pack("<2sIHHI", b"BM", 54 + px.size, 0, 0, 54)
+            + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, px.size, 2835, 2835, 0, 0)
+            + px.tobytes())
+
+
+def decode_bmp(data: bytes):
+    """``bmp_bytes``' files -> RGB uint8 (H, W, 3), or None for anything
+    else (the serve phase's image decoder)."""
+    if len(data) < 54 or data[:2] != b"BM":
+        return None
+    offset, = struct.unpack_from("<I", data, 10)
+    w, h, _, bits, compression = struct.unpack_from("<iiHHI", data, 18)
+    row = (3 * w + 3) & ~3
+    if bits != 24 or compression != 0 or len(data) < offset + row * abs(h):
+        return None
+    px = np.frombuffer(data, np.uint8, row * abs(h), offset).reshape(abs(h), row)
+    px = px[:, :3 * w].reshape(abs(h), w, 3)
+    return np.ascontiguousarray((px[::-1] if h > 0 else px)[:, :, ::-1])
+
+
+def write_bmp(path: str, rgb: np.ndarray) -> None:
     with open(path, "wb") as f:
-        f.write(struct.pack("<2sIHHI", b"BM", 54 + px.size, 0, 0, 54))
-        f.write(struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, px.size, 2835, 2835, 0, 0))
-        f.write(px.tobytes())
+        f.write(bmp_bytes(rgb))
 
 
 def read_bmp(path: str) -> np.ndarray:
     """``write_bmp``'s files -> RGB uint8 (H, W, 3)."""
     with open(path, "rb") as f:
-        data = f.read()
-    offset, = struct.unpack_from("<I", data, 10)
-    w, h, _, bits, compression = struct.unpack_from("<iiHHI", data, 18)
-    if data[:2] != b"BM" or bits != 24 or compression != 0:
+        img = decode_bmp(f.read())
+    if img is None:
         raise ValueError(f"{path}: not a 24-bit uncompressed BMP")
-    row = (3 * w + 3) & ~3
-    px = np.frombuffer(data, np.uint8, row * abs(h), offset).reshape(abs(h), row)
-    px = px[:, :3 * w].reshape(abs(h), w, 3)
-    return np.ascontiguousarray((px[::-1] if h > 0 else px)[:, :, ::-1])
+    return img
 
 
 class FrameCapture:
@@ -1900,6 +1952,326 @@ def album_path(gpu, cpu, rng, batch_ips: float):
     return launches, numbers
 
 
+def served_photos(an, rng, n: int, faces=SERVE_FACES):
+    """``n`` seeded 640x480 photos in which ``an`` finds ``faces[0]`` to
+    ``faces[1]`` faces (the seeded weights find 2-8 in most), with their
+    direct ``analyze`` results."""
+    out = []
+    while len(out) < n:
+        for img in smooth_images(rng, 8):
+            found = an.analyze(img)
+            if faces[0] <= len(found) <= faces[1] and len(out) < n:
+                out.append((img, found))
+    return out
+
+
+def http_call(port: int, method: str, path: str, body: bytes = None):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=SERVE_TIMEOUT_S)
+    try:
+        conn.request(method, path, body=body)
+        r = conn.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        conn.close()
+
+
+def serve_path(mtcnn_params, mh_params, rng):
+    """The HTTP server at full width, wired as ``serve.build_server`` wires
+    it, with seeded weights (the pbs are absent) and a BMP decoder (the
+    card's machine has no cv2): the embed worker on
+    ``agegender_identity_int8`` (K4), the analyze worker on the f32
+    analyzer at 8 lanes with the default head slots (K1), an int8
+    ``EnrollmentGallery`` pre-filled with ``SERVE_GALLERY`` seeded
+    identities (K2c); ``_prewarm_buckets``, then ``127.0.0.1:0``. Traffic:
+    (a) 8 people x 2 photos through ``/enroll?mode=face``; (b)
+    ``SERVE_CLIENTS`` threads x ``SERVE_REQUESTS`` mixing
+    ``/analyze?identify=1``, ``/identify?mode=face`` and ``/embed``; (c)
+    ``/profile``, ``/stats``, ``/gallery``, ``/healthz``. Every response is
+    200; /embed equals ``extract_batch`` on the same image (cosine);
+    /analyze equals the analyzer's ``analyze`` (``worst_face_diffs``);
+    labels and distances equal ``identify_many`` called directly. During
+    (b) K1 and K2c launch, and K4 13 times per forward of the embed
+    worker. Returns (launches during (b), numbers)."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from hse_facerec_torch.serve import (_analyze_batch_pow2, _BatchingWorker,
+                                         _largest_face, _prewarm_buckets,
+                                         make_handler)
+    from hse_facerec_torch.utils.profiling import StageTimer
+
+    t0 = time.perf_counter()
+    analyzer = FacialAnalyzer(mtcnn_params, mh_params, device="cuda")
+    extractor = zoo.build_extractor("agegender_identity_int8", device="cuda",
+                                    params=quantize_multihead_int8(mh_params))
+    gallery = EnrollmentGallery(device="cuda")
+    fill = np.random.default_rng(SEED + 41).standard_normal(
+        (SERVE_GALLERY, SERVE_DIM), dtype=np.float32)
+    gallery.enroll_many([f"member{i:05d}" for i in range(SERVE_GALLERY)], fill)
+    del fill
+    people = served_photos(analyzer, rng, SERVE_PEOPLE)
+    # each person's other photos: the same faces under light noise
+    enroll = [(f"person{i}", img if v == 0 else variant(img, 100 * i + v))
+              for i, (img, _) in enumerate(people) for v in range(2)]
+    probes = [variant(img, 100 * i + 7) for i, (img, _) in enumerate(people)]
+    photos = [img for img, _ in served_photos(analyzer, rng, SERVE_ANALYZE_PHOTOS)]
+    crops = [np.ascontiguousarray(img[100:324, 200:424]) for img in
+             smooth_images(rng, SERVE_CROPS)]
+    for h in _prewarm_buckets(SERVE_MAX_BATCH, extractor.batch_size):
+        extractor.extract_batch(np.zeros((h, 224, 224, 3), np.uint8))
+    timer = StageTimer()
+    forwards, seen, lock = [], {}, threading.Lock()
+    counting(extractor, "_forward", forwards)
+
+    def analyze_recording(imgs):
+        out = _analyze_batch_pow2(analyzer, imgs)
+        with lock:
+            for im, faces in zip(imgs, out):
+                seen[im.tobytes()] = faces
+        return out
+
+    worker = _BatchingWorker(extractor.extract_batch, max_batch=SERVE_MAX_BATCH,
+                             name="embed_worker", timer=timer)
+    analyze_worker = _BatchingWorker(analyze_recording, max_batch=8,
+                                     name="analyze_worker", timer=timer)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(
+        worker, analyze_worker, profile_input_hw=extractor.input_size,
+        request_timeout_s=SERVE_TIMEOUT_S, gallery=gallery, timer=timer,
+        decode=decode_bmp, device="cuda"))
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    setup_s = time.perf_counter() - t0
+    try:
+        # (a) enrollment, one person after another
+        for label, img in enroll:
+            status, body = http_call(port, "POST", f"/enroll?label={label}&mode=face",
+                                     bmp_bytes(img))
+            if status != 200:
+                raise AssertionError(f"/enroll {label}: {status} {body}")
+        if len(gallery) != SERVE_GALLERY + len(enroll):
+            raise AssertionError(f"gallery holds {len(gallery)} rows after enrolling")
+        gallery.identify_many(np.zeros((1, SERVE_DIM), np.float32) + 1.0)  # ranking state
+
+        # (b) concurrent traffic
+        plan = []           # (path, image, the person a probe shows)
+        for c in range(SERVE_CLIENTS):
+            for j in range(SERVE_REQUESTS):
+                kind = (c + j) % 3
+                if kind == 0:
+                    img = photos[(c * SERVE_REQUESTS + j) % len(photos)]
+                    plan.append(("/analyze?identify=1", img, None))
+                elif kind == 1:
+                    k = (c + j) % len(probes)
+                    plan.append(("/identify?mode=face", probes[k], f"person{k}"))
+                else:
+                    plan.append(("/embed", crops[(c * 7 + j) % len(crops)], None))
+        bodies = [bmp_bytes(img) for _, img, _ in plan]
+        results = [None] * len(plan)
+
+        def client(c):
+            for j in range(SERVE_REQUESTS):
+                i = c * SERVE_REQUESTS + j
+                results[i] = http_call(port, "POST", plan[i][0], bodies[i])
+
+        torch.cuda.synchronize()
+        enroll_stats = timer.stats()["enroll"]
+        timer.reset()
+        del forwards[:]
+        reset_launches()
+        t1 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=10 * SERVE_TIMEOUT_S)
+        wall = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        batches = [shape[0] for shape in forwards]
+        n_forwards = len(batches)
+        stats = dict(timer.stats(), enroll=enroll_stats)
+        if any(t.is_alive() for t in clients) or any(r is None for r in results):
+            raise AssertionError("serve: a client did not finish")
+        bad = [(plan[i][0], r) for i, r in enumerate(results) if r[0] != 200]
+        if bad:
+            raise AssertionError(f"serve: {len(bad)} responses not 200, e.g. {bad[:3]}")
+
+        # (c) the GET endpoints; a profiler session that lost every kernel
+        # record answers 503, and runs again
+        gets = {}
+        for path in ("/profile", "/stats", "/gallery", "/healthz"):
+            for attempt in range(1, PROFILE_TRIES + 1):
+                gets[path] = http_call(port, "GET", path)
+                if gets[path][0] != 503 or path != "/profile":
+                    break
+                print(f"/profile session {attempt} of {PROFILE_TRIES} saw no kernel")
+            if gets[path][0] != 200:
+                raise AssertionError(f"GET {path}: {gets[path]}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+
+    # the responses against the direct calls
+    worst_cos, analyzed, ident_rows, named, matched = 1.0, [], [], 0, 0
+    for (path, img, person), (_, body) in zip(plan, results):
+        if path == "/embed":
+            want = extractor.extract_batch(img[None])[0]
+            worst_cos = min(worst_cos, float(cosine(body["embedding"], want)))
+            continue
+        faces = seen[img.tobytes()]
+        if path.startswith("/analyze"):
+            rows = body["faces"]
+            analyzed.append((faces, img))
+            for row, f in zip(rows, faces):
+                if (row["bbox"] != list(f.bbox) or row["age"] != round(f.age, 1)
+                        or row["gender_prob"] != round(f.gender_prob, 4)):
+                    raise AssertionError(f"/analyze row {row} is not the worker's {f}")
+            if faces:   # the request's probes, ranked together as the server did
+                ident_rows.append((rows, np.stack([f.identity for f in faces])))
+        else:
+            ident_rows.append(([body], _largest_face(faces).identity[None]))
+            named += body["label"] == person
+    worst = worst_face_diffs([f for f, _ in analyzed],
+                             [analyzer.analyze(img) for _, img in analyzed],
+                             "serve /analyze vs analyze")
+    n_ident = 0
+    for rows, probes_of_request in ident_rows:
+        direct = gallery.identify_many(probes_of_request)
+        for row, (label, dist, nearest) in zip(rows, direct):
+            if (row["label"], row["nearest"], row["distance"]) != (label, nearest,
+                                                                   round(dist, 4)):
+                raise AssertionError(f"served identification {row} vs direct "
+                                     f"{(label, dist, nearest)}")
+            n_ident += 1
+            matched += label is not None
+    if worst_cos < 0.999:
+        raise AssertionError(f"/embed vs extract_batch: cosine {worst_cos}")
+    print(f"serve: {len(plan)} requests from {SERVE_CLIENTS} clients in {wall:.3f} s "
+          f"= {len(plan) / wall:.1f} requests/s ({gpu_name_and_power_limit()}); gallery "
+          f"{len(gallery)} x {SERVE_DIM}-d int8; setup {setup_s:.1f} s")
+    for name in ("analyze", "identify", "embed", "enroll"):
+        if name in stats:
+            st = stats[name]
+            print(f"  {name}: {st['count']} requests, p50 {st['p50_ms']:.3f} ms, "
+                  f"p95 {st['p95_ms']:.3f} ms, mean {st['mean_ms']:.3f} ms")
+    for w in ("embed_worker", "analyze_worker"):
+        print(f"  {w}: " + json.dumps({
+            stage: {k: round(stats[f"{w}.{stage}"][k], 3) for k in ("count", "p50_ms", "p95_ms")}
+            for stage in ("queue_wait", "assemble", "process") if f"{w}.{stage}" in stats}))
+    print(f"  launches {json.dumps(launches)}; embed forwards {n_forwards} (batches "
+          f"{batches}); K4 per forward "
+          f"{launches['pw_conv_int8'] / max(n_forwards, 1):.1f}")
+    print(f"  checks: /analyze vs analyze worst {json.dumps(worst)}; /embed vs "
+          f"extract_batch min cosine {worst_cos:.6f}; {n_ident} identifications "
+          f"equal identify_many ({matched} matched under the threshold; "
+          f"{named} of {sum(p.startswith('/identify') for p, _, _ in plan)} probes "
+          f"named their person)")
+    print(f"  /profile busy {gets['/profile'][1]['busy_ms']} ms, top "
+          + json.dumps(gets['/profile'][1]['top'][:3]) + f"; /healthz "
+          + json.dumps(gets['/healthz'][1]) + "; /gallery " + json.dumps(gets['/gallery'][1]))
+    if launches["crop_resize"] <= 0 or launches["knn_int8p"] <= 0:
+        raise AssertionError(f"serve: K1 or K2c not launched ({launches})")
+    if n_forwards == 0 or launches["pw_conv_int8"] != 13 * n_forwards:
+        raise AssertionError(f"serve: K4 launched {launches['pw_conv_int8']} times in "
+                             f"{n_forwards} embed forwards (want 13 each)")
+    stage = lambda k: {q: stats[k][q] for q in ("count", "p50_ms", "p95_ms", "mean_ms")}
+    return launches, {
+        "requests_per_s": len(plan) / wall, "requests": len(plan), "wall_s": wall,
+        "clients": SERVE_CLIENTS, "gallery_rows": len(gallery),
+        "endpoints": {k: stage(k) for k in ("analyze", "identify", "embed", "enroll")},
+        "workers": {k: stage(k) for k in stats if "_worker." in k},
+        "embed_forwards": n_forwards, "profile_busy_ms": gets["/profile"][1]["busy_ms"]}
+
+
+def zoo_path(rng, tmp: str):
+    """The frozen-graph embedders at full width: for each of ``ZOO_MODELS``
+    seeded folded params go out through ``graphdef_export`` and back in
+    through ``pb_import`` (equal bit for bit), then a batch of
+    ``ZOO_BATCH`` images is embedded through ``build_extractor(name,
+    params=...)`` (timed, img/s; the int8 entry launches K4 13 times a
+    forward at 192²); then ``graph_extractor`` on the exported MobileNet pb
+    equals the native ``mobilenet_embed`` on the same batch within
+    ``GRAPH_ATOL``. Returns (launches, numbers)."""
+    from hse_facerec_torch.core import graphdef_export, pb_import
+    from hse_facerec_torch.models.int8_infer import quantize_backbone_int8
+    from hse_facerec_torch.testing import random_mobilenet_params, random_resnet50_params
+
+    def same_tree(a, b):
+        return sorted(a) == sorted(b) and all(
+            same_tree(a[k], b[k]) if isinstance(a[k], dict)
+            else (a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])) for k in a)
+
+    base = {"mobilenet": random_mobilenet_params(np.random.RandomState(SEED + 51)),
+            "resnet": random_resnet50_params(np.random.RandomState(SEED + 53))}
+    pbs = {"mobilenet": os.path.join(tmp, "vgg2_mobilenet.pb"),
+           "resnet": os.path.join(tmp, "vgg2_resnet.pb")}
+    t0 = time.perf_counter()
+    graphdef_export.export_mobilenet_embedder_pb(base["mobilenet"], pbs["mobilenet"])
+    graphdef_export.export_resnet_embedder_pb(base["resnet"], pbs["resnet"])
+    imported = {"mobilenet": pb_import.mobilenet_params_from_pb(pbs["mobilenet"]),
+                "resnet": pb_import.resnet50_params_from_pb(pbs["resnet"])}
+    round_trip_s = time.perf_counter() - t0
+    for kind in base:
+        if not same_tree(imported[kind], base[kind]):
+            raise AssertionError(f"zoo: the {kind} params changed through the pb")
+    numbers = {}
+    reset_launches()
+    for name in ZOO_MODELS:
+        kind = "resnet" if "resnet" in name else "mobilenet"
+        params = imported[kind]
+        if name.endswith("_int8"):
+            params = quantize_backbone_int8(params)
+        ex = zoo.build_extractor(name, batch_size=ZOO_BATCH, device="cuda", params=params)
+        h, w = ex.input_size
+        imgs = np.stack(smooth_images(rng, ZOO_BATCH, (h, w)))
+        ex.extract_batch(imgs)                       # warm-up
+        torch.cuda.synchronize()
+        before = kernel_launches()
+        times = []
+        for _ in range(ZOO_REPEATS):
+            t1 = time.perf_counter()
+            feats = ex.extract_batch(imgs)           # ends in the copy back
+            times.append(time.perf_counter() - t1)
+        after = kernel_launches()
+        ms = float(np.median(times)) * 1e3
+        k4 = after["pw_conv_int8"] - before["pw_conv_int8"]
+        numbers[name] = {"ms": ms, "images_per_s": ZOO_BATCH / (ms / 1e3),
+                         "k4_launches_per_forward": k4 / ZOO_REPEATS,
+                         "dim": int(feats.shape[1])}
+        print(f"zoo {name}: {h}x{w}, batch {ZOO_BATCH}: median {ms:.3f} ms "
+              f"= {ZOO_BATCH / (ms / 1e3):.1f} img/s over {ZOO_REPEATS} runs; "
+              f"{feats.shape[1]}-d; K4 launches per forward {k4 / ZOO_REPEATS:.1f}")
+        want_dim = zoo.MODEL_ZOO[name].embedding_dim
+        if feats.shape != (ZOO_BATCH, want_dim) or not np.all(np.isfinite(feats)):
+            raise AssertionError(f"zoo {name}: malformed embeddings {feats.shape}")
+        if name.endswith("_int8") and k4 != 13 * ZOO_REPEATS:
+            raise AssertionError(f"zoo {name}: K4 launched {k4} times in "
+                                 f"{ZOO_REPEATS} forwards (want 13 each)")
+    gex = zoo.graph_extractor(pbs["mobilenet"], "input_1:0", "reshape_1/Reshape:0",
+                              (192, 192), batch_size=ZOO_BATCH, device="cuda")
+    imgs = np.stack(smooth_images(np.random.RandomState(SEED + 57), ZOO_BATCH, (192, 192)))
+    native = zoo.build_extractor("vgg2_mobilenet", batch_size=ZOO_BATCH, device="cuda",
+                                 params=base["mobilenet"]).extract_batch(imgs)
+    graph = gex.extract_batch(imgs)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    err = float(np.abs(graph - native).max())
+    numbers["graph_extractor"] = {"max_abs_err": err, "max_abs": float(np.abs(native).max())}
+    print(f"zoo: pb round trips of mobilenet and resnet50 bit-equal ({round_trip_s:.1f} s); "
+          f"graph_extractor on the exported MobileNet pb vs mobilenet_embed at batch "
+          f"{ZOO_BATCH}: max abs err {err:.3g} (values up to {np.abs(native).max():.3g}); "
+          f"launches {json.dumps(launches)}")
+    if not err <= GRAPH_ATOL:
+        raise AssertionError(f"graph_extractor vs mobilenet_embed: {err} > {GRAPH_ATOL}")
+    if launches["pw_conv_int8"] <= 0:
+        raise AssertionError("the zoo path launched no pw_conv_int8 kernel")
+    return launches, numbers
+
+
 def bound(nbytes: float, ops: float, kind: str):
     """(ms, "bytes" or "operations"): the least time the card could take
     for work that must move ``nbytes`` (each input read once, each output
@@ -2108,7 +2480,7 @@ def train_cuda_vs_cpu():
     gradient within ``GRAD_REL`` in float64; then K3 against the CPU's
     plain version on the same images and mats."""
     params = to_numpy(init_mobilenet_params(torch.Generator().manual_seed(SEED + 23),
-                                            n_classes=PARITY_CLASSES))
+                                            n_classes=PARITY_CLASSES, device="cpu"))
     rng = np.random.RandomState(SEED + 29)
     x, y = train_batch_np(rng, PARITY_BATCH, PARITY_SIZE, PARITY_CLASSES)
     out = {}
@@ -2231,6 +2603,18 @@ def main() -> None:
         phase_done("identify at scale")
         path_launches.append(analyze_gallery_path(gpu, images, tmp))
         phase_done("analyze --gallery")
+        serve_launches, serve = serve_path(mtcnn_params, mh_params,
+                                           np.random.RandomState(SEED + 43))
+        path_launches.append(serve_launches)
+        phase_done("serve")
+        zoo_launches, zoo_numbers = zoo_path(np.random.RandomState(SEED + 47), tmp)
+        path_launches.append(zoo_launches)
+        torch.cuda.empty_cache()
+        phase_done("zoo")
+    # K4 at the shapes vgg2_mobilenet_int8 gives it (192², the zoo's batch)
+    pw_192 = check_pw_kernel(gen, ZOO_BATCH, False, 10, 2, size=192)
+    torch.cuda.empty_cache()
+    phase_done(f"K4 check at batch {ZOO_BATCH}, 192²")
     del gpu, cpu
     torch.cuda.empty_cache()
     train_launches, train = train_path()
@@ -2251,6 +2635,7 @@ def main() -> None:
         "source": "hse_facerec_torch/csrc/crop_resize.cu",
         "replaces": "hse_facerec_tf_tpu/ops/pallas/crop.py:103",
         "launches": launches["crop_resize"],
+        "serve_launches": serve_launches["crop_resize"],
         "max_abs_err": max(r["max_abs_err"] for r in crop_results.values()),
         **{k: sum(r[k] for r in singles) for k in (
             "ms", "device_ms", "host_us", "plain_ms", "bound_ms",
@@ -2267,16 +2652,21 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda", "source": "hse_facerec_torch/csrc/knn.cu",
             "replaces": f"hse_facerec_tf_tpu/ops/pallas/knn.py:{line}",
-            "launches": launches[name], "equal": name != "knn_f32", **r})
+            "launches": launches[name], "serve_launches": serve_launches[name],
+            "equal": name != "knn_f32", **r})
     kernels.append({
         "name": "pw_conv_int8", "route": "cuda",
         "source": "hse_facerec_torch/csrc/pw_conv.cu",
         "replaces": "hse_facerec_tf_tpu/ops/pallas/pw_conv.py:150",
-        "launches": launches["pw_conv_int8"], "equal": True,
+        "launches": launches["pw_conv_int8"],
+        "serve_launches": serve_launches["pw_conv_int8"], "equal": True,
         **pw,
-        "max_abs_err": max(pw["max_abs_err"], pw_embed["max_abs_err"]),
+        "max_abs_err": max(pw["max_abs_err"], pw_embed["max_abs_err"],
+                           pw_192["max_abs_err"]),
         "shape": f"13 pointwise layers at batch {PW_BATCH}, 224²",
         f"batch_{EMBED_BATCH}": {k: pw_embed[k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        f"batch_{ZOO_BATCH}_192": {k: pw_192[k] for k in (
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     kernels.append({
         "name": "warp_batch", "route": "cuda",
@@ -2290,6 +2680,8 @@ def main() -> None:
     print("train: " + json.dumps(train))
     print(f"analyze_batch x{BATCH}: " + json.dumps(batch_numbers))
     print("album: " + json.dumps(album_numbers))
+    print("serve: " + json.dumps(serve))
+    print("zoo: " + json.dumps(zoo_numbers))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

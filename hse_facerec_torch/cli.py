@@ -8,14 +8,16 @@
   webcam   — live webcam demo (show_webcam)
   album    — organize a photo/video album by person (process_photos)
   identify — gallery/probe 1-NN identification (tf_train_test_recognition)
-  enroll   — bulk-enroll a people directory of pre-cropped faces into a
-             gallery .npz (``--mode image``)
+  enroll   — bulk-enroll a people directory into a gallery .npz: the
+             largest face of each photo (``--mode face``, the default) or
+             whole frames of pre-cropped faces (``--mode image``)
   cluster  — clustering-quality benchmark on directory-per-person datasets
   train    — train the face-ID backbone on a directory-per-identity
              dataset (augmentation on the warp kernel)
 
 Every subcommand runs on ``--device cuda`` unless asked for another. The
-two-model configuration (``--age-pb``/``--gender-pb``) is not ported.
+two-model configuration (``--age-pb``/``--gender-pb``) is not ported. The
+HTTP server is ``python -m hse_facerec_torch.serve``.
 
 Usage: ``python -m hse_facerec_torch.cli <subcommand> ...``
 """
@@ -277,36 +279,116 @@ def cmd_identify(args):
     print(json.dumps(out))
 
 
+def _enroll_face_embeddings(analyzer, people_dir, pairs):
+    """(person, rel, largest-face identity) per photo + no-face skip list:
+    bounded-prefetch decode, consecutive same-shape photos fused into one
+    pow2-padded batch-path call (one upload and one cascade for up to 8
+    photos), rotation retry (``process_photos.py:241-247``) individually for
+    the rare no-face photos."""
+    import numpy as np
+
+    from .serve import _analyze_batch_pow2, _largest_face
+    from .utils.image_io import imread_rgb
+    from .utils.prefetch import bounded_thread_map
+
+    LANES = 8
+    out, retry, buf = [], [], []
+
+    def flush():
+        all_faces = _analyze_batch_pow2(
+            analyzer, np.stack([im for _, _, im in buf]))
+        for (person, rel, img), faces in zip(buf, all_faces):
+            if faces:
+                out.append((person, rel, _largest_face(faces).identity))
+            else:
+                retry.append((person, rel, img))
+        buf.clear()
+
+    decoded = bounded_thread_map(
+        lambda pr: (pr[0], pr[1],
+                    imread_rgb(os.path.join(people_dir, pr[1]))),
+        pairs, workers=4, depth=2 * LANES)
+    for person, rel, img in decoded:
+        if buf and buf[0][2].shape != img.shape:
+            flush()
+        buf.append((person, rel, img))
+        if len(buf) == LANES:
+            flush()
+    if buf:
+        flush()
+
+    skipped = []
+    for person, rel, img in retry:
+        # rotations-only retry: the batch pass already proved upright finds
+        # nothing (reference retry order, process_photos.py:241-247)
+        for rot in (90, 270):
+            rotated = np.ascontiguousarray(
+                np.rot90(img, 3 if rot == 90 else 1))
+            faces = analyzer.analyze(rotated)
+            if faces:
+                out.append((person, rel, _largest_face(faces).identity))
+                break
+        else:
+            skipped.append(rel)
+    return out, skipped
+
+
 def cmd_enroll(args):
-    """Bulk-enroll a directory-per-person tree of pre-cropped faces
-    (``people_dir/<Person Name>/*.jpg``, the reference's gallery layout,
-    ``facerec_test.py:220-288``) into an EnrollmentGallery ``.npz``."""
-    from .eval import lfw
-    from .models.zoo import build_extractor
+    """Bulk-enroll a directory-per-person tree into an EnrollmentGallery
+    ``.npz`` (the store behind ``serve`` /enroll, /identify and ``album
+    --gallery``). The tree follows the reference's gallery-dir convention
+    (``facerec_test.py:220-288``): ``people_dir/<Person Name>/*.jpg``.
+    mode=face detects and embeds the largest face per photo (unconstrained
+    photos); mode=image embeds whole frames (pre-cropped faces)."""
+    import numpy as np
+
     from .numerics import set_parity_numerics
     from .pipelines.gallery import EnrollmentGallery
     from .utils.image_io import get_files
 
     if not os.path.isdir(args.people_dir):
         sys.exit(f"error: people directory not found: {args.people_dir}")
-    if not get_files(args.people_dir):
+    pairs = get_files(args.people_dir)
+    if not pairs:
         sys.exit(f"error: no images under {args.people_dir} (expected "
                  "<person name>/*.jpg subdirectories)")
     set_parity_numerics()
     gallery = EnrollmentGallery(path=args.gallery_file, device=args.device,
                                 quantized=False if args.exact else None)
-    extractor = build_extractor(args.model, batch_size=args.batch_size,
-                                device=args.device)
-    feats, labels, names = lfw.extract_dataset_features(args.people_dir,
-                                                        extractor)
-    label_names = [names[int(y)] for y in labels]
-    # --replace swaps out each person's old enrollments in the same update
-    replace_labels = sorted(set(label_names)) if args.replace else ()
+    skipped: list = []
+    if args.mode == "image":
+        from .eval import lfw
+        from .models.zoo import build_extractor
+
+        extractor = build_extractor(args.model, batch_size=args.batch_size,
+                                    device=args.device)
+        feats, labels, names = lfw.extract_dataset_features(args.people_dir,
+                                                            extractor)
+        label_names = [names[int(y)] for y in labels]
+    else:
+        analyzer = _build_analyzer(args)
+        rows, skipped = _enroll_face_embeddings(analyzer, args.people_dir, pairs)
+        rows.sort(key=lambda t: t[:2])      # retry results back in order
+        label_names = [p for p, _, _ in rows]
+        feats = (np.stack([np.asarray(e, np.float32) for _, _, e in rows])
+                 if rows else np.zeros((0, 0), np.float32))
+    replace_labels = ()
+    if args.replace:
+        # only persons who produced at least one NEW embedding are replaced,
+        # in the same update as the additions; persons whose photos all
+        # failed detection keep their old enrollments
+        replace_labels = sorted(set(label_names))
+        stale = sorted({p for p, _ in pairs} - set(label_names))
+        if stale:
+            print(f"warning: --replace kept the existing enrollments of "
+                  f"{', '.join(stale)} (no face found in any of their new "
+                  "photos)", file=sys.stderr)
     n_total = gallery.enroll_many(label_names, feats,
                                   replace_labels=replace_labels)
     print(json.dumps({
         "gallery": args.gallery_file, "n_added": len(label_names),
         "n_people_added": len(set(label_names)), "n_enrolled_total": n_total,
+        "skipped_no_face": skipped,
     }))
 
 
@@ -493,18 +575,25 @@ def main(argv=None):
                     help="directory with one subdirectory per person")
     en.add_argument("gallery_file", metavar="NPZ",
                     help="enrollment gallery to create or extend")
-    en.add_argument("--mode", choices=["image"], default="image",
-                    help="image: embed whole frames (pre-cropped faces)")
+    en.add_argument("--mode", choices=["face", "image"], default="face",
+                    help="face: detect + embed the largest face per photo; "
+                         "image: embed whole frames (pre-cropped faces)")
     en.add_argument("--model", default="agegender_identity",
-                    choices=sorted(MODEL_ZOO))
-    en.add_argument("--batch-size", type=int, default=64)
+                    choices=sorted(MODEL_ZOO),
+                    help="embedder for --mode image (mode=face always uses "
+                         "the analyzer's identity features)")
+    en.add_argument("--batch-size", type=int, default=64,
+                    help="embedder batch for --mode image (mode=face groups "
+                         "same-shape photos into 8-lane batch-path calls)")
     en.add_argument("--exact", action="store_true",
                     help="store an f32-ranking gallery instead of int8 (the "
                          "preference persists in the .npz)")
     en.add_argument("--replace", action="store_true",
                     help="atomically swap out the existing enrollments of "
-                         "each person in the directory")
-    en.add_argument("--device", default="cuda")
+                         "each person that produced new embeddings (persons "
+                         "whose photos all fail detection keep their old "
+                         "rows, with a warning)")
+    _add_model_args(en)
     en.set_defaults(fn=cmd_enroll)
 
     cl = sub.add_parser("cluster", help="clustering-quality benchmark")

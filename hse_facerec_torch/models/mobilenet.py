@@ -115,11 +115,14 @@ def mobilenet_classify(params: Dict, x, *, compute_dtype=torch.float32):
 
 
 def init_mobilenet_params(generator: torch.Generator, n_classes: Optional[int] = None,
-                          width: float = 1.0, device="cpu") -> Dict:
+                          width: float = 1.0, device="cuda") -> Dict:
     """He-normal MobileNet-V1 params with full BN blocks (training form), in
     PyTorch layout on ``device``. Normals are drawn from ``generator`` in the
     reference's shapes and order (conv1, dw1, pw1, ..., classifier)."""
     from ..params import to_torch
+    from ..pipelines.detector import resolve_device
+
+    device = resolve_device(device)
 
     def c(ch):
         return max(8, int(ch * width))

@@ -1,23 +1,34 @@
-"""Model zoo: paths of the shipped reference weights and the named embedder
+"""Model zoo: paths of the reference weights and the named embedder
 configurations (counterpart of ``hse_facerec_tf_tpu/models/zoo.py``).
 
 Each entry is a declarative spec: parameters + forward + input size +
 preprocessing (normalization scheme and resize flavor per the reference's
-per-model settings), resolved into an ``EmbeddingExtractor``. Only the
-entries whose backbone the port has are here; the others are listed in
-``ROADMAP.md``.
+per-model settings), resolved into an ``EmbeddingExtractor``. An entry
+whose trained weights are absent builds from seeded random ones, with a
+``RuntimeWarning``, as the reference does; ``weights_origin`` says which.
+``graph_extractor`` wraps any frozen pb. Only the entries whose backbone
+the port has are here; the others are listed in ``ROADMAP.md``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 from typing import Callable, Dict, Optional, Tuple
 
 REFERENCE_ROOT = "/root/reference"
 MTCNN_PB = os.path.join(REFERENCE_ROOT, "age_gender_identity", "mtcnn.pb")
 AGEGENDER_PB = os.path.join(REFERENCE_ROOT, "age_gender_identity",
                             "age_gender_tf2_new-01-0.14-0.92_quantized.pb")
+VGG2_MOBILENET_H5 = os.path.join(REFERENCE_ROOT, "models", "vgg2_mobilenet.h5")
+VGG2_MOBILENET_PB = os.path.join(REFERENCE_ROOT, "models", "vgg2_mobilenet.pb")
+VGG2_RESNET_PB = os.path.join(REFERENCE_ROOT, "models", "vgg2_resnet.pb")
+# keras_vggface ResNet-50 weights (rcmalli_vggface_tf_resnet50.h5 — the
+# 'resnet50'/avg_pool extractor variant, facial_clustering_test.py:296-300).
+VGGFACE_RESNET50_H5 = os.environ.get(
+    "HSE_FACEREC_VGGFACE_RESNET50_H5",
+    os.path.join(REFERENCE_ROOT, "models", "rcmalli_vggface_tf_resnet50.h5"))
 
 
 @dataclasses.dataclass
@@ -57,29 +68,142 @@ def _agegender_int8_params():
     return quantize_multihead_int8(_agegender_params())
 
 
+def _mobilenet_embed(params, x):
+    from .mobilenet import mobilenet_embed
+
+    return mobilenet_embed(params, x)
+
+
+def _mobilenet_embed_int8(params, x):
+    from .int8_infer import mobilenet_embed_int8
+
+    return mobilenet_embed_int8(params, x)
+
+
+def _resnet_embed(params, x):
+    from .resnet import resnet50_embed
+
+    return resnet50_embed(params, x)
+
+
+def _warn_random_init(name: str, missing_path: str) -> None:
+    warnings.warn(
+        f"model {name!r}: trained weights not found at {missing_path} "
+        "(a blob the reference obtains externally) — using RANDOM "
+        "initialization. Embeddings will be meaningless for recognition; "
+        "provide the weight file or pick a model with shipped weights "
+        "(e.g. 'agegender_identity').", RuntimeWarning, stacklevel=3)
+
+
+def _seeded(init_fn):
+    """numpy params (reference layouts) from ``init_fn`` at seed 0: random
+    weights are host data, made on the CPU whatever the entry's device."""
+    import torch
+
+    from ..params import to_numpy
+
+    return to_numpy(init_fn(torch.Generator().manual_seed(0), device="cpu"))
+
+
+def _vgg2_mobilenet_params():
+    """vgg2_mobilenet weights: the Keras ``.h5`` if present, else the frozen
+    ``.pb`` via the structural importer (the reference consumes the pb form
+    directly, ``facerec_test.py:212``; both blobs are missing upstream).
+    Falls back to seeded random weights, with a warning."""
+    if os.path.exists(VGG2_MOBILENET_H5):
+        from ..core.h5_import import mobilenet_params_from_h5
+
+        return mobilenet_params_from_h5(VGG2_MOBILENET_H5)
+    if os.path.exists(VGG2_MOBILENET_PB):
+        from ..core.pb_import import mobilenet_params_from_pb
+
+        return mobilenet_params_from_pb(VGG2_MOBILENET_PB)
+    from .mobilenet import init_mobilenet_params
+
+    _warn_random_init("vgg2_mobilenet", VGG2_MOBILENET_H5)
+    return _seeded(init_mobilenet_params)
+
+
+def _vgg2_mobilenet_int8_params():
+    from .int8_infer import quantize_backbone_int8
+
+    return quantize_backbone_int8(_vgg2_mobilenet_params())
+
+
+def _vgg2_resnet_params():
+    """vgg2_resnet.pb (reference ``facerec_test.py:213``; missing upstream)
+    via the structural frozen-pb importer; seeded random weights otherwise."""
+    if os.path.exists(VGG2_RESNET_PB):
+        from ..core.pb_import import resnet50_params_from_pb
+
+        return resnet50_params_from_pb(VGG2_RESNET_PB)
+    from .resnet import init_resnet50_params
+
+    _warn_random_init("vgg2_resnet", VGG2_RESNET_PB)
+    return _seeded(init_resnet50_params)
+
+
+def _vggface_resnet50_params():
+    from .resnet import init_resnet50_params, resnet50_params_from_h5
+
+    if os.path.exists(VGGFACE_RESNET50_H5):
+        return resnet50_params_from_h5(VGGFACE_RESNET50_H5)
+    _warn_random_init("vggface_resnet50", VGGFACE_RESNET50_H5)
+    return _seeded(init_resnet50_params)
+
+
 MODEL_ZOO: Dict[str, ModelSpec] = {
     # multi-head identity tap: the reference's default age/gender/id model
     # (facial_analysis.py:29-33, facerec_test.py:210 commented variant)
     "agegender_identity": ModelSpec(
         "agegender_identity", (224, 224), "caffe", "cv2_linear", 1024,
         _agegender_params, _multihead_identity),
-    # the same model on the full-int8 serving path (models/int8_infer.py,
-    # pointwise layers on K4); same preprocessing and protocols
+    # MobileNet-192 VGGFace2 embedder (facerec_test.py:212: convert2BGR=True,
+    # imageNetUtilsMean=True)
+    "vgg2_mobilenet": ModelSpec(
+        "vgg2_mobilenet", (192, 192), "caffe", "pil_bilinear", 1024,
+        _vgg2_mobilenet_params, _mobilenet_embed),
+    # ResNet-50 VGGFace2 embedder (facerec_test.py:213: VGGFace2 means)
+    "vgg2_resnet": ModelSpec(
+        "vgg2_resnet", (224, 224), "vggface2", "pil_bilinear", 2048,
+        _vgg2_resnet_params, _resnet_embed),
+    # the int8 serving variants (models/int8_infer.py, pointwise layers on
+    # K4); same preprocessing and protocols as their f32 bases
     "agegender_identity_int8": ModelSpec(
         "agegender_identity_int8", (224, 224), "caffe", "cv2_linear", 1024,
         _agegender_int8_params, _multihead_identity_int8),
+    "vgg2_mobilenet_int8": ModelSpec(
+        "vgg2_mobilenet_int8", (192, 192), "caffe", "pil_bilinear", 1024,
+        _vgg2_mobilenet_int8_params, _mobilenet_embed_int8),
+    # keras_vggface ResNet-50, avg_pool tap (facial_clustering_test.py:
+    # 296-300: layers={'resnet50': 'avg_pool'}): Keras load_img resizes with
+    # PIL NEAREST (its default interpolation), preprocess_input with its
+    # default version=1 means (the reference passes no version arg)
+    "vggface_resnet50": ModelSpec(
+        "vggface_resnet50", (224, 224), "vggface1", "pil_nearest", 2048,
+        _vggface_resnet50_params, _resnet_embed),
 }
 
+
+# the shipped weights, without which an entry does not build
 _WEIGHT_FILES = {"agegender_identity": AGEGENDER_PB}
 
 
 def weights_origin(name: str) -> str:
-    """'imported' if the entry's trained reference weights are on this
-    machine, 'missing' if not (building it would then fail). The int8
-    variants share their f32 base's file."""
+    """Where an entry's weights come from on this machine: 'imported' when
+    the trained reference file is here; for the shipped multi-head pb
+    'missing' when absent (building it then fails), for the entries whose
+    blobs the reference obtains externally 'random' (building falls back
+    to seeded random weights). The int8 variants share their f32 base's
+    file."""
     if name.endswith("_int8"):
         name = name[: -len("_int8")]
-    return "imported" if os.path.exists(_WEIGHT_FILES[name]) else "missing"
+    if name in _WEIGHT_FILES:
+        return "imported" if os.path.exists(_WEIGHT_FILES[name]) else "missing"
+    files = {"vgg2_mobilenet": (VGG2_MOBILENET_H5, VGG2_MOBILENET_PB),
+             "vgg2_resnet": (VGG2_RESNET_PB,),
+             "vggface_resnet50": (VGGFACE_RESNET50_H5,)}[name]
+    return "imported" if any(os.path.exists(f) for f in files) else "random"
 
 
 def build_extractor(name: str, batch_size: int = 64, device="cuda",
@@ -98,3 +222,40 @@ def build_extractor(name: str, batch_size: int = 64, device="cuda",
                               resize_method=spec.resize_method,
                               batch_size=batch_size, device=device,
                               **spec.extractor_kwargs)
+
+
+def graph_extractor(pb_path: str, input_tensor: str, output_tensor: str,
+                    input_size, normalization: str = "caffe",
+                    resize_method: str = "pil_bilinear", batch_size: int = 64,
+                    device="cuda", extra_feeds: Optional[Dict[str, object]] = None):
+    """Generic frozen-pb embedder: ANY TF frozen graph as an
+    ``EmbeddingExtractor`` on ``device``, the general form of the
+    reference's ``TensorFlowInference`` model rows (``facerec_test.py:
+    209-218``: FaceNet, InsightFace, custom pbs, each selected by a (pb,
+    input, output, preprocessing) tuple). The graph runs through
+    ``core/graph_compiler.py``; its constants move to the device once.
+
+    extra_feeds: {tensor: value} pinned when the graph is compiled — the
+    reference's ``learning_phase_tensor``/``additional_input_value``
+    convention (``facerec_test.py:215-216``: FaceNet feeds
+    ``phase_train:0 = False``, insightface.pb feeds ``dropout_rate:0 =
+    0.9``)."""
+    from ..core.graph_compiler import compile_pb
+    from ..pipelines.detector import resolve_device
+    from ..pipelines.embedder import EmbeddingExtractor
+
+    device = resolve_device(device)
+    cg = compile_pb(pb_path, [output_tensor], const_feeds=extra_feeds)
+    graph_params = cg.torch_params(device)
+    in_name = input_tensor.split(":")[0]
+
+    def model_fn(_, x):
+        (out,) = cg.fn(graph_params, {in_name: x})
+        return out.reshape(out.shape[0], -1)
+
+    # the graph's params are the program's own (graph_params), not a layer
+    # tree the extractor converts
+    return EmbeddingExtractor(model_fn, {}, input_size,
+                              normalization=normalization,
+                              resize_method=resize_method,
+                              batch_size=batch_size, device=device)

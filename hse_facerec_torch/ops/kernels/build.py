@@ -8,6 +8,9 @@ together, then one link. The library goes to
 headers and the flags, so an edited source or header rebuilds and an
 unchanged tree loads at once.
 Nothing here falls back: a missing ``nvcc`` or a failed build raises.
+The build runs once per process even when several threads (the server's
+workers) use a kernel for the first time at once, and ``count_launch``
+counts each wrapper's launches under one lock for the same reason.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import List
 
@@ -98,10 +102,12 @@ def build(lib_path: Path) -> str:
     return log
 
 
+_load_lock = threading.Lock()
+_count_lock = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built first if this source hash has no
-    build yet."""
+def _load() -> ctypes.CDLL:
     lib_path = library_path()
     if not lib_path.exists():
         build(lib_path)
@@ -109,6 +115,21 @@ def load_library() -> ctypes.CDLL:
     lib.facerec_cuda_error_string.argtypes = [ctypes.c_int]
     lib.facerec_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built first if this source hash has no
+    build yet. The lock makes a second thread wait for the first one's
+    build instead of running nvcc beside it."""
+    with _load_lock:
+        return _load()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``: a read-modify-write, so under a
+    lock, since the server's threads launch the same kernel at once."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

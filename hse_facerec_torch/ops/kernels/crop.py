@@ -14,14 +14,14 @@ forms, each one launch:
 On the card a lane outside [0, L) writes NaN over its box (no sync to
 check it); on the CPU it raises. ``crop_resize.launches`` counts kernel
 launches, so a run can show that it went through the kernel; it counts
-under a lock, because the album's two flush threads launch K1 at once.
+under a lock (``build.count_launch``), because the album's two flush
+threads launch K1 at once.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 
 import torch
 
@@ -30,7 +30,6 @@ from ..resize import (crop_resize_bilinear, crop_resize_bilinear_batch,
 from . import build
 
 MAX_SAMPLES = 1024      # supersample * out_size: the kernel's tap tables
-_count_lock = threading.Lock()
 
 
 @functools.lru_cache(maxsize=None)
@@ -124,8 +123,7 @@ def crop_resize(img, boxes, out_size: int, supersample: int = 2,
         with torch.cuda.device(dev):
             code = fn(*args)
     build.check(lib, code, "crop_resize_f32 launch")
-    with _count_lock:
-        crop_resize.launches += 1
+    build.count_launch(crop_resize)
     return out
 
 

@@ -20,7 +20,8 @@ running (value, index) per probe instead, so memory traffic is O(M·D + N·D).
 
 Each wrapper routes by the device its tensors lie on: CPU tensors take the
 plain twin, CUDA tensors launch the kernel or raise. ``<wrapper>.launches``
-counts kernel launches. ``sweep_config`` picks the gallery splits here,
+counts kernel launches, under a lock (``build.count_launch``): the
+server's threads rank at once. ``sweep_config`` picks the gallery splits here,
 where the CPU tests reach it; the int8 block tile, which follows from the
 kernel's shared memory, comes from ``knn.cu`` (``int8_tile``). The
 host-side arithmetic around the int8 kernels
@@ -379,7 +380,7 @@ def nearest_neighbor_f32(probes, gallery, bf16: bool = True):
     dmin, idx = _launch("knn_f32", fn, lib, m, cfg, dev,
                         (a_t.data_ptr(), b.data_ptr(), int(bf16), a2.data_ptr(),
                          b2.data_ptr(), m, mp, n, dp))
-    nearest_neighbor_f32.launches += 1
+    build.count_launch(nearest_neighbor_f32)
     return torch.clamp(dmin, min=0.0), idx
 
 
@@ -393,7 +394,7 @@ def _nn_int8(probes, gallery: PackedGallery, valid_n, pack_idx: bool, counter):
         emin, idx = _rank_int8_plain(ops.qa, gallery.q, ops.b2v, pack_idx)
     else:
         emin, idx = _rank_int8_cuda(ops.qa, gallery.q, ops.b2v, pack_idx)
-        counter.launches += 1
+        build.count_launch(counter)
     return _int8_distances(ops, emin, pack_idx), idx
 
 
@@ -427,7 +428,7 @@ def nearest_neighbor_int8q(probes, q_gallery, g_scale, valid_n=None,
             emin, idx = _rank_int8_cuda(ops.qa, _pad_dim(q_gallery), None, False,
                                         c=ops.c,
                                         valid_n=_valid_rows(q_gallery.shape[0], valid_n))
-            nearest_neighbor_int8q.launches += 1
+            build.count_launch(nearest_neighbor_int8q)
             return _int8_distances(ops, emin, False), idx
     return _nn_int8(probes, pack_quantized_gallery(q_gallery, g_scale), valid_n,
                     pack_idx, nearest_neighbor_int8q)

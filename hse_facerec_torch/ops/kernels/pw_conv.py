@@ -13,8 +13,9 @@ input-channel weights per output channel, so both operands are K-minor.
 kernel runs every shape on the int8 tensor cores; ``tile_config`` picks its
 block tile and ``load_width`` its copy width, here, where the CPU tests
 reach them.
-``pw_conv_int8.launches`` counts kernel launches. The plain version equals
-the jitted reference (``_pw_conv_int8`` + ``_requant`` of
+``pw_conv_int8.launches`` counts kernel launches, under a lock
+(``build.count_launch``): the server's threads embed at once. The plain
+version equals the jitted reference (``_pw_conv_int8`` + ``_requant`` of
 ``models/int8_infer.py``) and the interpret-mode Pallas kernel bit for bit;
 the kernel equals the plain version bit for bit.
 """
@@ -145,7 +146,7 @@ def pw_conv_int8(a, w, scale, bias, requant: bool = True):
         code = fn(a.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
                   m, n, k, int(requant), load, bm, out.data_ptr(), stream)
     build.check(lib, code, "pw_conv_int8 launch")
-    pw_conv_int8.launches += 1
+    build.count_launch(pw_conv_int8)
     return out
 
 

@@ -194,7 +194,7 @@ def warp_batch(images, mats, fill: float = 0.0):
     build.check(lib, code, f"warp_batch launch at {tuple(images.shape)} (a block "
                 "keeps a row of W·C floats and a staging row in shared memory, "
                 "227 KB at most)")
-    warp_batch.launches += 1
+    build.count_launch(warp_batch)
     return out
 
 

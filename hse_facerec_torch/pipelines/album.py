@@ -51,6 +51,7 @@ from ..utils.image_io import bgr_to_rgb, imread_rgb, rotate_image, video_rotatio
 from ..utils.profiling import StageTimer
 from .analyzer import FacialAnalyzer
 from .clustering import get_facial_clusters
+from .detector import resolve_device
 from .fusion import dempster_shafer_gender
 
 IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
@@ -85,11 +86,11 @@ def _photo_year(mdate: time.struct_time) -> float:
 def fused_distance_matrix(features: np.ndarray, born_years: np.ndarray,
                           indices: Sequence[int],
                           mdates: Sequence[time.struct_time],
-                          age_weight: float = 0.1, device="cpu") -> np.ndarray:
+                          age_weight: float = 0.1, device="cuda") -> np.ndarray:
     """L2 feature distance + weighted age penalty (reference :46-58), with the
     O(N²) feature part on ``device`` as one float32 matmul (parity numerics:
     no TF32) and the rest in float64 on the host, as the reference does."""
-    f = torch.from_numpy(np.asarray(features, np.float32)).to(device)
+    f = torch.from_numpy(np.asarray(features, np.float32)).to(resolve_device(device))
     d_feat = np.sqrt(pairwise_sqeuclidean(f, f).cpu().numpy())
     years = np.array([mdates[i].tm_year for i in indices], dtype=np.float64)
     max_year = np.maximum(years[:, None], years[None, :])

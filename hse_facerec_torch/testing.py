@@ -1,4 +1,5 @@
-"""Seeded random parameters for the analyze path, numpy only.
+"""Seeded random parameters for the analyze path and the zoo's
+backbones, numpy only.
 
 The pytrees have the reference's layouts and shapes (HWIO convs,
 (H, W, C, 1) depthwise, (in, out) dense), so the same arrays go through
@@ -64,10 +65,10 @@ def random_mtcnn_params(rng: np.random.RandomState) -> Dict[str, Dict]:
     return out
 
 
-def random_multihead_params(rng: np.random.RandomState) -> Dict:
-    """Full-width multi-head MobileNet-V1 (alpha 1.0, 1024-d identity) in
-    the folded form ``import_multihead_params`` returns. conv1 is scaled for
-    inputs of mean-subtracted 0-255 pixels."""
+def random_mobilenet_params(rng: np.random.RandomState) -> Dict:
+    """Full-width MobileNet-V1 backbone (alpha 1.0) in the folded form
+    ``core/pb_import.py`` returns. conv1 is scaled for inputs of
+    mean-subtracted 0-255 pixels."""
     backbone = {"conv1": {"kernel": _dense(rng, (3, 3, 3, 32), 1.0 / 64),
                           "bias": (rng.randn(32) * 0.1).astype(np.float32)}}
     cin = 32
@@ -79,6 +80,39 @@ def random_multihead_params(rng: np.random.RandomState) -> Dict:
         backbone[f"pw{i}"] = {"kernel": _dense(rng, (1, 1, cin, cout)),
                               "bias": (rng.randn(cout) * 0.1).astype(np.float32)}
         cin = cout
+    return backbone
+
+
+def random_resnet50_params(rng: np.random.RandomState) -> Dict:
+    """Full-width ResNet-50 (``models/resnet.py``, 2048-d) in the folded
+    form ``core/pb_import.py`` returns. The stem is scaled for inputs of
+    mean-subtracted 0-255 pixels, and each block's last conv by 0.5, so
+    the residual sums stay in range over the 16 blocks."""
+    from .models.resnet import STAGES, STAGE_WIDTHS
+
+    def conv(kh, kw, cin, cout, gain=1.0):
+        return {"kernel": _dense(rng, (kh, kw, cin, cout), gain),
+                "bias": (rng.randn(cout) * 0.1).astype(np.float32)}
+
+    params: Dict = {"stem": conv(7, 7, 3, 64, 1.0 / 64)}
+    cin = 64
+    for si, n_blocks in enumerate(STAGES):
+        w1, w2, w3 = STAGE_WIDTHS[si]
+        for bi in range(n_blocks):
+            p = {"conv1": conv(1, 1, cin, w1), "conv2": conv(3, 3, w1, w2),
+                 "conv3": conv(1, 1, w2, w3, 0.5)}
+            if bi == 0:
+                p["proj"] = conv(1, 1, cin, w3, 0.5)
+            params[f"stage{si + 1}_block{bi + 1}"] = p
+            cin = w3
+    return params
+
+
+def random_multihead_params(rng: np.random.RandomState) -> Dict:
+    """Full-width multi-head MobileNet-V1 (alpha 1.0, 1024-d identity) in
+    the folded form ``import_multihead_params`` returns: the backbone of
+    ``random_mobilenet_params``, then the heads."""
+    backbone = random_mobilenet_params(rng)
 
     def head(n_in, n_out, gain):
         return {"kernel": _dense(rng, (n_in, n_out), gain),

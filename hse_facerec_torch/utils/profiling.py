@@ -1,4 +1,4 @@
-"""Named stage timers.
+"""Named stage timers and a device-kernel profile.
 
 The port's own copy of ``StageTimer`` from
 ``hse_facerec_tf_tpu/utils/profiling.py``: wall-clock samples per named
@@ -6,6 +6,10 @@ stage with aggregate stats (count, total, mean, p50, p95). A stage that
 times device work must end in a host sync (``torch.cuda.synchronize`` or a
 copy to the host) inside its block, or it times the enqueue only; the
 album's stages end in the analyzer's one copy of its results.
+
+``fusion_profile`` is the counterpart of the reference's per-fusion table,
+on ``torch.profiler``: device time per kernel, with no byte counts (the
+profiler gives none).
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ import contextlib
 import threading
 import time
 from collections import defaultdict, deque
-from typing import Deque, Dict, Iterator
+from typing import Deque, Dict, Iterator, Optional
 
 import numpy as np
 
@@ -73,3 +77,42 @@ class StageTimer:
     def reset(self):
         with self._lock:
             self.samples.clear()
+
+
+def fusion_profile(run, top: int = 8) -> Optional[Dict]:
+    """Device time per kernel from a ``torch.profiler`` trace of one call to
+    ``run()`` (a zero-arg callable; the trace waits for the card after it).
+    The counterpart of the reference's per-fusion table behind serve's
+    ``/profile``, on kernels instead of XLA fusions.
+
+    Returns ``{busy_ms, top: [{name, ms, calls, pct_busy}, ...]}`` over the
+    device kernels, the ``top`` longest first, or None when the trace holds
+    no device kernel (no card, or a session that lost its records). The
+    reference's byte and GB/s columns are left out: the profiler counts no
+    bytes. Concurrent work on the card lands in the same trace window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        run()                      # the caller's failure propagates
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = us if us is not None else e.self_cuda_time_total
+        rows.append({"name": e.key, "ms": us / 1e3, "calls": int(e.count)})
+    busy_ms = sum(r["ms"] for r in rows)
+    if not busy_ms:
+        return None
+    rows = sorted(rows, key=lambda r: -r["ms"])[:top]
+    for r in rows:
+        r["pct_busy"] = round(100 * r["ms"] / busy_ms, 1)
+        r["ms"] = round(r["ms"], 4)
+    return {"busy_ms": round(busy_ms, 4), "top": rows}

@@ -200,7 +200,7 @@ def test_fused_distance_matrix_matches_jax():
     mdates = [time.gmtime(1.5e9 + i * 40 * DAY) for i in range(12)]
     # a near duplicate (the same face in the same photo, no age penalty)
     feats[7], born[7], indices[7] = feats[3] + 1e-4 * rng.randn(1024), born[3], indices[3]
-    got = talbum.fused_distance_matrix(feats, born, indices, mdates, 0.1)
+    got = talbum.fused_distance_matrix(feats, born, indices, mdates, 0.1, device="cpu")
     want = jalbum.fused_distance_matrix(feats, born, indices, mdates, 0.1)
     assert got.dtype == want.dtype == np.float64
     _assert_same_distances(got, want)
@@ -603,7 +603,7 @@ def test_process_album_matches_jax(album_src, analyzers, tmp_path):
     # threshold, born years against their integer parts
     [faces] = seen
     dist = talbum.fused_distance_matrix(faces.features, faces.born_years,
-                                        faces.indices, faces.mdates)
+                                        faces.indices, faces.mdates, device="cpu")
     heights = hac.linkage(squareform(dist, checks=False), "single")[:, 2]
     _assert_margin(heights, [THRESHOLD], 1e-3, "linkage heights")
     years = [float(np.median(faces.born_years[c])) for c in got["clusters"]]

@@ -458,8 +458,9 @@ def test_cli_identify_and_enroll(mh_np, tmp_path, capsys, monkeypatch):
         "linear svm+PCA"}
 
     npz = str(tmp_path / "people.npz")
-    cli.main(["enroll", g, npz, "--exact", *base])
-    cli.main(["enroll", g, npz, "--replace", *base])
+    # pre-cropped faces: whole frames (enroll's default mode is face)
+    cli.main(["enroll", g, npz, "--mode", "image", "--exact", *base])
+    cli.main(["enroll", g, npz, "--mode", "image", "--replace", *base])
     rows = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
     assert [r["n_enrolled_total"] for r in rows] == [4, 4]
     gal = tgal.EnrollmentGallery(npz, device="cpu")

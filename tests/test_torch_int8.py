@@ -435,7 +435,7 @@ def test_cli_identify_and_enroll_int8(mh_np, tmp_path, capsys, monkeypatch):
             "agegender_identity_int8"]
     cli.main(["identify", g, p, *base])
     cli.main(["identify", g, p, "--quantized", *base])
-    cli.main(["enroll", g, str(tmp_path / "people.npz"), *base])
+    cli.main(["enroll", g, str(tmp_path / "people.npz"), "--mode", "image", *base])
     out = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     assert out[0]["accuracy"] == out[1]["accuracy"] == 1.0
     assert out[0]["n_gallery"] == 4 and out[2]["n_enrolled_total"] == 4

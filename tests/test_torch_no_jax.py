@@ -1,8 +1,8 @@
 """The port stands alone: no module of ``hse_facerec_torch``, and not
 ``chip_smoke.py``, imports JAX, optax or the JAX package, not even inside a
 function or a numpy-only module of it. The host libraries the card's
-machine lacks (cv2, PIL, matplotlib, sklearn) are imported only inside the
-functions that need them.
+machine lacks (cv2, PIL, matplotlib, sklearn, h5py) are imported only
+inside the functions that need them.
 
 The ast check reads every ``import`` and ``from`` in the sources, the
 function-local ones too; the subprocess checks import every module of the
@@ -18,7 +18,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "optax", "hse_facerec_tf_tpu")
-HOST_ONLY_INSIDE = ("cv2", "PIL", "matplotlib", "sklearn")
+HOST_ONLY_INSIDE = ("cv2", "PIL", "matplotlib", "sklearn", "h5py")
 SOURCES = sorted((REPO / "hse_facerec_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 

@@ -85,7 +85,8 @@ def _trainer(n_classes, **kwargs):
     width-1.0 ones)."""
     trainer = tf.FaceIdTrainer(n_classes=n_classes, device="cpu", **kwargs)
     trainer.params = tm.init_mobilenet_params(torch.Generator().manual_seed(1),
-                                              n_classes=n_classes, width=WIDTH)
+                                              n_classes=n_classes, width=WIDTH,
+                                              device="cpu")
     trainer.opt_state = trainer.optimizer.init(trainer.params)
     return trainer
 
