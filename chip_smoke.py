@@ -76,6 +76,22 @@ kernels are built for sm_90a). It:
      ``graph_extractor`` on the exported MobileNet pb against
      ``mobilenet_embed``; then K4 against its plain version at the 13
      layers of that batch at 192²;
+   - two-model analyze (``analyze --age-pb/--gender-pb``): seeded
+     multi-head params exported as a MobileNet-V1 age pb at 192² and a
+     gender pb at 224², run through the graph compiler: exactly 3 K1
+     launches per ``analyze`` and per ``analyze_batch`` at batch 8, both
+     timed in turns with the one-model analyzer, one profiled batch call
+     of each; the halves exported at 224² equal the one-model analyzer's
+     ages and P(male) on the card; the card against the CPU;
+   - utkface: ``evaluate_age_gender`` over 128 seeded UTKFace-named .npy
+     photos in two sizes at batch 64 through each of the nine backends at
+     its published width (images/s), card against CPU on 16;
+   - identify ``--quantized`` and the gallery (K2b, K2c) on
+     ``insightface_arcface`` (IResNet-100, 512-d at 112²) and
+     ``vggface_vgg16`` (4096-d at 224²), and their embed img/s at batch 64;
+   - K2b/K2c at D 4096 (16 and 8192 x 1,048,576 probes): the probe tile,
+     bit-equality with the twin, ms beside the bound, the twin and
+     ``torch._int_mm``;
 7. holds K3 (the augmentation warp) against its plain version at the
    training shape (256 x 224 x 224 x 3, two augmentation configs) and at
    edge shapes, timed beside ``F.grid_sample``, and profiles one call at
@@ -292,6 +308,26 @@ ZOO_BATCH, ZOO_REPEATS = 64, 5
 GRAPH_ATOL = 1e-4
 
 PROFILE_TRIES = 3               # profiler sessions before a lost record counts
+# the age/gender slice: the two-model halves' input sizes (age at 192², as
+# tests/test_two_model_heads.py writes it, gender at the crops' 224²); the
+# exported halves against the one-model analyzer on the same card
+AGE_HW, GENDER_HW = 192, 224
+TWO_MODEL_TOL = {"box_px": 0.0, "age": 1e-3, "gender": 1e-4}
+TWO_MODEL_CPU_TOL = {"box_px": 1.0, "age": 1e-2, "gender": 1e-3}
+# UTKFace-named .npy set: 88 aligned 200² faces (one batch of 64 and a
+# tail) and 40 in-the-wild 240x180 (a tail); card against CPU on 16
+UTK_N, UTK_BATCH, UTK_SUBSET = 128, 64, 16
+UTK_SIZES = ((200, 200), (240, 180))
+UTK_FIRST = 88
+UTK_AGE_TOL, UTK_MALE_TOL = 1e-2, 1e-4   # years; P(male)
+ADIENCE_EDGES = (3.0, 7.0, 13.5, 22.5, 35.0, 45.5, 56.5)
+# At random init the SSR-Net merge sits on the tanh asymptote of its Δ
+# (ages near 1e18) and the WRN-16-8 logits near 1e4, where float32 rounding
+# decides the softmax; the seeded Δ and head kernels are scaled by TAME
+TAME = 1e-3
+NEW_ZOO = ("insightface_arcface", "vggface_vgg16")   # 512-d at 112², 4096-d at 224²
+KNN_WIDE = [(16, 1 << 20, 4096), (8192, 1 << 20, 4096)]
+WIDE_CHECK_STRIDE = 512         # 8192 probes: the twin checks 16 of them
 
 T_START = time.perf_counter()
 
@@ -1056,7 +1092,8 @@ def timed_analyze(analyzer, images):
             [{"bbox": list(f.bbox), "age": round(f.age, 2),
               "gender_prob": round(f.gender_prob, 4)} for f in faces[:8]]))
         for f in faces:
-            if not (np.all(np.isfinite(f.identity)) and f.identity.shape == (1024,)
+            if not (np.all(np.isfinite(f.identity))
+                    and f.identity.shape == (analyzer.heads.identity_dim,)
                     and np.isfinite(f.age) and 0.0 <= f.gender_prob <= 1.0):
                 raise AssertionError(f"image {i}: malformed face {f}")
     return float(np.median(repeats)), repeats, outputs, launches
@@ -1228,10 +1265,13 @@ def people_tree(rng, root: str):
     return paths, {k: np.asarray(v) for k, v in labels.items()}
 
 
-def identify_path(rng, model: str, params, tmp: str):
-    """``identify --model <model>`` at full width (224², 1024-d) on the
-    card, then the same ranking objects on the CPU with the card's
-    features. ``params`` are the zoo entry's (quantized for ``*_int8``)."""
+def identify_path(rng, model: str, params, tmp: str, cpu_probes=None):
+    """``identify --model <model>`` at full width (the entry's input size
+    and width) on the card, then the same ranking objects on the CPU with
+    the card's features, and the CPU's extractor on the first
+    ``cpu_probes`` probes (all by default). ``params`` are the zoo entry's
+    (quantized for ``*_int8``)."""
+    spec = zoo.MODEL_ZOO[model]
     tmp = os.path.join(tmp, model)
     paths, labels = people_tree(rng, tmp)
     gpu_ex = zoo.build_extractor(model, batch_size=8, device="cuda", params=params)
@@ -1257,7 +1297,8 @@ def identify_path(rng, model: str, params, tmp: str):
             wall = time.perf_counter() - t0
             launches = kernel_launches()
     n = sum(len(v) for v in paths.values())
-    print(f"identify --model {model}: {n} photos at 224x224 -> {feats['probe'].shape[1]}-d, "
+    print(f"identify --model {model}: {n} photos of 112x112 at "
+          f"{spec.input_size[0]}x{spec.input_size[1]} -> {feats['probe'].shape[1]}-d, "
           f"{wall * 1e3:.1f} ms on the card (extract + rank); launches "
           f"{json.dumps(launches)}; int8 accuracy "
           f"{float(np.mean(preds['cuda'] == labels['probe']))}, f32 {accs['cuda']}")
@@ -1267,7 +1308,7 @@ def identify_path(rng, model: str, params, tmp: str):
         if launches[k] <= 0:
             raise AssertionError(f"identify --model {model} launched no {k} kernel")
     if not np.all(np.isfinite(feats["gallery"])) or feats["gallery"].shape != (
-            N_PEOPLE * N_GALLERY, 1024):
+            N_PEOPLE * N_GALLERY, spec.embedding_dim):
         raise AssertionError(f"malformed features {feats['gallery'].shape}")
     # the same objects on the CPU, from the same features
     if not np.array_equal(preds["cuda"], preds["cpu"]) or accs["cuda"] != accs["cpu"]:
@@ -1278,12 +1319,14 @@ def identify_path(rng, model: str, params, tmp: str):
             rtol=1e-6):
         raise AssertionError(f"gallery cuda {idents['cuda']} vs cpu {idents['cpu']}")
     cpu_ex = zoo.build_extractor(model, batch_size=8, device="cpu", params=params)
-    cpu_feats = cpu_ex.extract_files(paths["probe"], loader=np.load)
-    cos = np.sum(cpu_feats * feats["probe"], 1) / (
-        np.linalg.norm(cpu_feats, axis=1) * np.linalg.norm(feats["probe"], axis=1))
+    probes = paths["probe"][:cpu_probes]
+    cpu_feats = cpu_ex.extract_files(probes, loader=np.load)
+    card = feats["probe"][:len(probes)]
+    cos = np.sum(cpu_feats * card, 1) / (
+        np.linalg.norm(cpu_feats, axis=1) * np.linalg.norm(card, axis=1))
     print(f"identify --model {model} cuda vs cpu: predictions and gallery answers equal; "
-          f"extractor min cosine {cos.min():.7f}, max abs "
-          f"{np.abs(cpu_feats - feats['probe']).max():.3g}")
+          f"extractor on {len(probes)} probes min cosine {cos.min():.7f}, max abs "
+          f"{np.abs(cpu_feats - card).max():.3g}")
     if not cos.min() > 0.999:
         raise AssertionError(f"extractor cuda vs cpu cosine {cos.min()}")
     return launches
@@ -2272,6 +2315,403 @@ def zoo_path(rng, tmp: str):
     return launches, numbers
 
 
+def two_model_diffs(got, want, label: str, tol=TWO_MODEL_TOL):
+    """Per-image face lists of the two-model analyzer ``got`` against
+    ``want``: the same face counts, the worst box (px), age and P(male)
+    within ``tol``, and no identity features in ``got``. Returns the worst
+    values."""
+    counts = ([len(f) for f in got], [len(f) for f in want])
+    if counts[0] != counts[1]:
+        raise AssertionError(f"{label}: face counts {counts[0]} vs {counts[1]}")
+    worst = {"box_px": 0.0, "age": 0.0, "gender": 0.0}
+    for a, b in ((a, b) for fa, fb in zip(got, want) for a, b in zip(fa, fb)):
+        if a.identity.shape != (0,):
+            raise AssertionError(f"{label}: identity of shape {a.identity.shape}")
+        worst["box_px"] = max(worst["box_px"],
+                              float(np.abs(np.subtract(a.raw_bbox, b.raw_bbox)).max()))
+        worst["age"] = max(worst["age"], abs(a.age - b.age))
+        worst["gender"] = max(worst["gender"], abs(a.gender_prob - b.gender_prob))
+    if not all(worst[k] <= tol[k] for k in worst):
+        raise AssertionError(f"{label} disagree: {worst} beyond {tol}")
+    return worst
+
+
+def device_split(rows, window_ms: float) -> dict:
+    """A profiled call's device ms by kernel group: K1, convolutions,
+    GEMMs, copies, the rest; and the busy and the window ms."""
+    groups = {"K1 crop_resize": ("crop_resize",), "convolution": ("conv", "cudnn"),
+              "gemm": ("gemm", "cutlass", "sm90_xmma", "cublas"), "copies": ("Memcpy", "Memset")}
+    split = {k: 0.0 for k in list(groups) + ["other"]}
+    for key, _, ms, on_device in rows:
+        if on_device:
+            name = next((g for g, marks in groups.items()
+                         if any(m in key for m in marks)), "other")
+            split[name] += ms
+    split["busy"] = sum(v for k, v in split.items())
+    split["window"] = window_ms
+    return split
+
+
+def two_model_path(mtcnn_params, mh_params, images, rng, tmp: str):
+    """``analyze --age-pb/--gender-pb`` at full width: the seeded multi-head
+    params split into a MobileNet-V1 alpha 1.0 age pb at 192² and a gender
+    pb at 224² (``export_age_pb``/``export_gender_pb``), compiled by the
+    graph compiler. ``analyze_with_rotations`` on the photos (timed as the
+    one-model path), exactly 3 K1 launches per ``analyze``; ``analyze_batch``
+    at batch ``BATCH`` of 640x480 photos, exactly 3 K1 launches; ``analyze``
+    and ``analyze_batch`` timed in turns with the one-model analyzer, one
+    profiled batch call of each; the halves exported at 224² equal the
+    one-model analyzer on the card (single and batch); the card against
+    the CPU on one photo. Returns (launches, numbers)."""
+    from hse_facerec_torch.core.graphdef_export import export_age_pb, export_gender_pb
+    from hse_facerec_torch.pipelines.heads import TwoModelHeads
+
+    pbs = {}
+    for name, export, size in (("age", export_age_pb, AGE_HW),
+                               ("age224", export_age_pb, GENDER_HW),
+                               ("gender", export_gender_pb, GENDER_HW)):
+        pbs[name] = os.path.join(tmp, f"{name}_{size}.pb")
+        export(mh_params, pbs[name], input_size=size)
+    two = FacialAnalyzer(mtcnn_params, device="cuda", batch_head_total=ROOMY_SLOTS,
+                         heads=TwoModelHeads(pbs["age"], pbs["gender"], "cuda"))
+    if (two.heads.age_hw, two.heads.gender_hw) != ((AGE_HW,) * 2, (GENDER_HW,) * 2):
+        raise AssertionError(f"two-model input sizes {two.heads.age_hw}, "
+                             f"{two.heads.gender_hw}")
+    median, repeats, outputs, launches = timed_analyze(two, images)
+    per_photo = []
+    for img in images:
+        reset_launches()
+        two.analyze(img)
+        torch.cuda.synchronize()
+        per_photo.append(kernel_launches()["crop_resize"])
+    photos = np.stack(smooth_images(rng, BATCH))
+    two.analyze_batch(photos)                      # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    batch_out = two.analyze_batch(photos)
+    torch.cuda.synchronize()
+    batch_launches = kernel_launches()
+    print(f"two-model analyze (age {AGE_HW}², gender {GENDER_HW}²): median "
+          f"{median:.3f} ms/image over {ANALYZE_REPEATS} repeats of {len(images)} "
+          f"images (each {[round(r, 3) for r in repeats]}); K1 launches per "
+          f"analyze {per_photo}, per analyze_batch x{BATCH} "
+          f"{batch_launches['crop_resize']}; faces per photo "
+          f"{[len(f) for f, _ in outputs]} and {[len(f) for f in batch_out]}")
+    if per_photo != [3] * len(images) or batch_launches["crop_resize"] != 3:
+        raise AssertionError("two-model path: K1 did not launch exactly 3 times "
+                             "per photo and per batch")
+    # the one-model analyzer beside it in turns (one, two, two, one): the
+    # host's load, which these host-bound paths follow, moves both alike
+    one = FacialAnalyzer(mtcnn_params, mh_params, device="cuda",
+                         batch_head_total=ROOMY_SLOTS)
+    turns = {"one": {"analyze": [], "batch": []}, "two": {"analyze": [], "batch": []}}
+    for name, an in (("one", one), ("two", two), ("two", two), ("one", one)):
+        turns[name]["analyze"].append(median_ms(
+            lambda: [an.analyze(img) for img in images]) / len(images))
+        turns[name]["batch"].append(median_ms(lambda: an.analyze_batch(photos)))
+    ms = {k: {m: float(np.mean(v)) for m, v in t.items()} for k, t in turns.items()}
+    batch_ms = ms["two"]["batch"]
+    rows, window_ms = profile_calls(lambda: two.analyze_batch(photos), 1, "crop_resize")
+    split = device_split(rows, window_ms)
+    rows1, window1 = profile_calls(lambda: one.analyze_batch(photos), 1, "crop_resize")
+    split1 = device_split(rows1, window1)
+    print(f"analyze in turns (one, two, two, one; medians of {ANALYZE_REPEATS}): "
+          f"ms/image one-model {turns['one']['analyze']}, two-model "
+          f"{turns['two']['analyze']} ({ms['two']['analyze'] / ms['one']['analyze']:.2f}x); "
+          f"analyze_batch x{BATCH} 640x480 ms one-model {turns['one']['batch']}, "
+          f"two-model {turns['two']['batch']} = {BATCH * 1e3 / batch_ms:.1f} against "
+          f"{BATCH * 1e3 / ms['one']['batch']:.1f} images/s; one profiled call, device ms "
+          "two-model " + json.dumps({k: round(v, 3) for k, v in split.items()})
+          + ", one-model " + json.dumps({k: round(v, 3) for k, v in split1.items()}))
+
+    eq = FacialAnalyzer(mtcnn_params, device="cuda", batch_head_total=ROOMY_SLOTS,
+                        heads=TwoModelHeads(pbs["age224"], pbs["gender"], "cuda"))
+    worst_single = two_model_diffs([eq.analyze(img) for img in images],
+                                   [one.analyze(img) for img in images],
+                                   "exported halves vs one-model analyze")
+    worst_batch = two_model_diffs(eq.analyze_batch(photos), one.analyze_batch(photos),
+                                  "exported halves vs one-model analyze_batch")
+    cpu = FacialAnalyzer(mtcnn_params, device="cpu",
+                         heads=TwoModelHeads(pbs["age"], pbs["gender"], "cpu"))
+    worst_cpu = two_model_diffs([two.analyze(images[0])], [cpu.analyze(images[0])],
+                                "two-model cuda vs cpu", TWO_MODEL_CPU_TOL)
+    print(f"two-model halves at 224² vs the one-model analyzer on the card: analyze "
+          f"worst {json.dumps(worst_single)}, analyze_batch x{BATCH} worst "
+          f"{json.dumps(worst_batch)}; two-model cuda vs cpu on image 0: worst "
+          f"{json.dumps(worst_cpu)}")
+    total = {k: launches[k] + batch_launches[k] for k in launches}
+    return total, {"analyze_ms_per_image": median, "turns_ms": turns,
+                   "batch_ms": batch_ms, "batch_images_per_s": BATCH * 1e3 / batch_ms,
+                   "one_model_batch_images_per_s": BATCH * 1e3 / ms["one"]["batch"],
+                   "one_model_batch_device_ms": split1,
+                   "k1_per_analyze": per_photo[0],
+                   "k1_per_batch": batch_launches["crop_resize"],
+                   "batch_device_ms": split, "worst_vs_one_model": worst_batch}
+
+
+def utk_dataset(rng, root: str):
+    """``UTK_N`` seeded UTKFace-named photos as .npy (``{age}_{gender}_
+    {race}_{n}.npy``): ``UTK_FIRST`` at the first size, the rest at the
+    second."""
+    os.makedirs(root, exist_ok=True)
+    paths = []
+    for i in range(UTK_N):
+        shape = UTK_SIZES[0] if i < UTK_FIRST else UTK_SIZES[1]
+        age, gender, race = rng.randint(1, 91), rng.randint(0, 2), rng.randint(0, 5)
+        paths.append(os.path.join(root, f"{age}_{gender}_{race}_{i:05d}.npy"))
+        np.save(paths[-1], smooth_images(rng, 1, shape)[0])
+    return paths
+
+
+def utk_backends(mh_params, tmp: str):
+    """The nine backends at their published widths, seeded: backend ->
+    (width, discrete decisions, device -> predict fn, images -> near ties
+    in the CPU's decode or None)."""
+    from hse_facerec_torch.core.graphdef_export import export_head_pb
+    from hse_facerec_torch.eval import utkface as U
+    from hse_facerec_torch.models import (arcface, bknet, inception_resnet, mobilenet_v2,
+                                          ssrnet, wide_resnet)
+
+    gen = torch.Generator().manual_seed(SEED + 61)
+    ga = arcface.init_iresnet_params(gen, depth=50, emb_dim=202)
+    ir = inception_resnet.init_inception_resnet_v1_params(gen, with_heads=True)
+    wrn = wide_resnet.init_wide_resnet_params(gen)
+    for head in ("gender", "age"):
+        wrn[head]["kernel"] = wrn[head]["kernel"] * np.float32(TAME)
+    mn2 = mobilenet_v2.init_mobilenet_v2_params(gen)
+    ssr = [ssrnet.init_ssrnet_params(gen) for _ in range(2)]
+    for p in ssr:
+        for k in (1, 2, 3):
+            p[f"stage{k}"]["delta"]["kernel"] = p[f"stage{k}"]["delta"]["kernel"] * np.float32(TAME)
+    bk = bknet.init_bknet_params(gen)
+    # the converted Adience checkpoints' graphs: MobileNet-V1 alpha 1.0 at
+    # 227² with an 8-way age and a 2-way gender softmax, in both tap styles
+    rs = np.random.RandomState(SEED + 63)
+    adience = dict(mh_params, **{h: {"kernel": (rs.randn(256, n) * 0.05).astype(np.float32),
+                                     "bias": np.zeros(n, np.float32)}
+                                 for h, n in (("age", 8), ("gender", 2))})
+    pbs = {}
+    for backend, tap_in, tap_out in (("converted_pb", "input", "prob"),
+                                     ("converted_logits_pb", "Placeholder", "logits")):
+        pbs[backend] = [os.path.join(tmp, f"{backend}_{h}.pb") for h in ("age", "gender")]
+        for path, head in zip(pbs[backend], ("age", "gender")):
+            export_head_pb(adience, path, head, "Softmax", 227, tap_in, tap_out)
+    return {
+        "ours": ("multi-head MobileNet-V1 224²", False,
+                 lambda d: U.multihead_predict_fn(mh_params, device=d)),
+        "insightface": ("IResNet-50 emb 202 112²", True,
+                        lambda d: U.insightface_predict_fn(ga, device=d),
+                        lambda batch: insightface_near_ties(ga, batch)),
+        "facenet": ("Inception-ResNet-v1 160²", False,
+                    lambda d: U.facenet_predict_fn(ir, device=d)),
+        "wide_resnet": ("WRN-16-8 64²", False,
+                        lambda d: U.wide_resnet_predict_fn(wrn, device=d)),
+        "agendernet": ("MobileNetV2 alpha 1.0 96²", False,
+                       lambda d: U.agendernet_predict_fn(mn2, device=d)),
+        "ssrnet": ("SSR-Net 64²", False, lambda d: U.ssrnet_predict_fn(*ssr, device=d)),
+        "bknet": ("BKNet 48²", True, lambda d: U.bknet_predict_fn(bk, device=d)),
+        "converted_pb": ("MobileNet-V1 227², input->prob", True,
+                         lambda d: U.converted_pb_predict_fn(*pbs["converted_pb"], device=d)),
+        "converted_logits_pb": ("MobileNet-V1 227², Placeholder->logits", True,
+                                lambda d: U.converted_logits_predict_fn(
+                                    *pbs["converted_logits_pb"], device=d)),
+    }
+
+
+def insightface_near_ties(ga, batch) -> np.ndarray:
+    """Per image of ``batch``, whether any of the gender-age decode's 101
+    two-way argmaxes is within ``UTK_AGE_TOL`` of a tie in the CPU's fc1
+    output (where the card may rightly decide the other way)."""
+    from hse_facerec_torch.models.arcface import iresnet_embed
+    from hse_facerec_torch.ops.resize import resize
+    from hse_facerec_torch.params import tree_to_torch
+
+    x = torch.from_numpy(batch).to(torch.float32)
+    h, w = x.shape[1:3]
+    if w != h:
+        pad = (0, 0, h - w, 0) if w < h else (0, 0, 0, 0, w - h, 0)
+        x = F.pad(x, pad)
+    with torch.no_grad():
+        out = iresnet_embed(tree_to_torch(ga, "cpu"), resize(x, (112, 112), "cv2_cubic"))
+    pairs = out.reshape(len(batch), 101, 2)
+    return (torch.abs(pairs[..., 0] - pairs[..., 1]) < UTK_AGE_TOL).any(dim=1).numpy()
+
+
+def utk_near_boundary(ages, male, true_ages) -> np.ndarray:
+    """Per image, whether a prediction lies within the card-vs-CPU
+    tolerance of a metric's decision boundary (a bucket edge, ±5 years,
+    the 0.6 threshold)."""
+    ages = np.asarray(ages, np.float64)
+    return ((np.abs(ages[:, None] - np.asarray(ADIENCE_EDGES)).min(1) < UTK_AGE_TOL)
+            | (np.abs(np.abs(ages - true_ages) - 5.0) < UTK_AGE_TOL)
+            | (np.abs(np.asarray(male) - 0.6) < UTK_MALE_TOL))
+
+
+def utkface_path(mh_params, rng, tmp: str):
+    """``utkface --backend <b>`` for each of the nine backends at its
+    published width: ``evaluate_age_gender`` over ``UTK_N`` seeded
+    UTKFace-named .npy photos at batch ``UTK_BATCH`` on the card (the
+    second of two passes timed: images/s, decode included), then card
+    against CPU on the first ``UTK_SUBSET`` photos: per-image ages within
+    ``UTK_AGE_TOL`` years, P(male) within ``UTK_MALE_TOL``, argmax ages and
+    hard genders equal (insightface: but for images with a near tie in its
+    decode), and the metric dicts of both devices' predictions equal over
+    the photos that lie clear of every decision boundary. Returns numbers."""
+    from hse_facerec_torch.eval.utkface import evaluate_age_gender, parse_utkface_filename
+
+    paths = utk_dataset(rng, os.path.join(tmp, "utkface"))
+    subset = paths[:UTK_SUBSET]
+    batch = np.stack([np.load(p) for p in subset])
+    row = {batch[i].tobytes(): i for i in range(UTK_SUBSET)}
+    true_ages = np.array([parse_utkface_filename(p)[0] for p in subset])
+    numbers = {}
+    for backend, (width, discrete, make, *ties) in utk_backends(mh_params, tmp).items():
+        gpu = make("cuda")
+        evaluate_age_gender(gpu, paths, UTK_BATCH, loader=np.load)     # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = evaluate_age_gender(gpu, paths, UTK_BATCH, loader=np.load)
+        seconds = time.perf_counter() - t0
+        preds = {"cuda": gpu(batch), "cpu": make("cpu")(batch)}
+        (g_age, g_male), (c_age, c_male) = preds["cuda"], preds["cpu"]
+        if not (np.all(np.isfinite(g_age)) and g_age.shape == (UTK_SUBSET,)
+                and metrics["n"] == UTK_N):
+            raise AssertionError(f"utkface {backend}: malformed {g_age.shape} {metrics}")
+        skip = ties[0](batch) if ties else np.zeros(UTK_SUBSET, bool)
+        if discrete:
+            bad = ((g_age != c_age) | (g_male != c_male)) & ~skip
+        else:
+            bad = (np.abs(g_age - c_age) > UTK_AGE_TOL) | (np.abs(g_male - c_male) > UTK_MALE_TOL)
+        if bad.any():
+            raise AssertionError(f"utkface {backend} cuda vs cpu: images {np.where(bad)[0]}: "
+                                 f"ages {g_age[bad]} vs {c_age[bad]}, P(male) "
+                                 f"{g_male[bad]} vs {c_male[bad]}")
+        near = utk_near_boundary(c_age, c_male, true_ages) | skip
+        clear = [p for p, n in zip(subset, near) if not n]
+
+        def looked_up(dev):
+            ages, male = preds[dev]
+            return lambda b: tuple(a[[row[x.tobytes()] for x in b]] for a in (ages, male))
+
+        m = {dev: evaluate_age_gender(looked_up(dev), clear, UTK_SUBSET, loader=np.load)
+             for dev in preds}
+        if m["cuda"] != m["cpu"] and not all(np.isclose(m["cuda"][k], m["cpu"][k], rtol=1e-6)
+                                             for k in m["cuda"]):
+            raise AssertionError(f"utkface {backend}: metrics cuda {m['cuda']} cpu {m['cpu']}")
+        numbers[backend] = {
+            "width": width, "images_per_s": UTK_N / seconds, "metrics": metrics,
+            "age_err": float(np.abs(g_age - c_age).max()),
+            "male_err": float(np.abs(g_male - c_male).max()),
+            "clear_of_boundaries": len(clear), "near_ties": int(skip.sum())}
+        print(f"utkface {backend} ({width}): {UTK_N} images at batch {UTK_BATCH} in "
+              f"{seconds * 1e3:.1f} ms = {UTK_N / seconds:.1f} images/s on the card; "
+              f"cuda vs cpu on {UTK_SUBSET}: max age err {numbers[backend]['age_err']:.3g}, "
+              f"P(male) {numbers[backend]['male_err']:.3g}"
+              + (f", {int(skip.sum())} near ties" if ties else "")
+              + f"; metrics equal on the {len(clear)} clear of a boundary; "
+              f"{json.dumps(metrics)}")
+    return numbers
+
+
+def new_zoo_path(rng, tmp: str):
+    """The two new zoo entries at full width from seeded params (IResNet-100
+    512-d at 112², VGG16 4096-d at 224², 553 MB, seeded once): ``identify
+    --quantized`` and the gallery (K2b and K2c at D 512 and 4096, card
+    equal to the CPU, the CPU's extractor on 4 probes), then a batch of
+    ``ZOO_BATCH`` embedded and timed. Returns (launches, numbers)."""
+    from hse_facerec_torch.models.arcface import init_iresnet_params
+    from hse_facerec_torch.models.vgg16 import init_vgg16_params
+
+    params = {"insightface_arcface": init_iresnet_params(
+                  torch.Generator().manual_seed(SEED + 71), depth=100),
+              "vggface_vgg16": init_vgg16_params(torch.Generator().manual_seed(SEED + 73))}
+    launches, numbers = [], {}
+    for name in NEW_ZOO:
+        launches.append(identify_path(rng, name, params[name], tmp, cpu_probes=4))
+        ex = zoo.build_extractor(name, batch_size=ZOO_BATCH, device="cuda",
+                                 params=params[name])
+        imgs = np.stack(smooth_images(rng, ZOO_BATCH, ex.input_size))
+        ms = median_ms(lambda: ex.extract_batch(imgs), ZOO_REPEATS)
+        feats = ex.extract_batch(imgs)
+        dim = zoo.MODEL_ZOO[name].embedding_dim
+        if feats.shape != (ZOO_BATCH, dim) or not np.all(np.isfinite(feats)):
+            raise AssertionError(f"zoo {name}: malformed embeddings {feats.shape}")
+        numbers[name] = {"ms": ms, "images_per_s": ZOO_BATCH * 1e3 / ms, "dim": dim}
+        print(f"zoo {name}: {ex.input_size[0]}x{ex.input_size[1]}, batch {ZOO_BATCH}: "
+              f"median {ms:.3f} ms = {ZOO_BATCH * 1e3 / ms:.1f} img/s over "
+              f"{ZOO_REPEATS} runs; {dim}-d")
+        del ex
+        torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def check_knn_wide(gen, knn_results):
+    """K2b/K2c at the 4096-d embedding of ``vggface_vgg16``, against 1,048,576
+    gallery rows at 16 and 8192 probes (``KNN_WIDE``): the probe tile
+    ``int8_tile`` picks, the kernels bit-equal to the twin (every probe at
+    16, every ``WIDE_CHECK_STRIDE``-th at 8192, on the operands of the
+    whole call), ms by CUDA events beside the bound, the plain twin and
+    ``torch._int_mm``; beside them the same numbers at D 512 from the K2
+    checks. Returns {shape: numbers}."""
+    dev = torch.cuda.current_device()
+    rows = {}
+    report = next((m, n, d) for name, m, n, d in KNN_SHAPES if name == KNN_REPORT)
+    for (m, n, d), key in ((report, "D512_M16"), (KNN_DESIGN, "D512_M8192")):
+        src = knn_results["knn_int8q"] if m == 16 else knn_results["design_point"]
+        rows[key] = {"tile": knn.int8_tile(m, d, dev)[0],
+                     "knn_int8q_ms": src.get("ms", src.get("knn_int8q_ms")),
+                     "knn_int8p_ms": (knn_results["knn_int8p"]["ms"] if m == 16
+                                      else src["knn_int8p_ms"]),
+                     "plain_ms": src["plain_ms"], "bound_ms": src["bound_ms"],
+                     "bound_by": src["bound_by"], "library_ms": src["library_ms"]}
+    for m, n, d in KNN_WIDE:
+        g = unit_rows(gen, n, d)
+        p = unit_rows(gen, m, d)
+        qb, sb = knn.quantize_embeddings(g)
+        del g
+        torch.cuda.empty_cache()
+        packed = knn.pack_quantized_gallery(qb, sb)
+        sub = torch.arange(0, m, 1 if m <= 16 else WIDE_CHECK_STRIDE, device="cuda")
+        for pack in (False, True):
+            want = int8_twin_rows(p, qb, sb, sub, pack)
+            for kname, got in (
+                    ("knn_int8q", knn.nearest_neighbor_int8q(p, qb, sb, pack_idx=pack)),
+                    ("knn_int8p", knn.nearest_neighbor_int8p(p, *packed, pack_idx=pack))):
+                if not same((got[0][sub], got[1][sub]), want):
+                    raise AssertionError(f"{kname} M={m} N={n} D={d} pack_idx={pack}: "
+                                         "not bit-equal to the twin")
+                knn_results[kname]["max_abs_err"] = max(
+                    knn_results[kname]["max_abs_err"],
+                    float((got[0][sub] - want[0]).abs().max()))
+            del want, got
+        iters = 20 if m <= 16 else 2
+        q_ms = cuda_ms(lambda: knn.nearest_neighbor_int8q(p, qb, sb), iters, 1)
+        p_ms = cuda_ms(lambda: knn.nearest_neighbor_int8p(p, *packed), iters, 1)
+        plain_ms = cuda_ms(lambda: knn.nearest_neighbor_int8_plain(p, qb, sb), 1, 0)
+        b_ms, b_by = bound(nbytes(p, qb) + m * 8, 2.0 * m * n * d, "int8")
+        qa = knn.quantize_embeddings(p, reciprocal=True)[0]
+        del packed
+        torch.cuda.empty_cache()
+        int_mm, why = int_mm_call(F.pad(qa, (0, 0, 0, max(0, INT_MM_MIN_ROWS - m))), qb)
+        lib_ms = cuda_ms(int_mm, iters, 1) if int_mm else None
+        del int_mm, qa, qb, p
+        torch.cuda.empty_cache()
+        tile = knn.int8_tile(m, d, dev)[0]
+        key = f"D{d}_M{m}"
+        rows[key] = {"tile": tile, "knn_int8q_ms": q_ms, "knn_int8p_ms": p_ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": lib_ms}
+        print(f"knn wide M={m} N={n} D={d}: probe tile {tile}; int8 bit-equal on "
+              f"{len(sub)} probes, both epilogues; knn_int8q {q_ms:.3f} ms, knn_int8p "
+              f"{p_ms:.3f} ms ({2.0 * m * n * d / p_ms / 1e9:.1f} T int8 ops/s), bound "
+              f"{b_ms:.3f} ms ({b_by}), torch._int_mm "
+              + (f"{lib_ms:.3f} ms" if lib_ms is not None else f"refused ({why})")
+              + (f" (probes padded to {INT_MM_MIN_ROWS} rows)" if m < INT_MM_MIN_ROWS else "")
+              + f", plain twin {plain_ms:.3f} ms")
+    print("knn by width: " + json.dumps(rows))
+    return rows
+
+
 def bound(nbytes: float, ops: float, kind: str):
     """(ms, "bytes" or "operations"): the least time the card could take
     for work that must move ``nbytes`` (each input read once, each output
@@ -2611,10 +3051,25 @@ def main() -> None:
         path_launches.append(zoo_launches)
         torch.cuda.empty_cache()
         phase_done("zoo")
+        two_launches, two_model = two_model_path(mtcnn_params, mh_params, images,
+                                                 np.random.RandomState(SEED + 59), tmp)
+        path_launches.append(two_launches)
+        phase_done("two-model analyze")
+        utk = utkface_path(mh_params, np.random.RandomState(SEED + 67), tmp)
+        torch.cuda.empty_cache()
+        phase_done("utkface, nine backends")
+        new_zoo_launches, new_zoo = new_zoo_path(np.random.RandomState(SEED + 79), tmp)
+        path_launches += new_zoo_launches
+        torch.cuda.empty_cache()
+        phase_done(f"identify and zoo on {' and '.join(NEW_ZOO)}")
     # K4 at the shapes vgg2_mobilenet_int8 gives it (192², the zoo's batch)
     pw_192 = check_pw_kernel(gen, ZOO_BATCH, False, 10, 2, size=192)
     torch.cuda.empty_cache()
     phase_done(f"K4 check at batch {ZOO_BATCH}, 192²")
+    knn_wide = check_knn_wide(torch.Generator(device="cuda").manual_seed(SEED + 83),
+                              knn_results)
+    torch.cuda.empty_cache()
+    phase_done("K2b/K2c at D 4096")
     del gpu, cpu
     torch.cuda.empty_cache()
     train_launches, train = train_path()
@@ -2653,7 +3108,11 @@ def main() -> None:
             "name": name, "route": "cuda", "source": "hse_facerec_torch/csrc/knn.cu",
             "replaces": f"hse_facerec_tf_tpu/ops/pallas/knn.py:{line}",
             "launches": launches[name], "serve_launches": serve_launches[name],
-            "equal": name != "knn_f32", **r})
+            "equal": name != "knn_f32", **r,
+            **({"widths": {k: {"tile": v["tile"], "ms": v[name + "_ms"],
+                               **{f: v.get(f) for f in ("plain_ms", "bound_ms", "bound_by",
+                                                        "library_ms")}}
+                           for k, v in knn_wide.items()}} if name != "knn_f32" else {})})
     kernels.append({
         "name": "pw_conv_int8", "route": "cuda",
         "source": "hse_facerec_torch/csrc/pw_conv.cu",
@@ -2682,6 +3141,10 @@ def main() -> None:
     print("album: " + json.dumps(album_numbers))
     print("serve: " + json.dumps(serve))
     print("zoo: " + json.dumps(zoo_numbers))
+    print("two-model: " + json.dumps(two_model))
+    print("utkface: " + json.dumps({b: {k: v for k, v in r.items() if k != "metrics"}
+                                    for b, r in utk.items()}))
+    print("zoo 512-d and 4096-d: " + json.dumps(new_zoo))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,9 +15,15 @@
   train    — train the face-ID backbone on a directory-per-identity
              dataset (augmentation on the warp kernel)
 
-Every subcommand runs on ``--device cuda`` unless asked for another. The
-two-model configuration (``--age-pb``/``--gender-pb``) is not ported. The
-HTTP server is ``python -m hse_facerec_torch.serve``.
+  utkface  — age/gender benchmark on a UTKFace-style directory, through
+             one of the reference's nine backends
+  export   — the multi-head model as a frozen pb, a quantized npz, or the
+             two-model configuration's age and gender pbs
+
+``analyze``, ``images``, ``video`` and ``webcam`` run the two-model
+configuration with ``--age-pb``/``--gender-pb`` (``--sota`` for the
+data/prob taps). Every subcommand runs on ``--device cuda`` unless asked
+for another. The HTTP server is ``python -m hse_facerec_torch.serve``.
 
 Usage: ``python -m hse_facerec_torch.cli <subcommand> ...``
 """
@@ -35,6 +41,18 @@ def _build_analyzer(args):
     from .pipelines.analyzer import FacialAnalyzer
 
     mtcnn_pb = args.mtcnn_pb or zoo.MTCNN_PB
+    if args.age_pb and args.gender_pb:
+        # two-model configuration (reference age_gender_one_model=False)
+        if args.int8_heads:
+            raise SystemExit(
+                "--int8-heads applies to the single multi-head model only; "
+                "it is not available with --age-pb/--gender-pb")
+        for path in (mtcnn_pb, args.age_pb, args.gender_pb):
+            if not os.path.exists(path):
+                sys.exit(f"error: weights not found: {path}")
+        return FacialAnalyzer.from_two_model_pbs(
+            mtcnn_pb, args.age_pb, args.gender_pb, sota=args.sota,
+            device=args.device, minsize=args.minsize, oversample=args.oversample)
     agegender_pb = args.agegender_pb or zoo.AGEGENDER_PB
     for path in (mtcnn_pb, agegender_pb):
         if not os.path.exists(path):
@@ -48,6 +66,12 @@ def _add_model_args(p, minsize=40):
     p.add_argument("--device", default="cuda")
     p.add_argument("--mtcnn-pb", default=None)
     p.add_argument("--agegender-pb", default=None)
+    p.add_argument("--age-pb", default=None,
+                   help="separate frozen age graph (two-model configuration)")
+    p.add_argument("--gender-pb", default=None,
+                   help="separate frozen gender graph (two-model configuration)")
+    p.add_argument("--sota", action="store_true",
+                   help="use_sota tensor taps (data/prob, softmax gender)")
     p.add_argument("--minsize", type=int, default=minsize)
     p.add_argument("--oversample", action="store_true",
                    help="5-crop oversampling: average age/gender over the "
@@ -215,6 +239,11 @@ def cmd_album(args):
     from .numerics import set_parity_numerics
     from .pipelines.album import AlbumOrganizer
 
+    if args.age_pb or args.gender_pb:
+        # two-model heads have no identity features (reference
+        # process_image sets features=[] there) — clustering needs them
+        sys.exit("error: album requires the one-model (multi-head) engine; "
+                 "the two-model configuration produces no identity features")
     cfg = AlbumConfig.from_file(args.config) if args.config else AlbumConfig()
     if args.threshold is not None:
         cfg.distance_threshold = args.threshold
@@ -454,6 +483,171 @@ def cmd_cluster(args):
     print(json.dumps(out, indent=2))
 
 
+def _utkface_predict(args):
+    """The selected backend's predict fn on ``--device`` (the reference's
+    9-way if/elif chain, ``utkface_test.py:22-314``, as a --backend flag).
+    Backends whose external weights are absent build from seeded random
+    ones (seed 0), with a warning."""
+    import warnings
+
+    import torch
+
+    from .eval import utkface as U
+
+    dev = args.device
+    gen = torch.Generator().manual_seed(0)
+
+    def external(init_fn):
+        path = args.weights
+        if path:
+            if not os.path.exists(path):
+                sys.exit(f"error: --weights file not found: {path}")
+            return None, path
+        warnings.warn(f"utkface backend {args.backend!r}: external weights "
+                      f"not provided (--weights); using RANDOM init — "
+                      "metrics will be meaningless.", RuntimeWarning)
+        return init_fn(), None
+
+    if args.backend == "ours":
+        from .models.multihead import import_multihead_params
+        from .models.zoo import AGEGENDER_PB
+
+        return U.multihead_predict_fn(
+            import_multihead_params(args.agegender_pb or AGEGENDER_PB), device=dev)
+    if args.backend == "insightface":
+        from .models.arcface import init_iresnet_params, iresnet_params_from_npz
+
+        p, path = external(lambda: init_iresnet_params(gen, depth=50, emb_dim=202))
+        return U.insightface_predict_fn(
+            p if p is not None else iresnet_params_from_npz(path), device=dev)
+    if args.backend == "facenet":
+        from .models.inception_resnet import (
+            inception_resnet_v1_params_from_npz, init_inception_resnet_v1_params)
+
+        p, path = external(lambda: init_inception_resnet_v1_params(gen, with_heads=True))
+        return U.facenet_predict_fn(
+            p if p is not None else inception_resnet_v1_params_from_npz(path), device=dev)
+    if args.backend == "wide_resnet":
+        from .models.wide_resnet import init_wide_resnet_params, wide_resnet_params_from_h5
+
+        p, path = external(lambda: init_wide_resnet_params(gen))
+        return U.wide_resnet_predict_fn(
+            p if p is not None else wide_resnet_params_from_h5(path), device=dev)
+    if args.backend == "agendernet":
+        from .models.mobilenet_v2 import init_mobilenet_v2_params, mobilenet_v2_params_from_h5
+
+        p, path = external(lambda: init_mobilenet_v2_params(gen))
+        return U.agendernet_predict_fn(
+            p if p is not None else mobilenet_v2_params_from_h5(path), device=dev)
+    if args.backend == "ssrnet":
+        from .models.ssrnet import init_ssrnet_params, ssrnet_params_from_h5
+
+        # the reference loads TWO h5s: a morph2 age model and a wiki gender
+        # model (utkface_test.py:263-276) — --weights / --gender-weights
+        def load(path, which):
+            if path:
+                if not os.path.exists(path):
+                    sys.exit(f"error: --{which} file not found: {path}")
+                return ssrnet_params_from_h5(path)
+            warnings.warn(f"utkface backend 'ssrnet': {which} h5 not provided;"
+                          " using RANDOM init — metrics will be meaningless.",
+                          RuntimeWarning)
+            return init_ssrnet_params(gen)
+
+        return U.ssrnet_predict_fn(load(args.weights, "weights"),
+                                   load(args.gender_weights, "gender-weights"),
+                                   device=dev)
+    if args.backend == "bknet":
+        from .models.bknet import bknet_params_from_npz, init_bknet_params
+
+        p, path = external(lambda: init_bknet_params(gen))
+        return U.bknet_predict_fn(
+            p if p is not None else bknet_params_from_npz(path), device=dev)
+    if args.backend == "converted_pb":
+        if not (args.age_pb and args.gender_pb):
+            sys.exit("error: --backend converted_pb needs --age-pb and --gender-pb")
+        return U.converted_pb_predict_fn(args.age_pb, args.gender_pb, device=dev)
+    if args.backend == "converted_logits_pb":
+        # rude-carnie tap convention (utkface_test.py:89-109)
+        if not (args.age_pb and args.gender_pb):
+            sys.exit("error: --backend converted_logits_pb needs --age-pb "
+                     "and --gender-pb")
+        return U.converted_logits_predict_fn(args.age_pb, args.gender_pb, device=dev)
+    sys.exit(f"error: unknown backend {args.backend}")
+
+
+# the first resize each backend applies itself: --host-resize must equal it
+_UTKFACE_INPUT_SIZE = {"ours": 224, "facenet": 160, "agendernet": 96, "ssrnet": 64,
+                       "wide_resnet": 64, "bknet": 48, "converted_pb": 256}
+
+
+def cmd_utkface(args):
+    from .eval.utkface import evaluate_age_gender, read_csv_split
+    from .numerics import set_parity_numerics
+
+    host_resize_to = None
+    if args.host_resize:
+        # pre-resizing is only a no-op when SIZE equals the first resize the
+        # backend itself applies; otherwise the image gets resampled twice
+        # with different effective kernels
+        if args.backend == "insightface":
+            sys.exit("error: --host-resize is invalid for the insightface "
+                     "backend (it letterboxes at the original aspect ratio)")
+        if args.backend == "converted_logits_pb":
+            # this backend resizes straight to each pb's OWN placeholder
+            # size (age and gender graphs may even differ)
+            sys.exit("error: --host-resize is unsupported for "
+                     "converted_logits_pb (input size is read from each "
+                     "pb's placeholder)")
+        want = _UTKFACE_INPUT_SIZE.get(args.backend)
+        if want is not None and args.host_resize != want:
+            sys.exit(f"error: --host-resize {args.host_resize} != the "
+                     f"{args.backend} backend's input size {want} — the "
+                     "image would be resampled twice with different kernels")
+        host_resize_to = (args.host_resize, args.host_resize)
+    set_parity_numerics()
+    predict = _utkface_predict(args)
+    if args.csv_split:
+        paths = [os.path.join(args.dataset_dir, f)
+                 for f in read_csv_split(args.dataset_dir)]
+    else:
+        paths = [os.path.join(args.dataset_dir, f)
+                 for f in sorted(os.listdir(args.dataset_dir))
+                 if f.lower().endswith((".jpg", ".jpeg", ".png"))]
+    age_range = (21, 60) if args.coral_subset else None
+    # the reference clamps predicted ages to 21-60 unconditionally on its
+    # CSV-split path (utkface_test.py:354-358), independent of any gt filter
+    clamp = (21, 60) if (args.csv_split or args.coral_subset) else None
+    result = dict(evaluate_age_gender(predict, paths, age_range=age_range,
+                                      clamp_range=clamp, host_resize_to=host_resize_to))
+    result["backend"] = args.backend
+    print(json.dumps(result, indent=2))
+
+
+def cmd_export(args):
+    """Export the multi-head model to a frozen pb, a quantized npz, or the
+    two-model configuration's age / gender pbs (the reference's conversion
+    tooling)."""
+    from .core.graphdef_export import export_age_pb, export_gender_pb, export_multihead_pb
+    from .models.multihead import import_multihead_params
+    from .models.zoo import AGEGENDER_PB
+    from .ops.quantize import save_quantized
+
+    pb = args.agegender_pb or AGEGENDER_PB
+    if not os.path.exists(pb):
+        sys.exit(f"error: weights not found: {pb}")
+    params = import_multihead_params(pb)
+    if args.format == "pb":
+        export_multihead_pb(params, args.out)
+    elif args.format == "quantized":
+        save_quantized(params, args.out)
+    elif args.format == "age_pb":     # two-model configuration halves
+        export_age_pb(params, args.out)
+    elif args.format == "gender_pb":
+        export_gender_pb(params, args.out)
+    print(f"exported ({args.format}) -> {args.out}")
+
+
 def cmd_train(args):
     """Train the face-ID backbone on a directory-per-identity dataset
     (the reference's facerec_keras_train.py recipe)."""
@@ -615,6 +809,44 @@ def main(argv=None):
                     help="feature-cache prefix (per-dataset .npz)")
     cl.add_argument("--device", default="cuda")
     cl.set_defaults(fn=cmd_cluster)
+
+    u = sub.add_parser("utkface", help="age/gender benchmark (UTKFace layout)")
+    u.add_argument("dataset_dir")
+    u.add_argument("--agegender-pb", default=None)
+    u.add_argument("--backend", default="ours",
+                   choices=["ours", "insightface", "facenet", "wide_resnet",
+                            "agendernet", "ssrnet", "bknet", "converted_pb",
+                            "converted_logits_pb"],
+                   help="the reference's 9-way backend switch "
+                        "(utkface_test.py:22-314); converted_pb = DEX-style "
+                        "input/prob taps, converted_logits_pb = rude-carnie "
+                        "Placeholder/logits taps")
+    u.add_argument("--weights", default=None,
+                   help="external checkpoint (.npz/.h5) for non-'ours' backends")
+    u.add_argument("--gender-weights", default=None,
+                   help="second checkpoint for backends with separate "
+                        "age/gender models (ssrnet)")
+    u.add_argument("--age-pb", default=None)
+    u.add_argument("--gender-pb", default=None)
+    u.add_argument("--coral-subset", action="store_true",
+                   help="restrict to ages 21-60 (CORAL protocol)")
+    u.add_argument("--csv-split", action="store_true",
+                   help="use utk_test.csv in the dataset dir "
+                        "(utkface_test.py:316-330)")
+    u.add_argument("--host-resize", type=int, default=None, metavar="SIZE",
+                   help="resize every image on the host to SIZE² before "
+                        "prediction: one batch shape for mixed-resolution "
+                        "datasets. Use the backend's input size (ours: 224). "
+                        "Invalid for letterboxing backends (insightface)")
+    u.add_argument("--device", default="cuda")
+    u.set_defaults(fn=cmd_utkface)
+
+    ex = sub.add_parser("export", help="export model weights (pb / quantized)")
+    ex.add_argument("out")
+    ex.add_argument("--format", default="pb",
+                    choices=["pb", "quantized", "age_pb", "gender_pb"])
+    ex.add_argument("--agegender-pb", default=None)
+    ex.set_defaults(fn=cmd_export)
 
     tr = sub.add_parser("train", help="train the face-ID backbone")
     tr.add_argument("train_dir")

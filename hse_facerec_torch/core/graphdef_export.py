@@ -261,16 +261,19 @@ def export_multihead_pb(params: Dict, path: str, input_size: int = 224) -> None:
         f.write(g.serialize())
 
 
-def _export_single_head_pb(params: Dict, path: str, head_key: str,
-                           act: str, input_size: int) -> None:
-    """Backbone + feats + ONE head as a frozen graph with the two-model
-    tensor names the reference's ``load_gender``/``load_age`` consume
-    (``facial_analysis.py:144-146,173-175``: ``input_1`` →
-    ``predictions/Sigmoid``/``predictions/Softmax``)."""
+def export_head_pb(params: Dict, path: str, head_key: str, act: str,
+                   input_size: int, input_name: str = "input_1",
+                   output_name: str = "") -> None:
+    """Backbone + feats + ONE head (``params[head_key]``, then ``act``) as a
+    frozen graph. The default tensor names are the two-model ones the
+    reference's ``load_gender``/``load_age`` consume (``facial_analysis.py:
+    144-146,173-175``: ``input_1`` → ``predictions/<act>``); other taps
+    (``input`` → ``prob``, ``Placeholder`` → ``logits``) give the converted
+    checkpoints' graphs that ``eval/utkface.py``'s pb backends read."""
     from ..models.mobilenet import MOBILENET_V1_BLOCKS
 
     g = GraphBuilder()
-    x = g.placeholder("input_1", [-1, input_size, input_size, 3])
+    x = g.placeholder(input_name, [-1, input_size, input_size, 3])
     backbone = params["backbone"]
 
     def conv_block(x, key, name, stride, depthwise=False):
@@ -297,7 +300,8 @@ def _export_single_head_pb(params: Dict, path: str, head_key: str,
         return g.simple("BiasAdd", f"{name}/BiasAdd", [mm, b])
 
     feats = g.simple("Relu", "feats/Relu", [dense_node("feats", pooled, "feats")])
-    g.simple(act, f"predictions/{act}", [dense_node("predictions", feats, head_key)])
+    g.simple(act, output_name or f"predictions/{act}",
+             [dense_node("predictions", feats, head_key)])
     with open(path, "wb") as f:
         f.write(g.serialize())
 
@@ -305,13 +309,13 @@ def _export_single_head_pb(params: Dict, path: str, head_key: str,
 def export_age_pb(params: Dict, path: str, input_size: int = 224) -> None:
     """Standalone frozen age graph (``input_1`` → ``predictions/Softmax``)
     from multi-head params — the two-model configuration's age half."""
-    _export_single_head_pb(params, path, "age", "Softmax", input_size)
+    export_head_pb(params, path, "age", "Softmax", input_size)
 
 
 def export_gender_pb(params: Dict, path: str, input_size: int = 224) -> None:
     """Standalone frozen gender graph (``input_1`` → ``predictions/Sigmoid``)
     from multi-head params — the two-model configuration's gender half."""
-    _export_single_head_pb(params, path, "gender", "Sigmoid", input_size)
+    export_head_pb(params, path, "gender", "Sigmoid", input_size)
 
 
 def export_resnet_embedder_pb(params: Dict, path: str,

@@ -6,8 +6,8 @@ preprocessing (normalization scheme and resize flavor per the reference's
 per-model settings), resolved into an ``EmbeddingExtractor``. An entry
 whose trained weights are absent builds from seeded random ones, with a
 ``RuntimeWarning``, as the reference does; ``weights_origin`` says which.
-``graph_extractor`` wraps any frozen pb. Only the entries whose backbone
-the port has are here; the others are listed in ``ROADMAP.md``.
+``graph_extractor`` wraps any frozen pb. Every entry of the JAX package's
+zoo is here.
 """
 
 from __future__ import annotations
@@ -29,6 +29,16 @@ VGG2_RESNET_PB = os.path.join(REFERENCE_ROOT, "models", "vgg2_resnet.pb")
 VGGFACE_RESNET50_H5 = os.environ.get(
     "HSE_FACEREC_VGGFACE_RESNET50_H5",
     os.path.join(REFERENCE_ROOT, "models", "rcmalli_vggface_tf_resnet50.h5"))
+# ArcFace r100 checkpoint as an .npz of flat MXNet param names (the MXNet
+# blob itself lives outside the repo — insightface_face_embedding.py:24).
+ARCFACE_NPZ = os.environ.get(
+    "HSE_FACEREC_ARCFACE_NPZ",
+    os.path.join(REFERENCE_ROOT, "models", "arcface_r100.npz"))
+# keras_vggface VGG16 weights (rcmalli_vggface_tf_vgg16.h5 — external blob,
+# downloaded by keras_vggface in the reference's environment).
+VGGFACE_VGG16_H5 = os.environ.get(
+    "HSE_FACEREC_VGGFACE16_H5",
+    os.path.join(REFERENCE_ROOT, "models", "rcmalli_vggface_tf_vgg16.h5"))
 
 
 @dataclasses.dataclass
@@ -40,7 +50,8 @@ class ModelSpec:
     embedding_dim: int
     build_params: Callable[[], Dict]   # numpy params in the reference's layouts
     model_fn: Callable                 # f(torch params, x NHWC) -> (N, D)
-    # extra EmbeddingExtractor options (flip_tta, l2_normalize_output, ...)
+    # extra EmbeddingExtractor options (flip_tta, l2_normalize_output,
+    # convert for a pytree that is not of layer dicts, ...)
     extractor_kwargs: Dict = dataclasses.field(default_factory=dict)
 
 
@@ -80,6 +91,18 @@ def _mobilenet_embed_int8(params, x):
     return mobilenet_embed_int8(params, x)
 
 
+def _arcface_embed(params, x):
+    from .arcface import iresnet_embed
+
+    return iresnet_embed(params, x)
+
+
+def _vgg16_embed(params, x):
+    from .vgg16 import vgg16_embed
+
+    return vgg16_embed(params, x)
+
+
 def _resnet_embed(params, x):
     from .resnet import resnet50_embed
 
@@ -95,14 +118,18 @@ def _warn_random_init(name: str, missing_path: str) -> None:
         "(e.g. 'agegender_identity').", RuntimeWarning, stacklevel=3)
 
 
+def _seed0():
+    import torch
+
+    return torch.Generator().manual_seed(0)
+
+
 def _seeded(init_fn):
     """numpy params (reference layouts) from ``init_fn`` at seed 0: random
     weights are host data, made on the CPU whatever the entry's device."""
-    import torch
-
     from ..params import to_numpy
 
-    return to_numpy(init_fn(torch.Generator().manual_seed(0), device="cpu"))
+    return to_numpy(init_fn(_seed0(), device="cpu"))
 
 
 def _vgg2_mobilenet_params():
@@ -152,6 +179,30 @@ def _vggface_resnet50_params():
     return _seeded(init_resnet50_params)
 
 
+def _arcface_params():
+    from .arcface import init_iresnet_params, iresnet_params_from_npz
+
+    if os.path.exists(ARCFACE_NPZ):
+        return iresnet_params_from_npz(ARCFACE_NPZ)
+    _warn_random_init("insightface_arcface", ARCFACE_NPZ)
+    return init_iresnet_params(_seed0(), depth=100)   # numpy already
+
+
+def _vgg16_params():
+    from .vgg16 import init_vgg16_params, vgg16_params_from_h5
+
+    if os.path.exists(VGGFACE_VGG16_H5):
+        return vgg16_params_from_h5(VGGFACE_VGG16_H5)
+    _warn_random_init("vggface_vgg16", VGGFACE_VGG16_H5)
+    return init_vgg16_params(_seed0())                 # numpy already
+
+
+def _tree_to_torch(params, device):
+    from ..params import tree_to_torch
+
+    return tree_to_torch(params, device)
+
+
 MODEL_ZOO: Dict[str, ModelSpec] = {
     # multi-head identity tap: the reference's default age/gender/id model
     # (facial_analysis.py:29-33, facerec_test.py:210 commented variant)
@@ -167,6 +218,13 @@ MODEL_ZOO: Dict[str, ModelSpec] = {
     "vgg2_resnet": ModelSpec(
         "vgg2_resnet", (224, 224), "vggface2", "pil_bilinear", 2048,
         _vgg2_resnet_params, _resnet_embed),
+    # InsightFace ArcFace-r100 112² embedder (insightface_face_embedding.py:
+    # 20-63): raw 0-255 RGB in (the model scales internally), L2-normalized
+    # output; flip-TTA off (reference self.flip=0, :23)
+    "insightface_arcface": ModelSpec(
+        "insightface_arcface", (112, 112), "none", "cv2_linear", 512,
+        _arcface_params, _arcface_embed,
+        extractor_kwargs={"l2_normalize_output": True, "convert": _tree_to_torch}),
     # the int8 serving variants (models/int8_infer.py, pointwise layers on
     # K4); same preprocessing and protocols as their f32 bases
     "agegender_identity_int8": ModelSpec(
@@ -175,6 +233,12 @@ MODEL_ZOO: Dict[str, ModelSpec] = {
     "vgg2_mobilenet_int8": ModelSpec(
         "vgg2_mobilenet_int8", (192, 192), "caffe", "pil_bilinear", 1024,
         _vgg2_mobilenet_int8_params, _mobilenet_embed_int8),
+    # keras_vggface VGG16, fc7/relu tap (facerec_test.py:344-349,
+    # facial_clustering_test.py:295-300): Keras load_img resizes with PIL
+    # NEAREST (its default interpolation), preprocess_input v1 means
+    "vggface_vgg16": ModelSpec(
+        "vggface_vgg16", (224, 224), "vggface1", "pil_nearest", 4096,
+        _vgg16_params, _vgg16_embed),
     # keras_vggface ResNet-50, avg_pool tap (facial_clustering_test.py:
     # 296-300: layers={'resnet50': 'avg_pool'}): Keras load_img resizes with
     # PIL NEAREST (its default interpolation), preprocess_input with its
@@ -202,7 +266,9 @@ def weights_origin(name: str) -> str:
         return "imported" if os.path.exists(_WEIGHT_FILES[name]) else "missing"
     files = {"vgg2_mobilenet": (VGG2_MOBILENET_H5, VGG2_MOBILENET_PB),
              "vgg2_resnet": (VGG2_RESNET_PB,),
-             "vggface_resnet50": (VGGFACE_RESNET50_H5,)}[name]
+             "vggface_resnet50": (VGGFACE_RESNET50_H5,),
+             "insightface_arcface": (ARCFACE_NPZ,),
+             "vggface_vgg16": (VGGFACE_VGG16_H5,)}[name]
     return "imported" if any(os.path.exists(f) for f in files) else "random"
 
 

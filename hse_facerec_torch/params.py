@@ -78,6 +78,36 @@ def to_torch(params: Dict, device) -> Dict:
     return out
 
 
+def normal(generator: torch.Generator, shape, std) -> np.ndarray:
+    """float32 normals of ``shape`` times ``std``, drawn from ``generator``
+    (on its device) and returned on the host: the init functions' seeded
+    weights, in the reference's layouts."""
+    return (torch.randn(tuple(shape), generator=generator, device=generator.device)
+            .cpu().numpy() * np.float32(std))
+
+
+def tree_to_torch(tree: Dict, device, layer: str = "") -> Dict:
+    """Any nested dict of numpy arrays (the backbones of ``models/{arcface,
+    bknet,inception_resnet,mobilenet_v2,ssrnet,vgg16,wide_resnet}.py``,
+    whose pytrees mix layer dicts, BN dicts and bare kernels) -> float32
+    tensors on ``device``, by rank: a 4-D kernel HWIO -> OIHW, or (H, W, C,
+    1) -> (C, 1, H, W) where its key or its layer's name starts with
+    ``dw``; a 2-D kernel (in, out) -> (out, in); anything else as it is."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out[key] = tree_to_torch(value, device, key)
+            continue
+        a = np.asarray(value, np.float32)
+        if a.ndim == 4:
+            dw = key.startswith("dw") or layer.startswith("dw")
+            a = depthwise_weight(a) if dw else conv_weight(a)
+        elif a.ndim == 2:
+            a = dense_weight(a)
+        out[key] = _tensor(a, device)
+    return out
+
+
 def _numpy_leaf(layer: str, key: str, value) -> np.ndarray:
     if not isinstance(value, torch.Tensor):
         return np.asarray(value)           # already in the reference's layout

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,7 +26,7 @@ from ..models.multihead import import_multihead_params
 from ..ops import boxes as B
 from ..ops.kernels.crop import crop_resize
 from .detector import MTCNNDetector, resolve_device, to_host
-from .heads import Int8MultiheadHeads, MultiheadHeads
+from .heads import Int8MultiheadHeads, MultiheadHeads, TwoModelHeads
 
 
 # the oversampled crops: the box and four ±10 px diagonal shifts,
@@ -43,7 +43,7 @@ class FaceResult:
     score: float
     age: float
     gender_prob: float                    # P(male)
-    identity: np.ndarray                  # (1024,) embedding
+    identity: np.ndarray                  # (1024,) embedding; (0,) two-model
     landmarks: np.ndarray                 # (10,) [x0..x4, y0..y4]
 
     def is_male(self, threshold: float = 0.6) -> bool:
@@ -102,6 +102,21 @@ class FacialAnalyzer:
                        heads=Int8MultiheadHeads(mh, device), **kwargs)
         return cls(import_mtcnn_params(mtcnn_pb), mh, **kwargs)
 
+    @classmethod
+    def from_two_model_pbs(cls, mtcnn_pb: str, age_pb: str, gender_pb: str,
+                           sota: bool = False, head_kwargs: Optional[Dict] = None,
+                           **kwargs):
+        """Two-graph configuration (reference ``age_gender_one_model=False``,
+        ``facial_analysis.py:47-54,67-71``): separate frozen age and gender
+        models, each with its own input size and tensor taps
+        (``TwoModelHeads``). Faces carry no identity features: each
+        ``FaceResult.identity`` has shape (0,)."""
+        device = resolve_device(kwargs.pop("device", "cuda"))
+        heads = TwoModelHeads(age_pb, gender_pb, device, sota=sota,
+                              **(head_kwargs or {}))
+        return cls(import_mtcnn_params(mtcnn_pb), device=device, heads=heads,
+                   **kwargs)
+
     def _dilated_geometry(self, boxes, h: int, w: int):
         """Dilate by ``bbox_dilation`` (reference :240-244): the [y1, x1,
         y2, x2] crop rects (pre-clip) and the clipped [x1, y1, x2, y2]
@@ -155,7 +170,8 @@ class FacialAnalyzer:
         # order ends on the box itself)
         ages_k = ages_v.reshape(*lead, v, k).mean(dim=-2)
         gender_k = gender_v.reshape(*lead, v, k).mean(dim=-2)
-        identity_k = identity_v.reshape(*lead, v, k, -1)[..., 0, :, :]
+        # the width is explicit: the two-model heads' identity is (n, 0)
+        identity_k = identity_v.reshape(*lead, v, k, identity_v.shape[-1])[..., 0, :, :]
         ages = torch.zeros(valid.shape, device=self.device).scatter_(-1, sel, ages_k)
         gender_prob = torch.zeros(valid.shape, device=self.device).scatter_(
             -1, sel, gender_k)
@@ -316,7 +332,7 @@ class FacialAnalyzer:
                                  for i in range(lanes)])
         else:                           # compact: (K, D) over the L·n slots
             identity = self._scatter_identity(
-                identity_k, sel, lanes * width).reshape(lanes, width, -1)
+                identity_k, sel, lanes * width).reshape(lanes, width, identity_k.shape[-1])
         results = []
         for i in range(n_valid):
             if only is not None and i not in only:

@@ -47,18 +47,21 @@ class EmbeddingExtractor:
         non-native size on the host (same weight matrices,
         ``ops.resize.resize_host``). The reference's 'auto' bounds its
         compiled programs; eager PyTorch compiles none, so it is not here.
+      convert: ``f(params, device)`` -> the tensors ``model_fn`` takes
+        (default ``params.to_torch``, for pytrees of layer dicts).
     """
 
     def __init__(self, model_fn: Callable, params, input_size: Tuple[int, int],
                  normalization: str = "caffe", resize_method: str = "pil_bilinear",
                  batch_size: int = 64, device="cuda", flip_tta: bool = False,
-                 l2_normalize_output: bool = False, host_resize: str = "never"):
+                 l2_normalize_output: bool = False, host_resize: str = "never",
+                 convert: Callable = to_torch):
         if host_resize not in ("always", "never"):
             raise ValueError(f"host_resize must be always|never, "
                              f"got {host_resize!r}")
         self.model_fn = model_fn
         self.device = resolve_device(device)
-        self.params = to_torch(params, self.device)
+        self.params = convert(params, self.device)
         self.input_size = tuple(input_size)
         self.normalization = normalization
         self.resize_method = resize_method
