@@ -92,6 +92,13 @@ kernels are built for sm_90a). It:
    - K2b/K2c at D 4096 (16 and 8192 x 1,048,576 probes): the probe tile,
      bit-equality with the twin, ms beside the bound, the twin and
      ``torch._int_mm``;
+   - align: the card's detector's landmarks through
+     ``landmarks_from_detector`` and ``align_faces`` at 112² on the card
+     and on the CPU, and faces/s at a batch of 256 faces;
+   - cascade: ``CascadeFallbackDetector`` on a synthetic LBP cascade in
+     OpenCV's format (``testing.write_lbp_cascade``: 24x24, 20 stages,
+     thresholds set on the photos) on 640x480 photos, the card's boxes
+     equal to the CPU's, ms a photo on each;
 7. holds K3 (the augmentation warp) against its plain version at the
    training shape (256 x 224 x 224 x 3, two augmentation configs) and at
    edge shapes, timed beside ``F.grid_sample``, and profiles one call at
@@ -101,7 +108,15 @@ kernels are built for sm_90a). It:
    then float32, timed, with a ``torch.profiler`` split of one step; the
    loss falls over 10 steps on one batch; one step at width 1.0 on the card
    and on the CPU from the same params agrees (loss in float32, gradients
-   in float64), and K3 agrees with the CPU's plain version.
+   in float64), and K3 agrees with the CPU's plain version;
+9. drives the age/gender trainer at the JAX bench's configuration
+   (``AgeGenderTrainer``, MobileNet-V1 alpha 1.0, 224², batch 256,
+   augmentation on K3): pairs of one age and one gender step, unfrozen at
+   lr 1e-4 and frozen, bf16 and float32, timed with exactly 2 K3 launches
+   a pair, the upload timed apart, one profiled pair with K3's share; then
+   an age and a gender step, frozen and unfrozen, on the card and on the
+   CPU from the same params and dropout masks (losses in float32, params
+   in float64, the frozen backbone and the idle head bit-identical).
 Each path runs with the launch counters set to 0 just before it and read
 just after, and fails if it did not launch its kernels.
 Weights are the shipped ones when present, seeded random ones otherwise.
@@ -157,9 +172,13 @@ from hse_facerec_torch.pipelines.gallery import EnrollmentGallery
 from hse_facerec_torch.pipelines.heads import Int8MultiheadHeads
 from hse_facerec_torch.pipelines.identification import (KNNIdentifier,
                                                         gallery_probe_eval)
-from hse_facerec_torch.testing import random_mtcnn_params, random_multihead_params
-from hse_facerec_torch.train import face_id
+from hse_facerec_torch.ops.align import align_faces, landmarks_from_detector
+from hse_facerec_torch.pipelines.cascade_fallback import CascadeFallbackDetector
+from hse_facerec_torch.testing import (random_mtcnn_params, random_multihead_params,
+                                       write_lbp_cascade)
+from hse_facerec_torch.train import age_gender, face_id
 from hse_facerec_torch.train.augment import AugmentConfig, sample_affine
+from hse_facerec_torch.train.checkpoints import flatten
 
 H, W = 480, 640
 N_IMAGES = 3
@@ -328,6 +347,20 @@ TAME = 1e-3
 NEW_ZOO = ("insightface_arcface", "vggface_vgg16")   # 512-d at 112², 4096-d at 224²
 KNN_WIDE = [(16, 1 << 20, 4096), (8192, 1 << 20, 4096)]
 WIDE_CHECK_STRIDE = 512         # 8192 probes: the twin checks 16 of them
+
+# the age/gender trainer at the JAX bench's configuration (bench.py:464-526):
+# MobileNet-V1 alpha 1.0, 224², batch 256, augmentation on, lr 1e-4 once
+# unfrozen; a pair is one age step and one gender step on one batch
+AG_BATCH, AG_SIZE, AG_WARMUP, AG_PAIRS, AG_LR = 256, 224, 2, 5, 1e-4
+# card vs CPU: one age and one gender step at width 1.0, batch 8, 64²; in
+# float64 the params within the CPU tests' step bound
+# (tests/test_torch_train_age_gender.py)
+AG_PARITY, AG_STEP_REL = (8, 64), 1e-4
+# alignment at ArcFace's 112², card vs CPU within the CPU tests' bound (its
+# elementwise float32 ops round alike on both, so they should agree bit for
+# bit); faces/s at a batch of 256
+ALIGN_SIZE, ALIGN_ATOL, ALIGN_BATCH = 112, 5e-2, 256
+CASCADE_REPEATS = 3             # timed passes of the card's cascade
 
 T_START = time.perf_counter()
 
@@ -1129,7 +1162,7 @@ def int8_analyze_path(mtcnn_params, mh_params, images, f32_outputs):
     return launches, median
 
 
-def profile_calls(fn, calls: int = 1, expect: str = ""):
+def profile_calls(fn, calls: int = 1, expect: str = "", records: int = 0):
     """``fn()`` ``calls`` times under ``torch.profiler``: every event it saw
     as (name, count, self device ms, ran on the device) rows, and the
     calls' span on the card by CUDA events, per call, the profiler's own
@@ -1140,15 +1173,18 @@ def profile_calls(fn, calls: int = 1, expect: str = ""):
     is the sentinel's. A session can also lose every kernel record (the
     first K4 layer's, an H100 run) or half of them (K4's layers at batch
     1024 often kept 5 of 10, another H100 run): a session that saw fewer than
-    ``calls`` device kernels whose name holds ``expect`` runs again, up to
-    ``PROFILE_TRIES`` sessions in all, and the last one's rows return."""
+    ``records`` (by default ``calls``) device kernels whose name holds
+    ``expect`` runs again, up to ``PROFILE_TRIES`` sessions in all, and the
+    last one's rows return."""
+    records = records or calls
     for attempt in range(1, PROFILE_TRIES + 1):
         rows, span = _profile_once(fn, calls)
         seen = sum(n for key, n, _, on_device in rows if on_device and expect in key)
-        if seen >= calls:
+        if seen >= records:
             break
         print(f"profiler session {attempt} of {PROFILE_TRIES} saw {seen} device "
-              f"kernel records{f' of {expect}' if expect else ''} in {calls} calls")
+              f"kernel records{f' of {expect}' if expect else ''} of {records} in "
+              f"{calls} calls")
     return rows, span
 
 
@@ -1767,10 +1803,11 @@ def record_boxes(org):
     return boxes
 
 
-def album_faces_diffs(got, want, label: str, crops_atol: int = 1):
+def album_faces_diffs(got, want, label: str):
     """Two scans' ``AlbumFaces``: the same faces photo for photo, born
-    years, P(male) and identities within ``ALBUM_TOL``, crops within
-    ``crops_atol`` levels. Returns the worst values."""
+    years, P(male) and identities within ``ALBUM_TOL``, crops equal (the
+    host resizes each box's pixels in cv2's uint8 fixed point). Returns the
+    worst values."""
     if got.files != want.files or got.indices != want.indices:
         raise AssertionError(f"{label}: faces per photo differ")
     worst = {"age": float(np.abs(got.born_years - want.born_years).max(initial=0.0)),
@@ -1781,7 +1818,7 @@ def album_faces_diffs(got, want, label: str, crops_atol: int = 1):
                                 default=0)}
     if not (worst["age"] <= ALBUM_TOL["age"] and worst["gender"] <= ALBUM_TOL["gender"]
             and worst["min_cos"] > ALBUM_TOL["min_cos"]
-            and worst["crop_levels"] <= crops_atol
+            and worst["crop_levels"] == 0
             and got.private_photo_indices == want.private_photo_indices):
         raise AssertionError(f"{label}: {worst} beyond {ALBUM_TOL}")
     return worst
@@ -1928,7 +1965,7 @@ def album_path(gpu, cpu, rng, batch_ips: float):
         faces_one = one.scan_album(album, use_cache=False)
         torch.cuda.synchronize()
         one_s = time.perf_counter() - t0
-        worst_workers = album_faces_diffs(faces, faces_one, "2 vs 1 flush workers", 0)
+        worst_workers = album_faces_diffs(faces, faces_one, "2 vs 1 flush workers")
 
         # the card against the CPU on a subset, both organizers
         subset_dir = os.path.join(root, "subset")
@@ -2822,22 +2859,28 @@ def timed_train(trainer, x, y):
     return ms, losses, torch.cuda.max_memory_allocated() / 2 ** 30, launches
 
 
-def train_profile_split(trainer, x, y):
-    """One train step on a batch already on the card (the upload is timed
-    apart) under ``torch.profiler``: device time grouped by the
-    aten op that launched each kernel (``TRAIN_OP_GROUPS``; K3 by kernel
-    name; the rest, mostly BN, ReLU6 and other elementwise and reduction
-    passes, under "BN, ReLU6 and elementwise"), and the device-busy share:
-    kernel time over the step's span on the card (CUDA events)."""
-    rows, window_ms = profile_calls(lambda: trainer.train_batch(x, y))
+def train_profile_split(step, k3_launches: int,
+                        label: str = "train step profile (bf16, batch 256)"):
+    """One ``step()`` (a train step, or an age/gender pair, on a batch
+    already on the card: the upload is timed apart) that launches K3
+    ``k3_launches`` times, under ``torch.profiler``: device time grouped by
+    the aten op that launched each kernel (``TRAIN_OP_GROUPS``; K3 by
+    kernel name; the rest, mostly BN, ReLU6 and other elementwise and
+    reduction passes, under "BN, ReLU6 and elementwise"), and the
+    device-busy share: kernel time over the step's span on the card (CUDA
+    events). A session that kept fewer K3 records than launches runs
+    again (``profile_calls``); if the last one still did, the split is not
+    measured."""
+    rows, window_ms = profile_calls(step, 1, "warp_kernel", k3_launches)
     groups = {name: 0.0 for name, _ in TRAIN_OP_GROUPS}
-    busy_ms, k3_ms, kernels, rest = 0.0, 0.0, [], {}
+    busy_ms, k3_ms, k3_records, kernels, rest = 0.0, 0.0, 0, [], {}
     for key, count, ms, on_device in rows:
         if on_device:
             busy_ms += ms
             kernels.append((ms, count, key[:140]))
             if "warp_kernel" in key:
                 k3_ms += ms
+                k3_records += count
         elif ms > 0:
             name = next((g for g, marks in TRAIN_OP_GROUPS
                          if any(key.startswith(m) for m in marks)), None)
@@ -2845,21 +2888,23 @@ def train_profile_split(trainer, x, y):
                 groups[name] += ms
             else:
                 rest[key] = rest.get(key, 0.0) + ms
-    if busy_ms == 0.0:
-        print("train profile: the profiler saw no device kernels; split not measured")
+    if busy_ms == 0.0 or k3_records != k3_launches:
+        print(f"{label}: the profiler kept {k3_records} K3 records of {k3_launches} "
+              f"launches and {busy_ms:.3f} ms of kernels; split not measured")
         return None
     groups["K3 warp_kernel"] = k3_ms
     groups["BN, ReLU6 and elementwise"] = busy_ms - sum(groups.values())
     split = {k: {"ms": round(v, 3), "share": round(v / busy_ms, 4)}
              for k, v in sorted(groups.items(), key=lambda kv: -kv[1])}
-    print("train step profile (bf16, batch 256, on the card): " + json.dumps(split))
+    print(f"{label}, on the card: " + json.dumps(split))
     for us, n, key in sorted(kernels, reverse=True)[:15]:
         print(f"  {us:9.3f} ms {n:4d}x {key}")
-    print("train profile, the other ops by self device ms: " + json.dumps(
+    print(f"{label}, the other ops by self device ms: " + json.dumps(
         {k: round(v, 3) for k, v in sorted(rest.items(), key=lambda kv: -kv[1])[:12]}))
-    print(f"train profile: kernels {busy_ms:.3f} ms of a {window_ms:.3f} ms step "
+    print(f"{label}: kernels {busy_ms:.3f} ms of a {window_ms:.3f} ms span "
           f"(device busy {busy_ms / window_ms:.4f})")
-    return {"split": split, "busy_share": busy_ms / window_ms}
+    return {"split": split, "busy_share": busy_ms / window_ms, "span_ms": window_ms,
+            "k3_records": k3_records}
 
 
 def train_path():
@@ -2881,8 +2926,9 @@ def train_path():
               f"{TRAIN_CLASSES} classes: {ms:.3f} ms/step, {ips:.1f} img/s over "
               f"{TRAIN_STEPS} steps; losses {[round(v, 4) for v in losses]}; peak "
               f"memory {peak:.2f} GiB; K3 launches per step {per_step}")
-        if per_step < 1:
-            raise AssertionError(f"train {label}: K3 launched {per_step} times a step")
+        if per_step != 1:
+            raise AssertionError(f"train {label}: K3 launched {per_step} times a step, "
+                                 "not 1")
         if not all(np.isfinite(losses)):
             raise AssertionError(f"train {label}: losses {losses}")
         results[label] = {"ms_per_step": ms, "img_per_s": ips, "peak_gib": peak}
@@ -2893,8 +2939,8 @@ def train_path():
             print(f"train: upload of the {x.nbytes / 1e6:.1f} MB f32 batch from "
                   f"pageable host memory {upload_ms:.3f} ms")
             results["upload_ms"] = upload_ms
-            results["profile"] = train_profile_split(
-                trainer, torch.as_tensor(x, device="cuda"), torch.as_tensor(y, device="cuda"))
+            xd, yd = torch.as_tensor(x, device="cuda"), torch.as_tensor(y, device="cuda")
+            results["profile"] = train_profile_split(lambda: trainer.train_batch(xd, yd), 1)
         del trainer
         torch.cuda.empty_cache()
     trainer = face_id.FaceIdTrainer(TRAIN_CLASSES, seed=SEED, augment=None,
@@ -2956,6 +3002,265 @@ def train_cuda_vs_cpu():
         raise AssertionError(f"train cuda vs cpu: loss {loss_rel}, gradients {worst}, "
                              f"warp {warp_err}")
 
+
+
+def timed_pairs(trainer, x, ages, genders):
+    """``AG_WARMUP`` age/gender pairs, then ``AG_PAIRS`` timed (host clock,
+    synced) on a batch already on the card; returns ms a pair, the last
+    pair's losses, the peak memory and the launches of the timed pairs."""
+    for _ in range(AG_WARMUP):
+        trainer.age_step(x, ages)
+        trainer.gender_step(x, genders)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(AG_PAIRS):
+        m = {**trainer.age_step(x, ages), **trainer.gender_step(x, genders)}
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / AG_PAIRS
+    launches = kernel_launches()
+    losses = [float(m["age_loss"]), float(m["gender_loss"])]
+    return ms, losses, torch.cuda.max_memory_allocated() / 2 ** 30, launches
+
+
+def age_gender_train_path():
+    """``AgeGenderTrainer`` at the JAX bench's configuration: pairs of one
+    age step and one gender step (augmentation on K3 in each), unfrozen at
+    ``AG_LR`` and frozen, bf16 and float32, timed with exactly 2 K3
+    launches a pair; the batch's upload timed apart; one profiled unfrozen
+    bf16 pair split by launching op, with K3's share."""
+    rng = np.random.RandomState(SEED + 89)
+    x = rng.rand(AG_BATCH, AG_SIZE, AG_SIZE, 3).astype(np.float32)
+    ages, genders = rng.randint(0, 100, AG_BATCH), rng.randint(0, 2, AG_BATCH)
+    upload_ms = cuda_ms(lambda: torch.as_tensor(x, device="cuda"), 3, 1)
+    print(f"age/gender: upload of the {x.nbytes / 1e6:.1f} MB f32 batch from pageable "
+          f"host memory {upload_ms:.3f} ms")
+    xd = torch.as_tensor(x, device="cuda")
+    ad = torch.as_tensor(ages, device="cuda")
+    gd = torch.as_tensor(genders, device="cuda")
+    results, path_launches = {"upload_ms": upload_ms}, []
+    for phase in ("unfrozen", "frozen"):
+        for label, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            trainer = age_gender.AgeGenderTrainer(seed=SEED, device="cuda",
+                                                  compute_dtype=dtype)
+            if phase == "unfrozen":
+                trainer.unfreeze(AG_LR)
+            ms, losses, peak, launches = timed_pairs(trainer, xd, ad, gd)
+            path_launches.append(launches)
+            per_pair = launches["warp_batch"] / AG_PAIRS
+            ips = AG_BATCH / (ms / 1e3)
+            print(f"age/gender {phase} {label}: MobileNet-V1 1.0, {AG_SIZE}², batch "
+                  f"{AG_BATCH}: {ms:.3f} ms a pair, {ips:.1f} img/s (each image once a "
+                  f"pair) over {AG_PAIRS} pairs; last losses {[round(v, 4) for v in losses]}; "
+                  f"peak memory {peak:.2f} GiB; K3 launches per pair {per_pair}")
+            if per_pair != 2:
+                raise AssertionError(f"age/gender {phase} {label}: K3 launched {per_pair} "
+                                     "times a pair, not 2")
+            if not all(np.isfinite(losses)):
+                raise AssertionError(f"age/gender {phase} {label}: losses {losses}")
+            results[f"{phase}_{label}"] = {"ms_per_pair": ms, "img_per_s": ips,
+                                           "peak_gib": peak}
+            if phase == "unfrozen" and label == "bf16":
+                def pair():
+                    trainer.age_step(xd, ad)
+                    trainer.gender_step(xd, gd)
+                results["profile"] = train_profile_split(
+                    pair, 2, f"age/gender pair profile (unfrozen, bf16, batch {AG_BATCH})")
+            del trainer
+            torch.cuda.empty_cache()
+    return path_launches, results
+
+
+def _snapshot(params) -> dict:
+    return {k: np.array(v) for k, v in flatten(to_numpy(params)).items()}
+
+
+def age_gender_parity_run(params, dev, dtype, frozen: bool, task: str, x, labels, masks):
+    """One ``task`` step on ``dev`` from the reference-layout ``params``,
+    with the given dropout masks and augmentation off: the loss, the params
+    before and after, and the task's first moments."""
+    tp = to_torch(params, dev)
+    opt = age_gender.make_optimizer(1e-3 if frozen else AG_LR, frozen, task=task)
+    steps = dict(zip(age_gender.TASKS, age_gender.make_steps(
+        opt, opt, freeze_backbone=frozen, compute_dtype=dtype)))
+    state = opt.init(tp)
+    before = _snapshot(tp)
+    m = steps[task](tp, state, None, x.to(dev), labels.to(dev),
+                    masks=tuple(mm.to(dev) for mm in masks))[2]
+    return (float(m[f"{task}_loss"]), before, _snapshot(tp),
+            flatten(to_numpy(state["mu"])))
+
+
+def age_gender_chained_run(params, dev, dtype, frozen: bool, x, labels, masks) -> float:
+    """An age step, then a gender step from the params it left, on
+    ``dev``: the gender step's loss."""
+    tp = to_torch(params, dev)
+    opts = {t: age_gender.make_optimizer(1e-3 if frozen else AG_LR, frozen, task=t)
+            for t in age_gender.TASKS}
+    steps = dict(zip(age_gender.TASKS, age_gender.make_steps(
+        opts["age"], opts["gender"], freeze_backbone=frozen, compute_dtype=dtype)))
+    for task in ("age", "gender"):
+        m = steps[task](tp, opts[task].init(tp), None, x.to(dev), labels[task].to(dev),
+                        masks=tuple(mm.to(dev) for mm in masks))[2]
+    return float(m["gender_loss"])
+
+
+def age_gender_cuda_vs_cpu():
+    """An age step and a gender step, each from the same params, inputs
+    and dropout masks on the card and on the CPU, frozen and unfrozen, at
+    width 1.0, batch 8, 64², augmentation off. float32: the losses within
+    ``LOSS_REL``, the params' relative error printed (in float32 the two
+    devices' 1e-7 differences flip ReLU6's gradient mask at ties, and
+    Adam's first step moves a parameter by ±lr whatever its gradient's
+    size). float64: the params within ``AG_STEP_REL`` where the step's
+    first moments are above 1e-4 of their tensor's largest. On the card
+    the frozen backbone and the idle head stay bit-identical. Then the
+    gender loss after an age step, chained on each device, printed and not
+    bounded: the age step's ±lr moves of noise-level elements differ
+    between the devices, so the gender step starts from different params
+    (unfrozen float32, 1.7e-5 apart on an H100 run)."""
+    backbone = to_numpy(init_mobilenet_params(torch.Generator().manual_seed(SEED + 97),
+                                              device="cpu"))
+    heads = to_numpy(age_gender.init_head_params(torch.Generator().manual_seed(SEED + 98),
+                                                 device="cpu"))
+    params = {"backbone": backbone, **heads}
+    rng = np.random.RandomState(SEED + 99)
+    n, size = AG_PARITY
+    x = torch.from_numpy(rng.rand(n, size, size, 3).astype(np.float32))
+    labels = {"age": torch.from_numpy(rng.randint(0, 100, n)),
+              "gender": torch.from_numpy(rng.randint(0, 2, n).astype(np.float32))}
+    masks = tuple(torch.from_numpy(rng.rand(n, d) < 0.5) for d in (1024, 256))
+    report = {}
+    for frozen in (True, False):
+        phase = "frozen" if frozen else "unfrozen"
+        for label, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+            for task, other in (("age", "gender"), ("gender", "age")):
+                (g_loss, before, g_after, _), (c_loss, _, c_after, c_mu) = (
+                    age_gender_parity_run(params, dev, dtype, frozen, task, x, labels[task],
+                                          masks) for dev in ("cuda", "cpu"))
+                moved = {k for k in before if not np.array_equal(before[k], g_after[k])}
+                if any(k.startswith(other + "/") for k in moved):
+                    raise AssertionError(f"age/gender {phase} {label}: the {task} step moved "
+                                         f"the {other} head on the card")
+                if frozen and any(k.startswith("backbone/") for k in moved):
+                    raise AssertionError(f"age/gender {phase} {label}: a frozen {task} step "
+                                         "moved the backbone on the card")
+                loss_rel = abs(g_loss - c_loss) / abs(c_loss)
+                rel = {k: rel_l2_t(torch.from_numpy(g_after[k]), torch.from_numpy(c_after[k]))
+                       for k in c_after}
+                worst = max(rel, key=rel.get)
+                big_rel = 0.0
+                for k, mu in c_mu.items():
+                    big = np.abs(mu) > 1e-4 * np.abs(mu).max()
+                    if big.any():
+                        big_rel = max(big_rel, rel_l2_t(torch.from_numpy(g_after[k][big]),
+                                                        torch.from_numpy(c_after[k][big])))
+                report[f"{phase}_{label}_{task}"] = {
+                    "loss_rel": loss_rel, "params_rel": rel[worst],
+                    "params_rel_big_moments": big_rel, "moved": len(moved)}
+                print(f"age_gender cuda vs cpu ({phase}, {label}, {task} step, width 1.0, "
+                      f"batch {n}, {size}²): loss {g_loss:.7g} vs {c_loss:.7g}, rel "
+                      f"{loss_rel:.3g}; params' worst rel L2 {rel[worst]:.3g} ({worst}), "
+                      f"{big_rel:.3g} where the moments are above 1e-4 of the largest; "
+                      f"{len(moved)} tensors moved on the card, the {other} head"
+                      + (" and the backbone" if frozen else "") + " bit-identical")
+                if not loss_rel <= LOSS_REL:
+                    raise AssertionError(f"age_gender cuda vs cpu {phase} {label} {task}: "
+                                         f"loss {loss_rel}")
+                if label == "f64" and not big_rel <= AG_STEP_REL:
+                    raise AssertionError(f"age_gender cuda vs cpu {phase} {label} {task}: "
+                                         f"params {big_rel}")
+            g_loss, c_loss = (age_gender_chained_run(params, dev, dtype, frozen, x, labels,
+                                                     masks) for dev in ("cuda", "cpu"))
+            chain_rel = abs(g_loss - c_loss) / abs(c_loss)
+            report[f"{phase}_{label}_chained_gender_loss_rel"] = chain_rel
+            print(f"age_gender cuda vs cpu ({phase}, {label}, chained, width 1.0, batch "
+                  f"{n}, {size}²): the gender loss after an age step {g_loss:.7g} vs "
+                  f"{c_loss:.7g}, rel {chain_rel:.3g} (printed, not bounded)")
+    return report
+
+
+def align_path(gpu, images):
+    """The card's detector's landmarks through ``landmarks_from_detector``
+    and ``align_faces`` at ``ALIGN_SIZE``², on the card and on the CPU
+    (within ``ALIGN_ATOL``); then faces/s at a batch of ``ALIGN_BATCH``
+    faces of one photo (its faces' landmarks, each with seeded sub-pixel
+    jitter), CUDA events."""
+    faces, worst, first, equal, values = 0, 0.0, None, 0, 0
+    for img in images:
+        boxes, points = gpu.detector.detect(img)
+        if len(boxes) == 0:
+            continue
+        lmk = landmarks_from_detector(points.T)
+        got = align_faces(img, lmk, ALIGN_SIZE, device="cuda").cpu()
+        want = align_faces(img, lmk, ALIGN_SIZE, device="cpu")
+        worst = max(worst, float((got - want).abs().max()))
+        equal += int((got == want).sum())
+        values += want.numel()
+        faces += len(boxes)
+        first = first or (img, lmk)
+    if faces == 0:
+        raise AssertionError("align: the detector found no face on the smoke's photos")
+    img, lmk = first
+    rng = np.random.RandomState(SEED + 101)
+    batch = (np.resize(lmk, (ALIGN_BATCH, 5, 2))
+             + rng.uniform(-0.5, 0.5, (ALIGN_BATCH, 5, 2))).astype(np.float32)
+    img_d = torch.as_tensor(img, device="cuda")
+    lmk_d = torch.as_tensor(batch, device="cuda")
+    ms = cuda_ms(lambda: align_faces(img_d, lmk_d, ALIGN_SIZE, device="cuda"), 10)
+    fps = ALIGN_BATCH / (ms / 1e3)
+    print(f"align: {faces} faces on {len(images)} photos, {ALIGN_SIZE}², card vs CPU max "
+          f"abs err {worst:.3g} (0-255), {equal / values:.6f} of values bit-equal; a "
+          f"batch of {ALIGN_BATCH} faces {ms:.3f} ms = {fps:.1f} faces/s")
+    if not worst <= ALIGN_ATOL:
+        raise AssertionError(f"align: card vs CPU max abs err {worst} > {ALIGN_ATOL}")
+    return {"faces": faces, "max_abs_err": worst, "bit_equal_share": equal / values,
+            "batch_ms": ms, "faces_per_s": fps}
+
+
+def cascade_path(images, rng, tmp: str):
+    """A synthetic LBP cascade in the format of OpenCV's
+    ``lbpcascade_frontalface.xml`` (``testing.write_lbp_cascade``: a 24x24
+    window, 20 stages, thresholds set on the smoke's photos) through
+    ``CascadeFallbackDetector`` on the card and on the CPU, on those photos
+    and two fresh ones: the boxes equal, the detect contract held; ms a
+    photo on each (host clock; the card's the median of
+    ``CASCADE_REPEATS`` passes)."""
+    t0 = time.perf_counter()
+    xml = write_lbp_cascade(os.path.join(tmp, "lbpcascade_synthetic.xml"), images,
+                            seed=SEED)
+    write_s = time.perf_counter() - t0
+    photos = list(images) + smooth_images(rng, 2)
+    gpu_det = CascadeFallbackDetector(xml, device="cuda")
+    cpu_det = CascadeFallbackDetector(xml, device="cpu")
+    t0 = time.perf_counter()
+    cpu_out = [cpu_det.detect(img) for img in photos]
+    cpu_ms = (time.perf_counter() - t0) * 1e3 / len(photos)
+    gpu_out = [gpu_det.detect(img) for img in photos]       # the first pass warms up
+    passes = []
+    for _ in range(CASCADE_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for img in photos:
+            gpu_det.detect(img)
+        passes.append((time.perf_counter() - t0) * 1e3 / len(photos))
+    gpu_ms = float(np.median(passes))
+    groups = []
+    for (gb, gp), (cb, cp) in zip(gpu_out, cpu_out):
+        if gb.shape != (len(gb), 5) or gp.shape != (10, len(gb)) or gp.any():
+            raise AssertionError(f"cascade: detect returned {gb.shape}, {gp.shape}")
+        if not np.array_equal(gb, cb):
+            raise AssertionError("cascade: the card's boxes differ from the CPU's")
+        groups.append(len(gb))
+    if sum(groups[:len(images)]) == 0:
+        raise AssertionError("cascade: no group on the photos the cascade was set on")
+    print(f"cascade: synthetic 20-stage LBP cascade (written and set in {write_s:.2f} s); "
+          f"{len(photos)} photos at {photos[0].shape[1]}x{photos[0].shape[0]}: groups "
+          f"{groups}, boxes equal card vs CPU; {gpu_ms:.3f} ms/photo on the card (median "
+          f"of {CASCADE_REPEATS} passes {[round(v, 3) for v in passes]}), {cpu_ms:.3f} "
+          "ms/photo on the CPU")
+    return {"groups": groups, "ms_per_photo": gpu_ms, "cpu_ms_per_photo": cpu_ms}
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -3070,6 +3375,11 @@ def main() -> None:
                               knn_results)
     torch.cuda.empty_cache()
     phase_done("K2b/K2c at D 4096")
+    aligned = align_path(gpu, images)
+    phase_done("align")
+    with tempfile.TemporaryDirectory() as tmp:
+        cascade = cascade_path(images, np.random.RandomState(SEED + 103), tmp)
+    phase_done("cascade")
     del gpu, cpu
     torch.cuda.empty_cache()
     train_launches, train = train_path()
@@ -3077,6 +3387,11 @@ def main() -> None:
     phase_done("train bf16 and f32")
     train_cuda_vs_cpu()
     phase_done("train cuda vs cpu")
+    ag_launches, ag_train = age_gender_train_path()
+    path_launches += ag_launches
+    phase_done("age/gender train, unfrozen and frozen, bf16 and f32")
+    ag_parity = age_gender_cuda_vs_cpu()
+    phase_done("age_gender cuda vs cpu")
     launches = {k: sum(p[k] for p in path_launches) for k in path_launches[0]}
 
     # crop: the sums over the three single-image call sites, i.e. one image's
@@ -3131,7 +3446,10 @@ def main() -> None:
         "name": "warp_batch", "route": "cuda",
         "source": "hse_facerec_torch/csrc/warp.cu",
         "replaces": "hse_facerec_tf_tpu/ops/pallas/warp.py:166",
-        "launches": launches["warp_batch"], **warp_result})
+        "launches": launches["warp_batch"],
+        "launches_per_face_id_step": max(n["warp_batch"] for n in train_launches) / TRAIN_STEPS,
+        "launches_per_age_gender_pair": max(n["warp_batch"] for n in ag_launches) / AG_PAIRS,
+        **warp_result})
     print(f"int8 serving: analyze --int8-heads median {int8_median:.3f} ms/image "
           f"(f32 heads {median:.3f}); embed batch {EMBED_BATCH} "
           + json.dumps({k: round(v, 1) for k, v in embed["ips"].items()}) + " img/s")
@@ -3145,6 +3463,10 @@ def main() -> None:
     print("utkface: " + json.dumps({b: {k: v for k, v in r.items() if k != "metrics"}
                                     for b, r in utk.items()}))
     print("zoo 512-d and 4096-d: " + json.dumps(new_zoo))
+    print("age/gender train: " + json.dumps(ag_train))
+    print("age_gender cuda vs cpu: " + json.dumps(ag_parity))
+    print("align: " + json.dumps(aligned))
+    print("cascade: " + json.dumps(cascade))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,13 @@ from ..pipelines.embedder import EmbeddingExtractor
 from ..utils.image_io import get_files
 
 
+def load_class_filter(classes_file: str) -> set:
+    """LFW∩YTF class list (reference :379-380, ``lfw_ytf_classes.txt``):
+    one class name a line, blank lines skipped."""
+    with open(classes_file) as f:
+        return {line.strip() for line in f if line.strip()}
+
+
 def extract_dataset_features(dataset_dir: str, extractor: EmbeddingExtractor,
                              cache_file: Optional[str] = None,
                              class_filter: Optional[set] = None,

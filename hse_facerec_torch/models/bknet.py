@@ -18,17 +18,16 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..ops.resize import resize_linear_u8
 from ..params import normal
 from .layers import conv2d, dense
 
 BKNET_BLOCKS = (32, 64, 128)
 INPUT_SIZE = 48
 
-# cv2's fixed-point RGB -> gray (15-bit weights) and INTER_LINEAR on uint8
-# (INTER_RESIZE_COEF_BITS 11)
+# cv2's fixed-point RGB -> gray (15-bit weights)
 _GRAY_SHIFT = 15
 _R2Y, _G2Y, _B2Y = 9798, 19235, 3735
-_COEF_SCALE = 1 << 11
 
 
 def bknet_apply(params: Dict, x) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -54,48 +53,6 @@ def _rgb_to_gray_u8(img: np.ndarray) -> np.ndarray:
     x = img.astype(np.int32)
     y = x[..., 0] * _R2Y + x[..., 1] * _G2Y + x[..., 2] * _B2Y
     return ((y + (1 << (_GRAY_SHIFT - 1))) >> _GRAY_SHIFT).astype(np.uint8)
-
-
-def _linear_taps_u8(src: int, dst: int):
-    """cv2 INTER_LINEAR taps for uint8: per output index the source index
-    and the two short weights (a float32 fraction times 2048, rounded half
-    to even), with cv2's edge rules (a tap left of 0 or at the last pixel
-    takes all the weight)."""
-    scale = src / dst
-    fx = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
-    sx = np.floor(fx).astype(np.int64)
-    fx = fx - sx.astype(np.float32)
-    low = sx < 0
-    fx[low], sx[low] = 0.0, 0
-    high = sx >= src - 1
-    fx[high], sx[high] = 0.0, src - 1
-    a1 = np.rint(fx * np.float32(_COEF_SCALE)).astype(np.int64)
-    a0 = np.rint((np.float32(1.0) - fx) * np.float32(_COEF_SCALE)).astype(np.int64)
-    return sx, a0, a1
-
-
-def resize_linear_u8(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
-    """``cv2.resize(img, (out_w, out_h))`` (INTER_LINEAR) of a 2-D uint8
-    image in cv2's fixed-point arithmetic: rows of int sums of source x
-    weight, then the vertical pass ``((b0·(S0 >> 4)) >> 16) + ((b1·(S1 >>
-    4)) >> 16) + 2) >> 2``, the form its scalar and vector paths share."""
-    h, w = img.shape
-    oh, ow = out_hw
-    if (h, w) == (oh, ow):
-        return img.copy()
-    x = img.astype(np.int64)
-    sx, a0, a1 = _linear_taps_u8(w, ow)
-    rows = x[:, sx] * a0 + x[:, np.minimum(sx + 1, w - 1)] * a1   # (h, ow)
-    scale = h / oh
-    fy = ((np.arange(oh) + 0.5) * scale - 0.5).astype(np.float32)
-    sy = np.floor(fy).astype(np.int64)
-    fy = fy - sy.astype(np.float32)
-    b0 = np.rint((np.float32(1.0) - fy) * np.float32(_COEF_SCALE)).astype(np.int64)
-    b1 = np.rint(fy * np.float32(_COEF_SCALE)).astype(np.int64)
-    s0 = rows[np.clip(sy, 0, h - 1)] >> 4
-    s1 = rows[np.clip(sy + 1, 0, h - 1)] >> 4
-    out = (((b0[:, None] * s0) >> 16) + ((b1[:, None] * s1) >> 16) + 2) >> 2
-    return np.clip(out, 0, 255).astype(np.uint8)
 
 
 def preprocess_bknet(images_rgb: np.ndarray) -> np.ndarray:

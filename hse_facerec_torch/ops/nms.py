@@ -4,11 +4,12 @@ Counterpart of ``hse_facerec_tf_tpu/ops/nms.py``: the reference's greedy
 MTCNN NMS (``facial_analysis.py:397-428``) as a keep-mask over padded boxes,
 solved as a Jacobi fixpoint over a pairwise-overlap matrix, over a leading
 lane dimension too. The loop reads its ``changed`` flag on the host once
-per round.
+per round. ``nms_numpy`` is the greedy form itself, on the host.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -55,3 +56,34 @@ def nms_mask(boxes, scores, valid, threshold: float, method: str = "union"):
         if not bool(torch.any(keep2 != keep)):
             return keep2
         keep = keep2
+
+
+def nms_numpy(boxes: np.ndarray, scores: np.ndarray, threshold: float,
+              method: str = "union") -> np.ndarray:
+    """Host-side exact greedy NMS (dynamic shapes), the golden of the
+    reference's MTCNN loop: the highest score left is kept and removes the
+    boxes overlapping it by more than ``threshold``. Returns the kept
+    indices in pick order."""
+    if len(boxes) == 0:
+        return np.zeros((0,), dtype=np.int64)
+    x1, y1, x2, y2 = boxes[:, 0], boxes[:, 1], boxes[:, 2], boxes[:, 3]
+    area = (x2 - x1 + 1) * (y2 - y1 + 1)
+    order = np.argsort(scores)
+    pick = []
+    while order.size > 0:
+        i = order[-1]
+        pick.append(i)
+        rest = order[:-1]
+        xx1 = np.maximum(x1[i], x1[rest])
+        yy1 = np.maximum(y1[i], y1[rest])
+        xx2 = np.minimum(x2[i], x2[rest])
+        yy2 = np.minimum(y2[i], y2[rest])
+        w = np.maximum(0.0, xx2 - xx1 + 1)
+        h = np.maximum(0.0, yy2 - yy1 + 1)
+        inter = w * h
+        if method == "min":
+            o = inter / np.minimum(area[i], area[rest])
+        else:
+            o = inter / (area[i] + area[rest] - inter)
+        order = rest[o <= threshold]
+    return np.asarray(pick, dtype=np.int64)

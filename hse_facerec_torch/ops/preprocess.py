@@ -1,4 +1,5 @@
-"""Input normalizations: channel order + mean subtraction / scaling.
+"""Input normalizations: channel order + mean subtraction / scaling, and
+the fused resize + normalize of a batch.
 
 Counterpart of ``hse_facerec_tf_tpu/ops/preprocess.py`` (the reference's
 schemes, ``facerec_test.py:95-111``, ``facial_analysis.py:103-107,506``).
@@ -7,9 +8,12 @@ Inputs are RGB (..., H, W, 3); a scheme that needs BGR flips the channels.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from ..numerics import div_const, fma
+from .resize import resize
 
 # Mean pixel values (BGR order, matching the Caffe-lineage models).
 IMAGENET_MEANS_BGR = (103.939, 116.779, 123.68)     # facerec_test.py:97-100
@@ -57,3 +61,13 @@ NORMALIZERS = {
     "tf": normalize_tf,
     "none": lambda x: x.to(torch.float32),
 }
+
+
+def preprocess_batch(images, out_hw: Tuple[int, int], normalization: str = "vggface2",
+                     resize_method: str = "cv2_linear"):
+    """Resize + normalize a batch of same-size RGB images on their device:
+    (N, H, W, 3) uint8 or float -> (N, out_h, out_w, 3) float32. Upload
+    uint8 and the cast to float happens here, on the device (a byte a
+    channel crosses the bus, not four)."""
+    x = resize(images.to(torch.float32), out_hw, method=resize_method)
+    return NORMALIZERS[normalization](x)

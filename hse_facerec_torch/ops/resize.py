@@ -181,13 +181,56 @@ def resize_host(img: np.ndarray, out_hw: Tuple[int, int],
     return np.ascontiguousarray(out, dtype=np.float32)
 
 
-def resize_host_u8(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
-    """``cv2.resize(img, (out_w, out_h))`` (INTER_LINEAR) of a uint8 image
-    without cv2: ``resize_host``'s cv2 weights in float32, rounded to
-    uint8. cv2's uint8 path uses fixed-point weights, so the two can differ
-    by one level (``tests/test_torch_album.py`` bounds it)."""
-    out = resize_host(img, out_hw, "cv2_linear")
-    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+# cv2's INTER_LINEAR on uint8 works in fixed point: INTER_RESIZE_COEF_BITS 11
+_COEF_SCALE = 1 << 11
+
+
+def _linear_taps_u8(src: int, dst: int):
+    """cv2 INTER_LINEAR taps for uint8: per output index the source index
+    and the two short weights (a float32 fraction times 2048, rounded half
+    to even), with cv2's edge rules (a tap left of 0 or at the last pixel
+    takes all the weight)."""
+    scale = src / dst
+    fx = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
+    sx = np.floor(fx).astype(np.int64)
+    fx = fx - sx.astype(np.float32)
+    low = sx < 0
+    fx[low], sx[low] = 0.0, 0
+    high = sx >= src - 1
+    fx[high], sx[high] = 0.0, src - 1
+    a1 = np.rint(fx * np.float32(_COEF_SCALE)).astype(np.int64)
+    a0 = np.rint((np.float32(1.0) - fx) * np.float32(_COEF_SCALE)).astype(np.int64)
+    return sx, a0, a1
+
+
+def resize_linear_u8(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, (out_w, out_h))`` (INTER_LINEAR) of an (H, W) or
+    (H, W, C) uint8 image, bit for bit, in cv2's fixed-point arithmetic
+    without cv2: rows of int sums of source x weight, then the vertical
+    pass ``((b0·(S0 >> 4)) >> 16) + ((b1·(S1 >> 4)) >> 16) + 2) >> 2``,
+    the form its scalar and vector paths share. At an exact 2x downscale
+    cv2 switches to its area path, ``(a + b + c + d + 2) >> 2`` over each
+    2x2 block; with all four weights at 1024 this form computes the same."""
+    h, w = img.shape[:2]
+    oh, ow = out_hw
+    if (h, w) == (oh, ow):
+        return img.copy()
+    x = img.astype(np.int64)
+    chan = (None,) * (x.ndim - 2)           # the weights broadcast over channels
+    sx, a0, a1 = _linear_taps_u8(w, ow)
+    rows = (x[:, sx] * a0[(slice(None), *chan)]
+            + x[:, np.minimum(sx + 1, w - 1)] * a1[(slice(None), *chan)])  # (h, ow, ...)
+    scale = h / oh
+    fy = ((np.arange(oh) + 0.5) * scale - 0.5).astype(np.float32)
+    sy = np.floor(fy).astype(np.int64)
+    fy = fy - sy.astype(np.float32)
+    b0 = np.rint((np.float32(1.0) - fy) * np.float32(_COEF_SCALE)).astype(np.int64)
+    b1 = np.rint(fy * np.float32(_COEF_SCALE)).astype(np.int64)
+    s0 = rows[np.clip(sy, 0, h - 1)] >> 4
+    s1 = rows[np.clip(sy + 1, 0, h - 1)] >> 4
+    col = (slice(None), None, *chan)
+    out = (((b0[col] * s0) >> 16) + ((b1[col] * s1) >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8)
 
 
 def resize_pyramid(img, out_hws: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:

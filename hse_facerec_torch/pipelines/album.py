@@ -26,11 +26,11 @@ distances on the analyzer's device, the clustering in float64 on the host,
 and cluster naming from an int8 gallery on the 1-NN kernel K2c. The scan,
 video, clustering and naming paths need neither cv2 nor PIL: the 224²
 output crops and the downscales use ``ops/resize.py``'s cv2 INTER_LINEAR
-weights (within one level of ``cv2.resize``), video frames turn BGR to RGB
-by reversing the channel axis, and the one cv2 call left, opening a video
-file, is ``AlbumOrganizer._open_video``, which a caller can override. cv2
-and matplotlib are imported only by the functions that decode photos or
-write outputs.
+in cv2's uint8 fixed point (equal to ``cv2.resize``), video frames turn
+BGR to RGB by reversing the channel axis, and the one cv2 call left,
+opening a video file, is ``AlbumOrganizer._open_video``, which a caller
+can override. cv2 and matplotlib are imported only by the functions that
+decode photos or write outputs.
 """
 
 from __future__ import annotations
@@ -46,7 +46,7 @@ import torch
 
 from ..config import AlbumConfig
 from ..ops.distance import pairwise_sqeuclidean
-from ..ops.resize import resize_host_u8
+from ..ops.resize import resize_linear_u8
 from ..utils.image_io import bgr_to_rgb, imread_rgb, rotate_image, video_rotation
 from ..utils.profiling import StageTimer
 from .analyzer import FacialAnalyzer
@@ -180,7 +180,7 @@ class AlbumOrganizer:
             return img, (h, w)
         s = min(max_w / w, max_h / h)
         nw, nh = max(1, int(round(w * s))), max(1, int(round(h * s)))
-        resized = resize_host_u8(img, (nh, nw))
+        resized = resize_linear_u8(img, (nh, nw))
         out = np.zeros((max_h, max_w, 3), img.dtype)   # black letterbox
         out[:nh, :nw] = resized
         return out, (nh, nw)
@@ -202,8 +202,8 @@ class AlbumOrganizer:
             x1, y1, x2, y2 = f.bbox
             if x2 <= x1 or y2 <= y1:
                 continue
-            crops.append(resize_host_u8(img[y1:y2, x1:x2],
-                                        (self.analyzer.face_size,) * 2))
+            crops.append(resize_linear_u8(img[y1:y2, x1:x2],
+                                          (self.analyzer.face_size,) * 2))
             ages.append(f.age)
             genders.append(f.gender_prob)
             feats.append(np.asarray(f.identity, np.float32))

@@ -9,8 +9,8 @@ VideoWriter).
 
 The port's own copy of ``hse_facerec_tf_tpu/pipelines/video.py``. Opening a
 video or camera, decoding image files and drawing need cv2, imported inside
-the functions; the downscale uses ``ops/resize.py``'s cv2 INTER_LINEAR
-weights and frames turn BGR to RGB by reversing the channel axis (the same
+the functions; the downscale is ``ops/resize.py``'s cv2 INTER_LINEAR in
+cv2's uint8 fixed point (the same bytes as ``cv2.resize``) and frames turn BGR to RGB by reversing the channel axis (the same
 bytes as ``cv2.cvtColor``)."""
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from typing import Callable, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from ..ops.resize import resize_host_u8
+from ..ops.resize import resize_linear_u8
 from ..utils.draw import draw_faces
 from ..utils.image_io import bgr_to_rgb, imread_rgb, rotate_image, video_rotation
 from .analyzer import FacialAnalyzer
@@ -58,7 +58,7 @@ def _downscale(frame: np.ndarray, max_w: int = 640, max_h: int = 480) -> np.ndar
     h, w = frame.shape[:2]
     if w <= max_w and h <= max_h:
         return frame
-    return resize_host_u8(frame, (min(h, max_h), min(w, max_w)))
+    return resize_linear_u8(frame, (min(h, max_h), min(w, max_w)))
 
 
 def annotated_video_frames(analyzer: FacialAnalyzer, video_path: str,

@@ -1,15 +1,17 @@
 """Seeded random parameters for the analyze path and the zoo's
-backbones, numpy only.
+backbones, numpy only, and a seeded synthetic LBP cascade.
 
 The pytrees have the reference's layouts and shapes (HWIO convs,
 (H, W, C, 1) depthwise, (in, out) dense), so the same arrays go through
 the JAX package and, via ``params.to_torch``, through the port. Used by the
 parity tests and by ``chip_smoke.py`` when the shipped weights are absent.
+The cascade (``write_lbp_cascade``) stands in for OpenCV's
+``lbpcascade_frontalface.xml`` in the same file format.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
 
@@ -120,3 +122,82 @@ def random_multihead_params(rng: np.random.RandomState) -> Dict:
 
     return {"backbone": backbone, "feats": head(1024, 256, 1.0),
             "age": head(256, 100, 0.5), "gender": head(256, 1, 0.5)}
+
+
+# the synthetic cascade: a 24x24 window and 20 boosted stages, as OpenCV's
+# lbpcascade_frontalface.xml has, of 3 to 10 weak classifiers each
+LBP_WINDOW, LBP_STAGES, LBP_FEATURES = 24, 20, 136
+
+
+def _cascade_xml(rects, stages) -> str:
+    """OpenCV's cascade XML for LBP ``rects`` (x, y, cell w, cell h) and
+    ``stages`` [(threshold, [(feature, subset x8, (leaf0, leaf1))])];
+    floats written with ``repr`` so that they read back exactly."""
+    out = ['<?xml version="1.0"?>', "<opencv_storage>",
+           '<cascade type_id="opencv-cascade-classifier">',
+           "  <stageType>BOOST</stageType>", "  <featureType>LBP</featureType>",
+           f"  <height>{LBP_WINDOW}</height>", f"  <width>{LBP_WINDOW}</width>",
+           "  <stageParams><maxWeakCount>"
+           f"{max(len(w) for _, w in stages)}</maxWeakCount></stageParams>",
+           "  <featureParams><maxCatCount>256</maxCatCount></featureParams>",
+           f"  <stageNum>{len(stages)}</stageNum>", "  <stages>"]
+    for threshold, weak in stages:
+        out += ["    <_>", f"      <maxWeakCount>{len(weak)}</maxWeakCount>",
+                f"      <stageThreshold>{threshold!r}</stageThreshold>",
+                "      <weakClassifiers>"]
+        for feature, subset, leaves in weak:
+            out += ["        <_>", "          <internalNodes>0 -1 "
+                    + " ".join(str(int(v)) for v in (feature, *subset)) + "</internalNodes>",
+                    f"          <leafValues>{leaves[0]!r} {leaves[1]!r}</leafValues></_>"]
+        out += ["      </weakClassifiers></_>"]
+    out += ["  </stages>", "  <features>"]
+    out += [f"    <_>\n      <rect>{' '.join(str(int(v)) for v in r)}</rect></_>"
+            for r in rects]
+    out += ["  </features>", "</cascade>", "</opencv_storage>", ""]
+    return "\n".join(out)
+
+
+def write_lbp_cascade(path: str, images: Sequence[np.ndarray], seed: int = 0,
+                      survivors: float = 2e-3) -> str:
+    """Write a seeded synthetic LBP cascade to ``path`` and return it.
+
+    Feature rects, subsets and leaf values are seeded; each stage's
+    threshold is set on the windows of ``images`` (at
+    ``LBPCascade.detect``'s defaults) that the stages before it pass: the
+    quantile that keeps ``survivors ** (1 / 20)`` of them, so that about
+    ``survivors`` of all windows reach the end and some neighbours of
+    those form groups. The thresholds are taken with the port's own
+    evaluator on the CPU."""
+    import torch
+
+    from .pipelines.lbp_cascade import LBPCascade
+
+    rng = np.random.RandomState(seed)
+    rects = []
+    for _ in range(LBP_FEATURES):
+        cw, ch = rng.randint(1, LBP_WINDOW // 3 + 1, 2)
+        rects.append((rng.randint(0, LBP_WINDOW - 3 * cw + 1),
+                      rng.randint(0, LBP_WINDOW - 3 * ch + 1), cw, ch))
+    weak_counts = np.linspace(3, 10, LBP_STAGES).round().astype(int)
+    stages = [[-np.inf, [(int(rng.randint(LBP_FEATURES)),
+                          rng.randint(-2 ** 31, 2 ** 31, 8, dtype=np.int64),
+                          tuple(float(v) for v in rng.uniform(-1.0, 1.0, 2)))
+                         for _ in range(n)]] for n in weak_counts]
+    with open(path, "w") as f:
+        f.write(_cascade_xml(rects, [(-1e300, w) for _, w in stages]))
+    cascade = LBPCascade(path, device="cpu")
+    grids = []
+    for img in images:
+        w = cascade._windows(img, 1.1, 40, 2)
+        win = torch.from_numpy(np.stack([w.base, w.stride, w.x, w.y]))
+        grids.append((torch.from_numpy(w.integral), win, torch.arange(win.shape[1])))
+    keep = survivors ** (1.0 / LBP_STAGES)
+    for k, stage in enumerate(stages):
+        totals = [cascade._stage_totals(k, integral, win[:, alive])
+                  for integral, win, alive in grids]
+        stage[0] = float(np.quantile(torch.cat(totals).numpy(), 1.0 - keep))
+        grids = [(integral, win, alive[t >= stage[0]])
+                 for (integral, win, alive), t in zip(grids, totals)]
+    with open(path, "w") as f:
+        f.write(_cascade_xml(rects, stages))
+    return path

@@ -20,14 +20,15 @@ import numpy as np
 from ..params import to_numpy
 
 
-def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
+def flatten(tree, prefix="") -> Dict[str, np.ndarray]:
+    """A nested tree's leaves as numpy arrays under "a/b/c" keys."""
     out = {}
     if isinstance(tree, dict):
         for k, v in tree.items():
-            out.update(_flatten(v, f"{prefix}{k}/"))
+            out.update(flatten(v, f"{prefix}{k}/"))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            out.update(_flatten(v, f"{prefix}{i}/"))
+            out.update(flatten(v, f"{prefix}{i}/"))
     else:
         out[prefix.rstrip("/")] = np.asarray(tree)
     return out
@@ -35,7 +36,7 @@ def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
 
 def save_pytree(tree, path: str) -> None:
     np.savez(path if path.endswith(".npz") else path + ".npz",
-             **_flatten(to_numpy(tree)))
+             **flatten(to_numpy(tree)))
 
 
 def load_pytree(path: str) -> Dict:

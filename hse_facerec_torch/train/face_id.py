@@ -16,7 +16,7 @@ reference donates their buffers to the jitted step).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,19 +33,27 @@ from .augment import AugmentConfig, augment_batch
 Path = Tuple[str, ...]
 
 
-def trainable(params: Dict) -> List[Tuple[Path, torch.Tensor]]:
-    """The tensors the optimizer moves, with their paths: every kernel and
-    bias, and each BN layer's gamma and beta (its running mean and
-    variance get no gradient: the training forward normalizes with the
-    batch's moments)."""
-    out = []
-    for name, layer in params.items():
-        for key, value in layer.items():
+def trainable(params: Dict, select: Optional[Callable[[Path], bool]] = None
+              ) -> List[Tuple[Path, torch.Tensor]]:
+    """The tensors an optimizer moves, with their paths, in tree order:
+    every kernel and bias, and each BN layer's gamma and beta (its running
+    mean and variance get no gradient: the training forward normalizes
+    with the batch's moments). Layers may nest (the age/gender tree keeps
+    the backbone's layers under ``"backbone"``); ``select``, a predicate on
+    the path, keeps the tensors one optimizer owns."""
+    out: List[Tuple[Path, torch.Tensor]] = []
+
+    def walk(node: Dict, path: Path) -> None:
+        for key, value in node.items():
             if key == "bn":
-                out += [((name, key, k), value[k]) for k in ("gamma", "beta")]
+                out.extend((path + (key, k), value[k]) for k in ("gamma", "beta"))
+            elif isinstance(value, dict):
+                walk(value, path + (key,))
             else:
-                out.append(((name, key), value))
-    return out
+                out.append((path + (key,), value))
+
+    walk(params, ())
+    return out if select is None else [(p, t) for p, t in out if select(p)]
 
 
 def _tree(paths: List[Path], tensors) -> Dict:
@@ -73,17 +81,24 @@ class Adam:
     """``optax.adam`` with Keras-style decay: the learning rate of update t
     (counted from 0) is ``learning_rate / (1 + lr_decay·t)``; b1 0.9, b2
     0.999, eps 1e-8, eps_root 0 (optax's defaults, which the reference
-    uses). Updates params and moments in place."""
+    uses). Updates params and moments in place. ``select`` (a predicate on
+    a ``trainable`` path) restricts it to the tensors it owns, as an
+    ``optax.multi_transform`` that sends the rest to ``set_to_zero`` does:
+    they keep no moments and never move."""
     learning_rate: float
     lr_decay: float = 0.0
+    select: Optional[Callable[[Path], bool]] = None
     b1 = 0.9
     b2 = 0.999
     eps = 1e-8
 
+    def owned(self, params: Dict) -> List[Tuple[Path, torch.Tensor]]:
+        return trainable(params, self.select)
+
     def init(self, params: Dict) -> Dict:
-        """Zero moments, in the params' tree shape; marks the trainable
+        """Zero moments, in the params' tree shape; marks the owned
         tensors as requiring grad."""
-        leaves = trainable(params)
+        leaves = self.owned(params)
         paths = [p for p, _ in leaves]
         for _, t in leaves:
             t.requires_grad_(True)
@@ -93,8 +108,8 @@ class Adam:
 
     @torch.no_grad()
     def update(self, params: Dict, grads: List[torch.Tensor], state: Dict) -> None:
-        """One update of ``params`` from ``grads``, in ``trainable`` order."""
-        paths = [p for p, _ in trainable(params)]
+        """One update of ``params`` from ``grads``, in ``owned`` order."""
+        paths = [p for p, _ in self.owned(params)]
         ps = _leaves(params, paths)
         mus, nus = _leaves(state["mu"], paths), _leaves(state["nu"], paths)
         # the schedule and the bias corrections in float32, as optax computes
@@ -163,7 +178,7 @@ def make_train_step(cfg: TrainConfig, optimizer: Adam,
             images = augment_batch(generator, images, augment)
         loss, (stats, acc) = loss_fn(params, images, labels, cfg.weight_decay,
                                      remat=remat, compute_dtype=compute_dtype)
-        grads = torch.autograd.grad(loss, [t for _, t in trainable(params)])
+        grads = torch.autograd.grad(loss, [t for _, t in optimizer.owned(params)])
         optimizer.update(params, list(grads), opt_state)
         update_bn_stats(params, stats, momentum=bn_momentum)
         return params, opt_state, {"loss": loss.detach(), "acc": acc}

@@ -10,9 +10,9 @@ faces recur across photos), a portrait pair (a second shape bucket), a
 pair whose faces are found only after the 90° retry, and a blank photo,
 with modification times 0-40 days old. Required, port against JAX: the same
 faces photo for photo with identical boxes, born years within 1e-3, P(male)
-within 1e-4, identity cosine above 0.9999, 224²-style crops within one level
-(the port resizes with cv2's INTER_LINEAR weights in float32, cv2 in fixed
-point); fused distance matrices within 1e-5; identical clusters, genders,
+within 1e-4, identity cosine above 0.9999, 224²-style crops equal (the port
+resizes in cv2's uint8 fixed point, ``ops/resize.py::resize_linear_u8``);
+fused distance matrices within 1e-5; identical clusters, genders,
 born years, gallery labels, output directories and ``public/`` set. Where a
 threshold could flip a result (a linkage height, an integer part), the test
 asserts the margin first.
@@ -41,7 +41,7 @@ from hse_facerec_tf_tpu.pipelines.gallery import EnrollmentGallery as JaxGallery
 from hse_facerec_torch.config import AlbumConfig
 from hse_facerec_torch.ops.kernels import knn as tk
 from hse_facerec_torch.ops.kernels.crop import crop_resize
-from hse_facerec_torch.ops.resize import resize_host_u8
+from hse_facerec_torch.ops.resize import resize_linear_u8
 from hse_facerec_torch.pipelines import album as talbum
 from hse_facerec_torch.pipelines import video as tvideo
 from hse_facerec_torch.pipelines.gallery import EnrollmentGallery
@@ -150,7 +150,7 @@ def _record_boxes(org):
     return boxes
 
 
-def _assert_same_album_faces(got, want, crops_atol=1):
+def _assert_same_album_faces(got, want):
     assert got.files == want.files
     assert got.indices == want.indices
     assert got.private_photo_indices == want.private_photo_indices
@@ -161,8 +161,8 @@ def _assert_same_album_faces(got, want, crops_atol=1):
     assert cos.min() > 0.9999
     assert len(got.facial_images) == len(want.facial_images)
     for g, w in zip(got.facial_images, want.facial_images):
-        assert g.dtype == np.uint8 and g.shape == w.shape
-        assert np.abs(g.astype(np.int16) - w).max() <= crops_atol
+        assert g.dtype == np.uint8
+        np.testing.assert_array_equal(g, w)
 
 
 def _assert_margin(values, thresholds, margin, what):
@@ -209,34 +209,43 @@ def test_fused_distance_matrix_matches_jax():
 
 @pytest.mark.parametrize("src,dst", [((160, 150), (224, 224)), ((40, 30), (224, 224)),
                                      ((480, 640), (240, 320)), ((97, 131), (64, 20)),
-                                     ((1200, 900), (640, 480)), ((300, 200), (224, 224))])
-def test_host_resize_within_one_level_of_cv2(src, dst):
-    """``resize_host_u8`` against ``cv2.resize`` (INTER_LINEAR): cv2's uint8
-    path rounds fixed-point weights, the port rounds float32 sums once."""
+                                     ((1200, 900), (640, 480)), ((300, 200), (224, 224)),
+                                     ((960, 1280), (480, 640)), ((1080, 1920), (480, 640)),
+                                     ((3, 3), (224, 224))])
+@pytest.mark.parametrize("channels", [3, None])
+def test_host_resize_equals_cv2(src, dst, channels):
+    """``resize_linear_u8`` against ``cv2.resize`` (INTER_LINEAR) of uint8
+    (H, W, 3) and (H, W) images: equal bit for bit, at down- and upscales,
+    the album's 224² crops, the video fit and exact 2x downscales (where
+    cv2 takes its area path)."""
     rng = np.random.RandomState(sum(src))
-    img = cv2.GaussianBlur((rng.rand(*src, 3) * 255).astype(np.uint8), (0, 0), 1.5)
-    got = resize_host_u8(img, dst)
-    want = cv2.resize(img, (dst[1], dst[0]))
-    assert got.shape == want.shape and got.dtype == np.uint8
-    diff = np.abs(got.astype(np.int16) - want)
-    print(f"{src} -> {dst}: max {diff.max()} level, {np.mean(diff > 0):.4f} of values differ")
-    assert diff.max() <= 1
+    shape = src + ((channels,) if channels else ())
+    img = cv2.GaussianBlur((rng.rand(*shape) * 255).astype(np.uint8), (0, 0), 1.5)
+    noisy = (rng.rand(*shape) * 255).astype(np.uint8)
+    for im in (img, noisy):
+        got = resize_linear_u8(im, dst)
+        want = cv2.resize(im, (dst[1], dst[0]))
+        assert got.dtype == np.uint8
+        np.testing.assert_array_equal(got, want)
 
 
 def test_downscales_match_jax(analyzers):
     """The album's letterboxed ``_maybe_downscale`` and video's distorting
-    ``_downscale`` against the JAX package's cv2 resizes: the same shapes
-    and content box, pixels within one level."""
+    ``_downscale`` against the JAX package's cv2 resizes: the same shapes,
+    content box and pixels, at 300x500 and at an exact 2x."""
     jorg, torg = _organizers(analyzers, downscale=(128, 96))
-    big = _photo_hw(7, 300, 500)
-    (g, g_hw), (w, w_hw) = torg._maybe_downscale(big), jorg._maybe_downscale(big)
-    assert g.shape == w.shape == (96, 128, 3) and tuple(g_hw) == tuple(w_hw)
-    assert np.abs(g.astype(np.int16) - w).max() <= 1
+    for h, w in ((300, 500), (192, 256)):
+        big = _photo_hw(7, h, w)
+        (g, g_hw), (want, w_hw) = torg._maybe_downscale(big), jorg._maybe_downscale(big)
+        assert g.shape == (96, 128, 3) and tuple(g_hw) == tuple(w_hw)
+        np.testing.assert_array_equal(g, want)
     small = _photo(3)
     assert torg._maybe_downscale(small)[0] is small
-    g, w = tvideo._downscale(big, 320, 240), jvideo._downscale(big, 320, 240)
-    assert g.shape == w.shape == (240, 320, 3)
-    assert np.abs(g.astype(np.int16) - w).max() <= 1
+    for h, w in ((300, 500), (480, 640)):
+        big = _photo_hw(7, h, w)
+        g, want = tvideo._downscale(big, 320, 240), jvideo._downscale(big, 320, 240)
+        assert g.shape == (240, 320, 3)
+        np.testing.assert_array_equal(g, want)
     assert tvideo._downscale(small) is small
 
 
@@ -331,7 +340,7 @@ def test_batched_scan_equals_sequential(album, analyzers):
     seq = talbum.AlbumOrganizer(an, AlbumConfig(**CFG), analyze_batch=1)
     b_boxes, s_boxes = _record_boxes(batched), _record_boxes(seq)
     _assert_same_album_faces(batched.scan_album(str(album), use_cache=False),
-                             seq.scan_album(str(album), use_cache=False), crops_atol=0)
+                             seq.scan_album(str(album), use_cache=False))
     assert b_boxes == s_boxes
 
 
@@ -386,8 +395,7 @@ def test_retained_photo_cap_flushes_the_fullest_bucket_early(tmp_path, analyzers
     got = org.scan_album(str(tmp_path), use_cache=False)
     assert sorted(sizes) == [1, 3, 3, 3, 3, 3, 3]
     seq = talbum.AlbumOrganizer(an, AlbumConfig(**CFG), analyze_batch=1)
-    _assert_same_album_faces(got, seq.scan_album(str(tmp_path), use_cache=False),
-                             crops_atol=0)
+    _assert_same_album_faces(got, seq.scan_album(str(tmp_path), use_cache=False))
     assert len(got.indices) > 0
 
 
@@ -451,7 +459,7 @@ def test_features_cache_read_across_packages(album, analyzers, writer):
     assert os.path.exists(album / "features.npz")
     second._analyze_photos = lambda *a: pytest.fail("the cache was not read")
     read = second.scan_album(str(album), use_cache=True)
-    _assert_same_album_faces(read, wrote, crops_atol=0)
+    _assert_same_album_faces(read, wrote)
 
 
 # ---------- video ----------
@@ -491,13 +499,13 @@ def _decoded(path):
     return frames
 
 
-def _assert_same_video_outputs(got, want, crops_atol=1):
+def _assert_same_video_outputs(got, want):
     g_crops, g_ages, g_genders, g_feats, g_any = got
     w_crops, w_ages, w_genders, w_feats, w_any = want
     assert g_any == w_any and g_ages == w_ages
     np.testing.assert_allclose(g_genders, w_genders, atol=1e-4, rtol=0)
     for a, b in zip(g_crops, w_crops):
-        assert np.abs(a.astype(np.int16) - b).max() <= crops_atol
+        np.testing.assert_array_equal(a, b)
     for a, b in zip(g_feats, w_feats):
         assert np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b)) > 0.9999
     assert len(g_crops) == len(w_crops) == len(g_feats) == len(w_feats)
@@ -539,10 +547,10 @@ def test_process_video_matches_jax_and_sequential(tmp_path, analyzers, monkeypat
     _assert_margin(np.asarray(medians) % 1.0, [0.0, 1.0], 1e-3, "median ages")
     want = jorg.process_video(str(path), mdate)
     _assert_same_video_outputs(got, want)
-    _assert_same_video_outputs(seq.process_video(str(path), mdate), got, crops_atol=0)
+    _assert_same_video_outputs(seq.process_video(str(path), mdate), got)
     frames = _decoded(path)
     torg._open_video = lambda p: _FrameCapture(frames)
-    _assert_same_video_outputs(torg.process_video("clip.mp4", mdate), got, crops_atol=0)
+    _assert_same_video_outputs(torg.process_video("clip.mp4", mdate), got)
 
 
 def test_video_resolution_change_batched_equals_sequential(analyzers):
@@ -557,7 +565,7 @@ def test_video_resolution_change_batched_equals_sequential(analyzers):
         org = talbum.AlbumOrganizer(an, AlbumConfig(**CFG), analyze_batch=lanes)
         org._open_video = lambda path: _FrameCapture(frames)
         outs.append(org.process_video("clip.mp4", time.gmtime(1.6e9)))
-    _assert_same_video_outputs(*outs, crops_atol=0)
+    _assert_same_video_outputs(*outs)
 
 
 # ---------- the whole album ----------

@@ -1,0 +1,59 @@
+"""The port's small helpers against the JAX package's, on the CPU:
+``ops/preprocess.py::preprocess_batch`` (the resize matmuls and the
+normalization; float32, one rounding order apart at most, so within
+2e-4 on 0-255 values), ``ops/nms.py::nms_numpy`` (host numpy, equal picks
+in equal order) and ``eval/lfw.py::load_class_filter`` (equal sets).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from hse_facerec_tf_tpu.eval import lfw as jlfw
+from hse_facerec_tf_tpu.ops import nms as jnms
+from hse_facerec_tf_tpu.ops import preprocess as jpre
+from hse_facerec_torch.eval import lfw as tlfw
+from hse_facerec_torch.ops import nms as tnms
+from hse_facerec_torch.ops import preprocess as tpre
+
+PRE_ATOL = 2e-4
+
+
+@pytest.mark.parametrize("normalization", ["vggface2", "caffe", "mtcnn", "tf", "none"])
+@pytest.mark.parametrize("method", ["cv2_linear", "cv2_area", "pil_bilinear"])
+def test_preprocess_batch_matches_jax(normalization, method):
+    rng = np.random.RandomState(len(normalization) + len(method))
+    batch = (rng.rand(3, 57, 71, 3) * 255).astype(np.uint8)
+    want = np.asarray(jpre.preprocess_batch(batch, (48, 40), normalization, method))
+    got = tpre.preprocess_batch(torch.from_numpy(batch), (48, 40), normalization, method)
+    assert got.dtype == torch.float32 and got.shape == (3, 48, 40, 3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=PRE_ATOL)
+
+
+def _clustered_boxes(rng, n):
+    centers = rng.uniform(20, 180, (6, 2))
+    c = centers[rng.randint(0, 6, n)] + rng.randn(n, 2) * 6
+    s = rng.uniform(15, 40, n)
+    return np.stack([c[:, 0], c[:, 1], c[:, 0] + s, c[:, 1] + s], 1).astype(np.float32)
+
+
+@pytest.mark.parametrize("method,threshold", [("union", 0.5), ("union", 0.7),
+                                              ("min", 0.7)])
+def test_nms_numpy_equals_jax(method, threshold):
+    rng = np.random.RandomState(int(threshold * 10))
+    boxes = _clustered_boxes(rng, 80)
+    scores = rng.rand(80).astype(np.float32)
+    got = tnms.nms_numpy(boxes, scores, threshold, method)
+    want = jnms.nms_numpy(boxes, scores, threshold, method)
+    assert got.dtype == np.int64 and 1 < len(got) < 80
+    np.testing.assert_array_equal(got, want)
+    empty = tnms.nms_numpy(np.zeros((0, 4), np.float32), np.zeros(0, np.float32), 0.5)
+    assert empty.shape == (0,) and empty.dtype == np.int64
+
+
+def test_load_class_filter_equals_jax(tmp_path):
+    path = tmp_path / "lfw_ytf_classes.txt"
+    path.write_text("Aaron_Eckhart\n\n  Abdullah_Gul \nAdam_Sandler\n\t\nAaron_Eckhart\n")
+    got = tlfw.load_class_filter(str(path))
+    assert got == jlfw.load_class_filter(str(path))
+    assert got == {"Aaron_Eckhart", "Abdullah_Gul", "Adam_Sandler"}
