@@ -116,7 +116,21 @@ kernels are built for sm_90a). It:
    a pair, the upload timed apart, one profiled pair with K3's share; then
    an age and a gender step, frozen and unfrozen, on the card and on the
    CPU from the same params and dropout masks (losses in float32, params
-   in float64, the frozen backbone and the idle head bit-identical).
+   in float64, the frozen backbone and the idle head bit-identical);
+10. drives the multi-device slice (``multichip``) over 4 virtual shards on
+   the one card (``make_mesh(devices=["cuda"] * 4)``), each row beside the
+   same work on one device: the gallery sharded at 1,048,576 x 1024-d int8
+   (a 2048-probe ``KNNIdentifier(quantized=True, mesh=...)`` evaluation
+   and 16-probe ``EnrollmentGallery(mesh=...)`` queries, K2b once a shard a
+   query, the ranking state placed once), mesh ``analyze_batch`` at batch 8
+   (exactly 3 K1 launches a shard), ``EmbeddingExtractor(mesh=...)`` at
+   batch 1024, ``FaceIdTrainer(mesh=...)`` (K3 once a shard a step), the
+   sharded age/gender pair (K3 once a shard a step) and the dp x tp face-ID
+   trainer on a (2, 2) mesh in bf16 and float32 (replicas bit-identical),
+   all at the JAX bench's sizes, with answers equal to one device's within
+   the CPU tests' bounds; then ``dryrun_multichip(4)``. Virtual shards
+   measure the mesh's bookkeeping and extra launches, not scaling over
+   cards.
 Each path runs with the launch counters set to 0 just before it and read
 just after, and fails if it did not launch its kernels.
 Weights are the shipped ones when present, seeded random ones otherwise.
@@ -173,6 +187,11 @@ from hse_facerec_torch.pipelines.heads import Int8MultiheadHeads
 from hse_facerec_torch.pipelines.identification import (KNNIdentifier,
                                                         gallery_probe_eval)
 from hse_facerec_torch.ops.align import align_faces, landmarks_from_detector
+from hse_facerec_torch.parallel import train_step
+from hse_facerec_torch.parallel.dryrun import dryrun_multichip
+from hse_facerec_torch.parallel.sharding import make_mesh
+from hse_facerec_torch.parallel.train_step import (make_sharded_age_gender_trainer,
+                                                   make_sharded_face_id_trainer)
 from hse_facerec_torch.pipelines.cascade_fallback import CascadeFallbackDetector
 from hse_facerec_torch.testing import (random_mtcnn_params, random_multihead_params,
                                        write_lbp_cascade)
@@ -361,6 +380,19 @@ AG_PARITY, AG_STEP_REL = (8, 64), 1e-4
 # bit); faces/s at a batch of 256
 ALIGN_SIZE, ALIGN_ATOL, ALIGN_BATCH = 112, 5e-2, 256
 CASCADE_REPEATS = 3             # timed passes of the card's cascade
+# the multi-device slice: MESH_SHARDS virtual shards on the one card
+# (make_mesh(devices=["cuda"] * 4)), each sharded path beside its one-device
+# run; the answers within the CPU tests' bounds (tests/test_torch_parallel*.py):
+# gallery distances 1e-4, embeddings 1e-4 (the JAX mesh extractor's),
+# analyzer boxes equal with ages and identity 1e-3, float32 losses 1e-4
+# relative
+MESH_SHARDS = 4
+MESH_GALLERY_N, MESH_DIM = 1 << 20, 1024
+MESH_QUERY, MESH_QUERIES, MESH_EVAL = 16, 8, 2048
+MESH_EMBED = 1024
+MESH_TRAIN_SHAPE = (2, 2)
+MESH_STEPS, MESH_PAIRS = 3, 3
+MESH_TOL = {"distance": 1e-4, "embed": 1e-4, "age": 1e-3, "identity": 1e-3, "loss": 1e-4}
 
 T_START = time.perf_counter()
 
@@ -3262,6 +3294,375 @@ def cascade_path(images, rng, tmp: str):
           "ms/photo on the CPU")
     return {"groups": groups, "ms_per_photo": gpu_ms, "cpu_ms_per_photo": cpu_ms}
 
+# -- the multi-device slice -----------------------------------------------------
+
+
+def mesh_of(shape=None, names=("data",)):
+    """A mesh of ``MESH_SHARDS`` virtual shards on the one card."""
+    return make_mesh(shape, names, ["cuda"] * MESH_SHARDS)
+
+
+def synced_ms(fn, calls: int) -> float:
+    """Mean host ms of ``calls`` synced calls of ``fn`` (no warm-up)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def launch_delta(before: dict) -> dict:
+    now = kernel_launches()
+    return {k: now[k] - before[k] for k in now}
+
+
+def mesh_gallery_path(mesh):
+    """The gallery sharded over 4 virtual shards at 1,048,576 x 1024-d int8:
+    a 2048-probe ``KNNIdentifier(quantized=True, mesh=...)`` evaluation
+    (K2b once a shard) and ``MESH_QUERIES`` 16-probe ``EnrollmentGallery
+    (mesh=...).identify_many`` queries (K2b once a shard, the ranking state
+    placed once), each against the same object on one device (K2b; K2c for
+    the gallery): predictions and labels equal, distances within
+    ``MESH_TOL``."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 107)
+    g = unit_rows(gen, MESH_GALLERY_N, MESH_DIM)
+    labels = np.arange(MESH_GALLERY_N) // 4
+    pick = torch.randint(0, MESH_GALLERY_N, (MESH_EVAL,), generator=gen, device="cuda")
+    probes = g[pick] + 0.02 * torch.randn((MESH_EVAL, MESH_DIM), generator=gen,
+                                          device="cuda")
+    truth = labels[pick.cpu().numpy()]
+    shards = mesh.size
+    sharded = KNNIdentifier(quantized=True, mesh=mesh).fit(g, labels)
+    single = KNNIdentifier(quantized=True, device="cuda").fit(g, labels)
+    want = single.predict(probes)                   # warm-up of both
+    sharded.predict(probes)
+    torch.cuda.synchronize()
+    reset_launches()
+    got = sharded.predict(probes)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    if launches["knn_int8q"] != shards:
+        raise AssertionError(f"sharded evaluation: K2b launched {launches['knn_int8q']} "
+                             f"times, want once a shard ({shards})")
+    if not np.array_equal(got, want):
+        raise AssertionError("sharded evaluation: predictions differ from one device's")
+    acc = float(np.mean(got == truth))
+    eval_ms = median_ms(lambda: sharded.predict(probes), 3)
+    eval_single_ms = median_ms(lambda: single.predict(probes), 3)
+    del sharded, single
+
+    g_host, p_host = g.cpu().numpy(), probes.cpu().numpy()
+    del g, probes
+    torch.cuda.empty_cache()
+    names = [f"id{i}" for i in labels]
+    stores = {"mesh": EnrollmentGallery(mesh=mesh), "single": EnrollmentGallery(device="cuda")}
+    answers, place_ms, query_ms = {}, {}, {}
+    for key, store in stores.items():
+        store.enroll_many(names, g_host)
+        place_ms[key] = synced_ms(lambda: store.identify_many(p_host[:MESH_QUERY]), 1)
+        before = kernel_launches()
+        answers[key], query_ms[key] = [], []
+        for i in range(MESH_QUERIES):
+            t0 = time.perf_counter()
+            answers[key] += store.identify_many(p_host[i * MESH_QUERY:(i + 1) * MESH_QUERY])
+            query_ms[key].append((time.perf_counter() - t0) * 1e3)
+        delta = launch_delta(before)
+        if key == "mesh":
+            for k, v in delta.items():
+                launches[k] += v
+            if delta["knn_int8q"] != shards * MESH_QUERIES:
+                raise AssertionError(f"mesh gallery: K2b launched {delta['knn_int8q']} "
+                                     f"times for {MESH_QUERIES} queries over {shards} shards")
+    worst = 0.0
+    for (l1, d1, n1), (l2, d2, n2) in zip(answers["mesh"], answers["single"]):
+        if (l1, n1) != (l2, n2):
+            raise AssertionError(f"mesh gallery: {n1} vs one device's {n2}")
+        worst = max(worst, abs(d1 - d2))
+    if worst > MESH_TOL["distance"] or stores["mesh"].placements != 1:
+        raise AssertionError(f"mesh gallery: distances {worst} apart, "
+                             f"{stores['mesh'].placements} placements")
+    numbers = {"eval_ms": eval_ms, "eval_single_ms": eval_single_ms, "eval_accuracy": acc,
+               "query_ms": float(np.median(query_ms["mesh"])),
+               "query_single_ms": float(np.median(query_ms["single"])),
+               "queries_ms": query_ms,
+               "first_query_ms": place_ms["mesh"], "first_query_single_ms": place_ms["single"],
+               "distance_max_abs_diff": worst}
+    print(f"mesh gallery {MESH_GALLERY_N} x {MESH_DIM}-d int8 over {shards} virtual "
+          f"shards: {MESH_EVAL}-probe evaluation {eval_ms:.3f} ms (one device "
+          f"{eval_single_ms:.3f}), accuracy {acc}, predictions equal; {MESH_QUERY}-probe "
+          f"query median {numbers['query_ms']:.3f} ms (one device, K2c, "
+          f"{numbers['query_single_ms']:.3f}; each {json.dumps(query_ms)}), "
+          f"first query with the placement {place_ms['mesh']:.1f} ms (one device "
+          f"{place_ms['single']:.1f}); labels equal, distances {worst:.3g} apart, one "
+          f"placement; launches {json.dumps(launches)}")
+    del stores
+    return launches, numbers
+
+
+def mesh_face_diffs(got, want, label: str) -> dict:
+    """Boxes equal, ages and identity within ``MESH_TOL`` (the JAX dry
+    run's bounds); returns the worst differences."""
+    if [len(f) for f in got] != [len(f) for f in want]:
+        raise AssertionError(f"{label}: faces {[len(f) for f in got]} vs "
+                             f"{[len(f) for f in want]}")
+    worst = {"age": 0.0, "gender": 0.0, "identity": 0.0}
+    for a, b in ((a, b) for fa, fb in zip(got, want) for a, b in zip(fa, fb)):
+        if a.bbox != b.bbox:
+            raise AssertionError(f"{label}: box {a.bbox} vs {b.bbox}")
+        worst["age"] = max(worst["age"], abs(a.age - b.age))
+        worst["gender"] = max(worst["gender"], abs(a.gender_prob - b.gender_prob))
+        worst["identity"] = max(worst["identity"],
+                                float(np.abs(a.identity - b.identity).max()))
+    if worst["age"] > MESH_TOL["age"] or worst["identity"] > MESH_TOL["identity"]:
+        raise AssertionError(f"{label}: {worst}")
+    return worst
+
+
+def mesh_analyze_path(mesh, mtcnn_params, mh_params, rng):
+    """Mesh ``analyze_batch`` at batch 8 (2 lanes a shard), 640x480, the
+    analyzer's defaults: exactly 3 K1 launches a shard, no lane re-run,
+    equal to the one-device analyzer's answers; both timed."""
+    photos = np.stack(smooth_images(rng, BATCH))
+    sharded = FacialAnalyzer(mtcnn_params, mh_params, mesh=mesh)
+    single = FacialAnalyzer(mtcnn_params, mh_params, device="cuda")
+    sharded.analyze_batch(photos)                   # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    fallbacks = []
+    counting(sharded, "analyze", fallbacks)
+    got = sharded.analyze_batch(photos)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    del sharded.analyze
+    if fallbacks or launches["crop_resize"] != 3 * mesh.size:
+        raise AssertionError(f"mesh analyze_batch: {len(fallbacks)} lanes re-ran, K1 "
+                             f"launched {launches['crop_resize']} times (want 3 x "
+                             f"{mesh.size})")
+    worst = mesh_face_diffs(got, single.analyze_batch(photos), "mesh analyze_batch")
+    ms = median_ms(lambda: sharded.analyze_batch(photos), 5)
+    single_ms = median_ms(lambda: single.analyze_batch(photos), 5)
+    print(f"mesh analyze_batch x{BATCH} 640x480 over {mesh.size} virtual shards: "
+          f"{ms:.3f} ms a batch (one device {single_ms:.3f}); faces "
+          f"{[len(f) for f in got]}, worst {json.dumps(worst)}; K1 launches "
+          f"{launches['crop_resize']} ({launches['crop_resize'] // mesh.size} a shard)")
+    return launches, {"ms": ms, "single_ms": single_ms, "worst": worst,
+                      "k1_per_shard": launches["crop_resize"] / mesh.size}
+
+
+def mesh_embed_path(mesh, mh_params, rng):
+    """``EmbeddingExtractor(mesh=...)`` (the zoo's ``agegender_identity``,
+    params replicated) at 224², batch 1024, against one device's."""
+    images = rng.randint(0, 256, (MESH_EMBED, 224, 224, 3)).astype(np.uint8)
+    ex = zoo.build_extractor("agegender_identity", batch_size=MESH_EMBED, params=mh_params,
+                             mesh=mesh)
+    one = zoo.build_extractor("agegender_identity", batch_size=MESH_EMBED,
+                              params=mh_params, device="cuda")
+    reset_launches()
+    got = ex.extract_batch(images)
+    launches = kernel_launches()
+    want = one.extract_batch(images)
+    err = float(np.abs(got - want).max())
+    if got.shape != (MESH_EMBED, 1024) or not err <= MESH_TOL["embed"]:
+        raise AssertionError(f"mesh embed: shape {got.shape}, max abs err {err}")
+    ms = median_ms(lambda: ex.extract_batch(images), 3)
+    single_ms = median_ms(lambda: one.extract_batch(images), 3)
+    print(f"mesh embed 224², batch {MESH_EMBED} over {mesh.size} virtual shards: "
+          f"{ms:.3f} ms ({MESH_EMBED / ms * 1e3:.1f} img/s; one device {single_ms:.3f} "
+          f"ms), max abs err {err:.3g}")
+    del ex, one
+    torch.cuda.empty_cache()
+    return launches, {"ms": ms, "single_ms": single_ms, "max_abs_err": err}
+
+
+def replicas_identical(placed) -> bool:
+    return all(torch.equal(a, b) for path in placed.groups
+               for c in placed.replicas(path)[1:]
+               for a, b in zip(train_step._tensors(c),
+                               train_step._tensors(placed.replicas(path)[0])))
+
+
+def mesh_face_id_path():
+    """``make_sharded_face_id_trainer`` on a (2, 2) mesh at the JAX bench's
+    configuration (224², batch 256, 9131 classes, no augmentation), bf16
+    and float32, beside the one-device step from the same params; the
+    float32 losses of the first step within ``MESH_TOL``; replicas
+    bit-identical after every step; the classifier split over ``model``."""
+    mesh = mesh_of(MESH_TRAIN_SHAPE, ("data", "model"))
+    x, y = train_batch_np(np.random.RandomState(SEED + 109), TRAIN_BATCH, TRAIN_SIZE,
+                          TRAIN_CLASSES)
+    xd, yd = torch.as_tensor(x, device="cuda"), torch.as_tensor(y, device="cuda")
+    init = to_numpy(init_mobilenet_params(torch.Generator().manual_seed(SEED + 1),
+                                          n_classes=TRAIN_CLASSES, device="cpu"))
+    cfg = TrainConfig()
+    results = {}
+    for label, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        placed, state, step = make_sharded_face_id_trainer(
+            mesh, TRAIN_CLASSES, cfg, params=init, compute_dtype=dtype)
+        first = float(step(placed, state, None, xd, yd)[2]["loss"])
+        pieces = [p["kernel"].shape[0] for p in placed.tree["classifier"].values()]
+        if not replicas_identical(placed) or sum(pieces) != TRAIN_CLASSES:
+            raise AssertionError(f"sharded face-ID {label}: replicas differ or the "
+                                 f"classifier pieces are {pieces}")
+        ms = synced_ms(lambda: step(placed, state, None, xd, yd), MESH_STEPS)
+        if not replicas_identical(placed):
+            raise AssertionError(f"sharded face-ID {label}: replicas differ")
+        del placed, state, step
+        torch.cuda.empty_cache()
+        tree = to_torch(init, "cuda")
+        opt = face_id.make_optimizer(cfg)
+        ostate = opt.init(tree)
+        one = face_id.make_train_step(cfg, opt, augment=None, compute_dtype=dtype)
+        want = float(one(tree, ostate, None, xd, yd)[2]["loss"])
+        single_ms = synced_ms(lambda: one(tree, ostate, None, xd, yd), MESH_STEPS)
+        del tree, ostate, one
+        torch.cuda.empty_cache()
+        rel = abs(first - want) / abs(want)
+        if not np.isfinite(first) or (dtype == torch.float32 and rel > MESH_TOL["loss"]):
+            raise AssertionError(f"sharded face-ID {label}: loss {first} vs {want}")
+        print(f"sharded face-ID {label} on a {MESH_TRAIN_SHAPE} mesh of virtual shards, "
+              f"{TRAIN_SIZE}², batch {TRAIN_BATCH}, {TRAIN_CLASSES} classes split "
+              f"{pieces}: {ms:.3f} ms/step (one device {single_ms:.3f}); first loss "
+              f"{first:.6f} vs {want:.6f} (rel {rel:.3g}); replicas bit-identical")
+        results[label] = {"ms": ms, "single_ms": single_ms, "loss_rel": rel}
+    return results
+
+
+def mesh_face_id_trainer_path():
+    """``FaceIdTrainer(mesh=...)`` over 4 data shards, augmentation on (K3
+    once a shard a step), float32, against the one-device trainer of the
+    same seed: the first step's loss within ``MESH_TOL``."""
+    mesh = mesh_of()
+    x, y = train_batch_np(np.random.RandomState(SEED + 113), TRAIN_BATCH, TRAIN_SIZE,
+                          TRAIN_CLASSES)
+    out = {}
+    for key, where in (("mesh", {"mesh": mesh}), ("single", {"device": "cuda"})):
+        trainer = face_id.FaceIdTrainer(TRAIN_CLASSES, seed=SEED,
+                                        compute_dtype=torch.float32, **where)
+        reset_launches()
+        first = trainer.train_batch(x, y)["loss"]
+        ms = synced_ms(lambda: trainer.train_batch(x, y), MESH_STEPS)
+        launches = kernel_launches()
+        out[key] = (first, ms, launches)
+        del trainer
+        torch.cuda.empty_cache()
+    per_step = out["mesh"][2]["warp_batch"] / (MESH_STEPS + 1)
+    rel = abs(out["mesh"][0] - out["single"][0]) / abs(out["single"][0])
+    if per_step != mesh.size or rel > MESH_TOL["loss"]:
+        raise AssertionError(f"FaceIdTrainer(mesh): K3 {per_step} a step, loss "
+                             f"{out['mesh'][0]} vs {out['single'][0]}")
+    print(f"FaceIdTrainer(mesh) f32 over {mesh.size} virtual shards, {TRAIN_SIZE}², batch "
+          f"{TRAIN_BATCH}: {out['mesh'][1]:.3f} ms/step (one device {out['single'][1]:.3f}); "
+          f"first loss {out['mesh'][0]:.6f} vs {out['single'][0]:.6f} (rel {rel:.3g}); "
+          f"K3 launches per step {per_step}")
+    return out["mesh"][2], {"ms": out["mesh"][1], "single_ms": out["single"][1],
+                            "loss_rel": rel, "k3_per_step": per_step}
+
+
+def mesh_age_gender_path():
+    """The sharded age/gender pair over 4 shards (both axes flattened) at
+    batch 256, 224², unfrozen, float32, augmentation on (K3 once a shard a
+    step), against ``make_steps`` on one device from the same params and
+    generator seed: each task's first loss from the initial params within
+    ``MESH_TOL``; pairs timed."""
+    mesh = mesh_of((2, 2), ("data", "model"))
+    rng = np.random.RandomState(SEED + 127)
+    x = torch.as_tensor(rng.rand(AG_BATCH, AG_SIZE, AG_SIZE, 3).astype(np.float32),
+                        device="cuda")
+    labels = {"age": torch.as_tensor(rng.randint(0, 100, AG_BATCH), device="cuda"),
+              "gender": torch.as_tensor(rng.randint(0, 2, AG_BATCH), device="cuda")}
+    init = to_numpy({"backbone": init_mobilenet_params(torch.Generator().manual_seed(SEED + 1),
+                                                       device="cpu"),
+                     **age_gender.init_head_params(torch.Generator().manual_seed(SEED + 2),
+                                                   device="cpu")})
+    aug = AugmentConfig()
+
+    def sharded():
+        placed, age_os, gender_os, age_step, gender_step, _ = make_sharded_age_gender_trainer(
+            mesh, lr=AG_LR, compute_dtype=torch.float32, params=init, augment=aug)
+        return placed, {"age": (age_step, age_os), "gender": (gender_step, gender_os)}
+
+    def single():
+        opts = {t: age_gender.make_optimizer(AG_LR, False, task=t) for t in ("age", "gender")}
+        tree = to_torch(init, "cuda")
+        steps = age_gender.make_steps(opts["age"], opts["gender"], compute_dtype=torch.float32,
+                                      augment=aug)
+        return tree, {t: (s, opts[t].init(tree)) for t, s in zip(("age", "gender"), steps)}
+
+    out = {}
+    for key, build_fn in (("mesh", sharded), ("single", single)):
+        losses = {}
+        for task in ("age", "gender"):         # each task's first step from init
+            params, steps = build_fn()
+            fn, state = steps[task]
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            y = labels[task] if task == "age" else labels[task].to(torch.float32)
+            reset_launches()
+            losses[task] = float(fn(params, state, gen, x, y)[2][f"{task}_loss"])
+            k3 = kernel_launches()["warp_batch"]
+            if k3 != (mesh.size if key == "mesh" else 1):
+                raise AssertionError(f"{key} {task} step: K3 launched {k3} times")
+            if task == "gender":
+                def pair():
+                    steps["age"][0](params, steps["age"][1], gen, x, labels["age"])
+                    fn(params, state, gen, x, labels["gender"].to(torch.float32))
+                reset_launches()
+                ms = synced_ms(pair, MESH_PAIRS)
+                launches = kernel_launches()
+        out[key] = {"losses": losses, "ms": ms, "launches": launches}
+        del params, steps, fn, state
+        torch.cuda.empty_cache()
+    rel = {t: abs(out["mesh"]["losses"][t] - out["single"]["losses"][t])
+           / abs(out["single"]["losses"][t]) for t in ("age", "gender")}
+    per_pair = out["mesh"]["launches"]["warp_batch"] / MESH_PAIRS
+    if per_pair != 2 * mesh.size or max(rel.values()) > MESH_TOL["loss"]:
+        raise AssertionError(f"sharded age/gender: K3 {per_pair} a pair, losses "
+                             f"{out['mesh']['losses']} vs {out['single']['losses']}")
+    print(f"sharded age/gender pair f32 unfrozen over {mesh.size} virtual shards, "
+          f"{AG_SIZE}², batch {AG_BATCH}: {out['mesh']['ms']:.3f} ms a pair (one device "
+          f"{out['single']['ms']:.3f}); first losses {out['mesh']['losses']} vs "
+          f"{out['single']['losses']} (rel {json.dumps(rel)}); K3 launches per pair "
+          f"{per_pair}")
+    return out["mesh"]["launches"], {"ms": out["mesh"]["ms"], "single_ms": out["single"]["ms"],
+                                     "loss_rel": rel, "k3_per_pair": per_pair}
+
+
+def multichip_path(mtcnn_params, mh_params):
+    """The multi-device slice on the one card: every sharded path over
+    ``MESH_SHARDS`` virtual shards (``make_mesh(devices=["cuda"] * 4)``)
+    beside its one-device run, then ``dryrun_multichip(4)``. Virtual shards
+    on one card measure the mesh's bookkeeping and extra launches; they
+    say nothing of scaling over cards."""
+    mesh = mesh_of()
+    path_launches, numbers = [], {}
+    for name, fn in (
+            ("gallery", lambda: mesh_gallery_path(mesh)),
+            ("analyze_batch", lambda: mesh_analyze_path(
+                mesh, mtcnn_params, mh_params, np.random.RandomState(SEED + 7))),
+            ("embed", lambda: mesh_embed_path(mesh, mh_params,
+                                              np.random.RandomState(SEED + 131))),
+            ("face_id_trainer", mesh_face_id_trainer_path),
+            ("age_gender", mesh_age_gender_path)):
+        launches, numbers[name] = fn()
+        path_launches.append(launches)
+        torch.cuda.empty_cache()
+    reset_launches()
+    numbers["face_id_dp_tp"] = mesh_face_id_path()
+    path_launches.append(kernel_launches())
+    torch.cuda.empty_cache()
+    reset_launches()
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(MESH_SHARDS, device="cuda")
+    launches = kernel_launches()
+    path_launches.append(launches)
+    numbers["dryrun_s"] = time.perf_counter() - t0
+    if launches["crop_resize"] <= 0 or launches["knn_int8q"] <= 0:
+        raise AssertionError(f"dryrun_multichip launched {json.dumps(launches)}")
+    print(f"dryrun_multichip({MESH_SHARDS}) on the card: {numbers['dryrun_s']:.1f} s, "
+          f"mesh {dry['mesh']}, launches {json.dumps(launches)}")
+    return path_launches, numbers
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -3392,6 +3793,10 @@ def main() -> None:
     phase_done("age/gender train, unfrozen and frozen, bf16 and f32")
     ag_parity = age_gender_cuda_vs_cpu()
     phase_done("age_gender cuda vs cpu")
+    mesh_launches, mesh_numbers = multichip_path(mtcnn_params, mh_params)
+    path_launches += mesh_launches
+    mesh_total = {k: sum(p[k] for p in mesh_launches) for k in mesh_launches[0]}
+    phase_done("multichip")
     launches = {k: sum(p[k] for p in path_launches) for k in path_launches[0]}
 
     # crop: the sums over the three single-image call sites, i.e. one image's
@@ -3405,6 +3810,7 @@ def main() -> None:
         "source": "hse_facerec_torch/csrc/crop_resize.cu",
         "replaces": "hse_facerec_tf_tpu/ops/pallas/crop.py:103",
         "launches": launches["crop_resize"],
+        "mesh_launches": mesh_total["crop_resize"],
         "serve_launches": serve_launches["crop_resize"],
         "max_abs_err": max(r["max_abs_err"] for r in crop_results.values()),
         **{k: sum(r[k] for r in singles) for k in (
@@ -3423,6 +3829,7 @@ def main() -> None:
             "name": name, "route": "cuda", "source": "hse_facerec_torch/csrc/knn.cu",
             "replaces": f"hse_facerec_tf_tpu/ops/pallas/knn.py:{line}",
             "launches": launches[name], "serve_launches": serve_launches[name],
+            "mesh_launches": mesh_total[name],
             "equal": name != "knn_f32", **r,
             **({"widths": {k: {"tile": v["tile"], "ms": v[name + "_ms"],
                                **{f: v.get(f) for f in ("plain_ms", "bound_ms", "bound_by",
@@ -3433,6 +3840,7 @@ def main() -> None:
         "source": "hse_facerec_torch/csrc/pw_conv.cu",
         "replaces": "hse_facerec_tf_tpu/ops/pallas/pw_conv.py:150",
         "launches": launches["pw_conv_int8"],
+        "mesh_launches": mesh_total["pw_conv_int8"],
         "serve_launches": serve_launches["pw_conv_int8"], "equal": True,
         **pw,
         "max_abs_err": max(pw["max_abs_err"], pw_embed["max_abs_err"],
@@ -3447,6 +3855,7 @@ def main() -> None:
         "source": "hse_facerec_torch/csrc/warp.cu",
         "replaces": "hse_facerec_tf_tpu/ops/pallas/warp.py:166",
         "launches": launches["warp_batch"],
+        "mesh_launches": mesh_total["warp_batch"],
         "launches_per_face_id_step": max(n["warp_batch"] for n in train_launches) / TRAIN_STEPS,
         "launches_per_age_gender_pair": max(n["warp_batch"] for n in ag_launches) / AG_PAIRS,
         **warp_result})
@@ -3467,6 +3876,7 @@ def main() -> None:
     print("age_gender cuda vs cpu: " + json.dumps(ag_parity))
     print("align: " + json.dumps(aligned))
     print("cascade: " + json.dumps(cascade))
+    print("multichip: " + json.dumps(mesh_numbers))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

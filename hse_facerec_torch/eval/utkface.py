@@ -94,7 +94,7 @@ def evaluate_age_gender(predict_fn: Callable[[np.ndarray], Tuple[np.ndarray, np.
     threads) into per-size buckets flushed at ``batch_size``; a tail is
     padded by repeating its last image, so every call sees ``batch_size``.
     """
-    from ..pipelines.embedder import _pad_rows
+    from ..parallel.sharding import pad_batch
     from ..utils.prefetch import bounded_thread_map
 
     if loader is None:
@@ -125,8 +125,8 @@ def evaluate_age_gender(predict_fn: Callable[[np.ndarray], Tuple[np.ndarray, np.
 
     def _flush(bucket):
         idxs = [i for i, _ in bucket]
-        ages, p_male = predict_fn(_pad_rows(np.stack([im for _, im in bucket]),
-                                            batch_size))
+        ages, p_male = predict_fn(pad_batch(np.stack([im for _, im in bucket]),
+                                            batch_size)[0])
         pred_age[idxs] = np.asarray(ages)[:len(idxs)]
         pred_male[idxs] = np.asarray(p_male)[:len(idxs)]
         bucket.clear()

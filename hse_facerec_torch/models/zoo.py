@@ -273,8 +273,9 @@ def weights_origin(name: str) -> str:
 
 
 def build_extractor(name: str, batch_size: int = 64, device="cuda",
-                    params: Optional[Dict] = None):
-    """The zoo entry as an ``EmbeddingExtractor`` on ``device``. ``params``
+                    params: Optional[Dict] = None, mesh=None):
+    """The zoo entry as an ``EmbeddingExtractor`` on ``device``, or over
+    ``mesh`` (params replicated, batches split). ``params``
     (numpy, the layouts ``build_params`` returns: quantized for the int8
     entries) replaces the entry's weights, e.g. with seeded random weights
     where the file is absent."""
@@ -286,16 +287,17 @@ def build_extractor(name: str, batch_size: int = 64, device="cuda",
                               spec.input_size,
                               normalization=spec.normalization,
                               resize_method=spec.resize_method,
-                              batch_size=batch_size, device=device,
+                              batch_size=batch_size, device=device, mesh=mesh,
                               **spec.extractor_kwargs)
 
 
 def graph_extractor(pb_path: str, input_tensor: str, output_tensor: str,
                     input_size, normalization: str = "caffe",
                     resize_method: str = "pil_bilinear", batch_size: int = 64,
-                    device="cuda", extra_feeds: Optional[Dict[str, object]] = None):
+                    device="cuda", extra_feeds: Optional[Dict[str, object]] = None,
+                    mesh=None):
     """Generic frozen-pb embedder: ANY TF frozen graph as an
-    ``EmbeddingExtractor`` on ``device``, the general form of the
+    ``EmbeddingExtractor`` on ``device`` (or over ``mesh``), the general form of the
     reference's ``TensorFlowInference`` model rows (``facerec_test.py:
     209-218``: FaceNet, InsightFace, custom pbs, each selected by a (pb,
     input, output, preprocessing) tuple). The graph runs through
@@ -307,21 +309,18 @@ def graph_extractor(pb_path: str, input_tensor: str, output_tensor: str,
     ``phase_train:0 = False``, insightface.pb feeds ``dropout_rate:0 =
     0.9``)."""
     from ..core.graph_compiler import compile_pb
-    from ..pipelines.detector import resolve_device
     from ..pipelines.embedder import EmbeddingExtractor
 
-    device = resolve_device(device)
     cg = compile_pb(pb_path, [output_tensor], const_feeds=extra_feeds)
-    graph_params = cg.torch_params(device)
     in_name = input_tensor.split(":")[0]
 
-    def model_fn(_, x):
+    def model_fn(graph_params, x):
         (out,) = cg.fn(graph_params, {in_name: x})
         return out.reshape(out.shape[0], -1)
 
-    # the graph's params are the program's own (graph_params), not a layer
-    # tree the extractor converts
-    return EmbeddingExtractor(model_fn, {}, input_size,
+    # the graph's constants, not a layer tree, are the params it places
+    return EmbeddingExtractor(model_fn, cg, input_size,
                               normalization=normalization,
                               resize_method=resize_method,
-                              batch_size=batch_size, device=device)
+                              batch_size=batch_size, device=device,
+                              convert=lambda g, dev: g.torch_params(dev), mesh=mesh)

@@ -381,9 +381,9 @@ class AlbumOrganizer:
 
         # the analyzer retries rotations IN the flush on the device-resident
         # batch (one upload per photo, ``analyze_batch_retry_padded``);
-        # oversample analyzers, which that form refuses, keep the deferred
-        # no_face collection + batched retry after the sweep
-        resident_retry = not self.analyzer.oversample
+        # mesh and oversample analyzers, which that form refuses, keep the
+        # deferred no_face collection + batched retry after the sweep
+        resident_retry = self.analyzer.mesh is None and not self.analyzer.oversample
         no_face: List[Tuple[int, np.ndarray, Tuple[int, int]]] = []
 
         def flush(bucket):
@@ -453,7 +453,7 @@ class AlbumOrganizer:
 
     def _batched_rotation_retry(self, entries, per_photo) -> None:
         """Deferred batched rotation retry — only reached by analyzers whose
-        flush path can't retry on the resident batch (oversample; the
+        flush path can't retry on the resident batch (mesh or oversample; the
         scan retries inside ``flush`` via ``analyze_batch_retry_padded``
         with zero extra uploads). Same
         per-photo policy (90° first, 270° only for photos still face-less,
@@ -462,7 +462,7 @@ class AlbumOrganizer:
         one upright upload (``analyze_batch_rotations_padded``).
         ``entries``: (index, img, content_hw) triples; fills ``per_photo``
         in place."""
-        if not self.analyzer.oversample:
+        if self.analyzer.mesh is None and not self.analyzer.oversample:
             buckets: Dict[Tuple[int, int], list] = {}
             for (i, img, chw) in entries:
                 buckets.setdefault(img.shape[:2], []).append((i, img, chw))
@@ -487,9 +487,9 @@ class AlbumOrganizer:
                             per_photo[i] = self._faces_to_outputs(
                                 img, [], chw and chw[1])
             return
-        # oversample analyzers: the rotation pair runs the compacted path
-        # only, so keep the two-pass shape-bucketed retry through the
-        # mode-aware analyze_batch_padded
+        # mesh and oversample analyzers: the rotation pair runs the
+        # single-device compacted path only, so keep the two-pass
+        # shape-bucketed retry through the mode-aware analyze_batch_padded
         pending = entries
         for rot in (90, 270):
             if not pending:

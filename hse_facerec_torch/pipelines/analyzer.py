@@ -7,6 +7,11 @@ clipped to the image, cropped to 224² bilinear (border-replicate), BGR +
 ImageNet means; age = 1 + expectation over the renormalized top-2 age bins;
 gender probability thresholded at 0.6.
 
+Under a ``mesh`` (``parallel.sharding.Mesh``) ``analyze_batch`` splits the
+lanes over the mesh's shards, each running the compacted batch program on
+its device with a replica of the detector and the heads (the JAX package's
+``shard_map`` of ``_build_batch_compact_fn``).
+
 Numerics: parity with the reference needs fp32 without TF32. Call
 ``hse_facerec_torch.set_parity_numerics()`` once before analyzing on a
 CUDA device, as the CLI and ``chip_smoke.py`` do.
@@ -25,6 +30,7 @@ from ..models.mtcnn import import_mtcnn_params
 from ..models.multihead import import_multihead_params
 from ..ops import boxes as B
 from ..ops.kernels.crop import crop_resize
+from ..parallel.sharding import split_batch
 from .detector import MTCNNDetector, resolve_device, to_host
 from .heads import Int8MultiheadHeads, MultiheadHeads, TwoModelHeads
 
@@ -50,8 +56,13 @@ class FaceResult:
         return self.gender_prob >= threshold
 
 
+def _home(device, mesh) -> torch.device:
+    """Where an analyzer lives: the mesh's first device, else ``device``."""
+    return mesh.devices.flat[0] if mesh is not None else resolve_device(device)
+
+
 class FacialAnalyzer:
-    """Detection + per-face heads on one device.
+    """Detection + per-face heads on one device, or a batch over a mesh.
 
     ``mtcnn_params`` and ``multihead_params`` are the reference's numpy
     pytrees; they move to ``device`` once. ``heads`` replaces the default
@@ -65,18 +76,23 @@ class FacialAnalyzer:
     ±10 px diagonal shifts, ages and P(male) averaged over the five crops,
     identity from the box's own crop). ``batch_head_total`` is the number
     of head slots ``analyze_batch`` shares across a batch (default
-    ``max(16, 2·lanes)``). ``mesh`` (sharding a batch over several cards)
-    is not ported: passing one raises."""
+    ``max(16, 2·lanes)``). ``mesh`` (``parallel.sharding.Mesh``): the
+    analyzer lives on the mesh's first device, which replaces ``device``,
+    and ``analyze_batch`` shards its lanes over every device of the mesh:
+    zero lanes pad the batch to a multiple of the shards, each shard runs
+    ``analyze_batch_core`` on its lanes with a per-shard budget of
+    ``batch_head_total or max(16, 2·lanes a shard)`` head slots (lane by
+    lane with ``oversample``), and the host stitches the shards together.
+    ``analyze`` (one image) is not sharded; the padded retry and rotation
+    forms refuse a mesh."""
 
     def __init__(self, mtcnn_params, multihead_params=None, device="cuda",
                  minsize: int = 40, face_size: int = 224,
                  bbox_dilation: int = 10, head_batch: int = 16, heads=None,
                  oversample: bool = False, batch_head_total=None, mesh=None,
                  **detector_kwargs):
-        if mesh is not None:
-            raise NotImplementedError("FacialAnalyzer(mesh=...) is not ported: "
-                                      "the batch path runs on one device")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = _home(device, mesh)
         if heads is None:
             if multihead_params is None:
                 raise ValueError("pass multihead_params or heads")
@@ -97,7 +113,7 @@ class FacialAnalyzer:
         full-int8 serving path (``models/int8_infer.py``)."""
         mh = import_multihead_params(agegender_pb)
         if int8_heads:
-            device = resolve_device(kwargs.pop("device", "cuda"))
+            device = _home(kwargs.pop("device", "cuda"), kwargs.get("mesh"))
             return cls(import_mtcnn_params(mtcnn_pb), device=device,
                        heads=Int8MultiheadHeads(mh, device), **kwargs)
         return cls(import_mtcnn_params(mtcnn_pb), mh, **kwargs)
@@ -111,7 +127,7 @@ class FacialAnalyzer:
         models, each with its own input size and tensor taps
         (``TwoModelHeads``). Faces carry no identity features: each
         ``FaceResult.identity`` has shape (0,)."""
-        device = resolve_device(kwargs.pop("device", "cuda"))
+        device = _home(kwargs.pop("device", "cuda"), kwargs.get("mesh"))
         heads = TwoModelHeads(age_pb, gender_pb, device, sota=sota,
                               **(head_kwargs or {}))
         return cls(import_mtcnn_params(mtcnn_pb), device=device, heads=heads,
@@ -294,9 +310,46 @@ class FacialAnalyzer:
         (when ``max_escalations`` > 0), re-run through ``analyze``.
         ``n_valid``: with a padded batch, the number of real leading lanes;
         only those are returned. Pad with zero images (not repeats): blank
-        lanes detect nothing, so they take no head slots."""
+        lanes detect nothing, so they take no head slots. Under a mesh the
+        lanes are sharded (``_analyze_sharded``)."""
         images = np.asarray(images)
+        if self.mesh is not None:
+            return self._analyze_sharded(images, n_valid)
         return self._analyze_uploaded(self.detector.upload(images), images, n_valid)
+
+    def _analyze_sharded(self, images: np.ndarray,
+                         n_valid: Optional[int] = None) -> List[List[FaceResult]]:
+        """``analyze_batch`` over the mesh (the JAX package's
+        ``_batch_compact_sharded_fn``): every stage is lane-local, so each
+        shard compacts its own lanes' faces into its own head slots and no
+        shard waits for another. Each shard's ``sel`` indexes its local
+        (lanes · n) slots; the host adds the shard offsets."""
+        n, h, w = images.shape[:3]
+        n_valid = n if n_valid is None else min(n_valid, n)
+        shards = self.mesh.shard_devices()
+        images = self._pad(images, -(-n // len(shards)) * len(shards))
+        lanes = len(images) // len(shards)
+        replicas = self.mesh.replicate(self)
+        parts = split_batch(images, shards)
+        caps = self.detector.caps_for(h, w)
+        if self.oversample:
+            budget = self._batch_head_budget()
+            cores = [replicas[d].analyze_core(x, budget) for d, x in zip(shards, parts)]
+            can_fallback = budget < caps[2]
+        else:
+            total = self._batch_total(lanes)
+            cores = [replicas[d].analyze_batch_core(x, total)
+                     for d, x in zip(shards, parts)]
+            can_fallback = total < lanes * caps[2]
+        outs = [to_host(c) for c in cores]     # after every shard was launched
+        out = [np.concatenate(a) for a in zip(*outs)]
+        if not self.oversample:
+            width = outs[0][4].shape[1]
+            out[8] = np.concatenate([o[8] + s * lanes * width
+                                     for s, o in enumerate(outs)])
+        det_esc = self.detector.max_escalations > 0
+        self.detector._warn_truncated(bool(out[9][:n_valid].any()) and not det_esc, caps)
+        return self._finish_compact(out, lambda i: images[i], n_valid, can_fallback)
 
     def _analyze_uploaded(self, dev, images: np.ndarray,
                           n_valid: Optional[int] = None) -> List[List[FaceResult]]:
@@ -379,7 +432,10 @@ class FacialAnalyzer:
         (faces_90, faces_270) per real image, in the rotated images'
         coordinates (those of ``np.rot90(img, 3)`` and ``np.rot90(img,
         1)``); faces_270 only for images with no face at 90°. The caller
-        applies the reference's 90-first policy."""
+        applies the reference's 90-first policy. Single-device only."""
+        if self.mesh is not None:
+            raise ValueError("analyze_batch_rotations_padded runs on one device, "
+                             "not over a mesh")
         n = len(images)
         images = self._pad(images, lanes)
         res90, res270 = self._rotations(self.detector.upload(images), n, lanes,
@@ -395,9 +451,9 @@ class FacialAnalyzer:
         the same device tensor. Returns (faces, rotation) per real image,
         rotation in {0, 90, 270}; a rotated result's boxes lie in the
         rotated image, as with ``analyze_with_rotations``."""
-        if self.oversample:
-            raise ValueError("analyze_batch_retry_padded runs the compacted "
-                             "batch path only, not oversample")
+        if self.mesh is not None or self.oversample:
+            raise ValueError("analyze_batch_retry_padded runs the single-device "
+                             "compacted batch path only, not a mesh or oversample")
         n = len(images)
         images = self._pad(images, lanes)
         dev = self.detector.upload(images)                  # the one upload

@@ -1,9 +1,10 @@
 """Batched face-embedding extraction.
 
-Counterpart of ``hse_facerec_tf_tpu/pipelines/embedder.py`` without the
-``mesh`` branch: a uint8 batch goes to the device, is resized (matmuls),
-normalized and run through the backbone, in batches instead of the
-reference's one ``sess.run`` per image (``facerec_test.py:114-122``).
+Counterpart of ``hse_facerec_tf_tpu/pipelines/embedder.py``: a uint8 batch
+goes to the device, is resized (matmuls), normalized and run through the
+backbone, in batches instead of the reference's one ``sess.run`` per image
+(``facerec_test.py:114-122``). With a ``mesh`` the params are replicated on
+its devices and each batch is split over them.
 """
 
 from __future__ import annotations
@@ -16,20 +17,13 @@ import torch
 from ..ops.preprocess import NORMALIZERS
 from ..ops.resize import resize, resize_host
 from ..params import to_torch
+from ..parallel.sharding import gather, pad_batch, split_batch
 from .detector import resolve_device
 
 
-def _pad_rows(x: np.ndarray, multiple: int) -> np.ndarray:
-    """Pad the leading dim up to a multiple by repeating the last row
-    (reference ``parallel/sharding.py::pad_batch``)."""
-    rem = (-len(x)) % multiple
-    if rem:
-        x = np.concatenate([x, np.repeat(x[-1:], rem, axis=0)])
-    return x
-
-
 class EmbeddingExtractor:
-    """Turns a backbone into a batched feature extractor on one device.
+    """Turns a backbone into a batched feature extractor on one device or
+    over a mesh.
 
     Args:
       model_fn: ``f(params, images_f32_nhwc) -> (N, D)`` on torch tensors.
@@ -49,19 +43,30 @@ class EmbeddingExtractor:
         compiled programs; eager PyTorch compiles none, so it is not here.
       convert: ``f(params, device)`` -> the tensors ``model_fn`` takes
         (default ``params.to_torch``, for pytrees of layer dicts).
+      mesh: a ``parallel.sharding.Mesh``: ``convert`` places one copy of
+        the params per distinct device, every forward splits its rows over
+        all the mesh's shards (padded by repeating the last row), and the
+        features come back in input order. The mesh's first device
+        replaces ``device``.
     """
 
     def __init__(self, model_fn: Callable, params, input_size: Tuple[int, int],
                  normalization: str = "caffe", resize_method: str = "pil_bilinear",
                  batch_size: int = 64, device="cuda", flip_tta: bool = False,
                  l2_normalize_output: bool = False, host_resize: str = "never",
-                 convert: Callable = to_torch):
+                 convert: Callable = to_torch, mesh=None):
         if host_resize not in ("always", "never"):
             raise ValueError(f"host_resize must be always|never, "
                              f"got {host_resize!r}")
         self.model_fn = model_fn
-        self.device = resolve_device(device)
-        self.params = convert(params, self.device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.params = convert(params, self.device)
+        else:
+            self.device = mesh.devices.flat[0]
+            self._replicas = mesh.replicate(params, convert)
+            self.params = self._replicas[self.device]
         self.input_size = tuple(input_size)
         self.normalization = normalization
         self.resize_method = resize_method
@@ -79,14 +84,24 @@ class EmbeddingExtractor:
 
     @torch.no_grad()
     def _forward(self, images: np.ndarray) -> torch.Tensor:
-        x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+        if self.mesh is None:
+            return self._forward_on(self.params, torch.from_numpy(
+                np.ascontiguousarray(images)).to(self.device))
+        # each shard's rows on its device, the features gathered in order
+        shards = self.mesh.shard_devices()
+        padded, n = pad_batch(np.asarray(images), len(shards))
+        feats = [self._forward_on(self._replicas[d], x)
+                 for d, x in zip(shards, split_batch(padded, shards))]
+        return gather(feats, self.device)[:n]
+
+    def _forward_on(self, params, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.float32)
         if (x.shape[1], x.shape[2]) != self.input_size:
             x = resize(x, self.input_size, self.resize_method)
         x = NORMALIZERS[self.normalization](x)
-        feats = self.model_fn(self.params, x)
+        feats = self.model_fn(params, x)
         if self.flip_tta:
-            feats = feats + self.model_fn(self.params, torch.flip(x, dims=(2,)))
+            feats = feats + self.model_fn(params, torch.flip(x, dims=(2,)))
         if self.l2_normalize_output:
             feats = feats / torch.clamp(
                 torch.linalg.vector_norm(feats, dim=-1, keepdim=True), min=1e-12)
@@ -98,7 +113,8 @@ class EmbeddingExtractor:
         A tail chunk pads to the next power of two (floor 8, at most
         ``batch_size``), so a run sees a handful of batch shapes, as in the
         reference; each chunk is queued on the device before any result is
-        copied back."""
+        copied back. Under a mesh the tail bucket holds at least one row a
+        shard."""
         images = self._maybe_host_resize(np.asarray(images))
         outs, takes = [], []
         for i in range(0, len(images), self.batch_size):
@@ -106,7 +122,9 @@ class EmbeddingExtractor:
             take = len(chunk)
             if take < self.batch_size:
                 bucket = max(8, 1 << max(0, (take - 1).bit_length()))
-                chunk = _pad_rows(chunk, min(bucket, self.batch_size))
+                if self.mesh is not None:
+                    bucket = max(bucket, self.mesh.size)
+                chunk = pad_batch(chunk, min(bucket, self.batch_size))[0]
             outs.append(self._forward(chunk))
             takes.append(take)
         return np.concatenate([o[:t].cpu().numpy() for o, t in zip(outs, takes)])
@@ -130,7 +148,7 @@ class EmbeddingExtractor:
         def dispatch(bucket):
             idxs = [i for i, _ in bucket]
             batch = self._maybe_host_resize(np.stack([im for _, im in bucket]))
-            padded = _pad_rows(batch, self.batch_size)
+            padded = pad_batch(batch, self.batch_size)[0]
             for s in range(0, len(padded), self.batch_size):
                 in_flight.append((idxs[s:s + self.batch_size],
                                   self._forward(padded[s:s + self.batch_size])))

@@ -1,13 +1,14 @@
 """Persistent face-enrollment gallery for serving.
 
-Counterpart of ``hse_facerec_tf_tpu/pipelines/gallery.py`` without the
-``mesh`` branch. The store keeps the f32 gallery on the host and an int8
-ranking state on the device (one global scale, the rows padded and their
-norms computed by ``pack_quantized_gallery``), rebuilt lazily after
-enrollments, and answers 1-NN queries through ``nearest_neighbor_int8p``:
-the int8 kernel K2c on CUDA, its twin on the CPU, with exact squared L2
-between the dequantized vectors (the reference's
-``nearest_neighbor_auto(int8=True)`` answers).
+Counterpart of ``hse_facerec_tf_tpu/pipelines/gallery.py``. The store
+keeps the f32 gallery on the host and an int8 ranking state on the device
+(one global scale, the rows padded and their norms computed by
+``pack_quantized_gallery``), rebuilt lazily after enrollments, and answers
+1-NN queries through ``nearest_neighbor_int8p``: the int8 kernel K2c on
+CUDA, its twin on the CPU, with exact squared L2 between the dequantized
+vectors (the reference's ``nearest_neighbor_auto(int8=True)`` answers).
+With a ``mesh`` the ranking state is split over the mesh's devices
+instead (``parallel/knn.py``: K2b per shard for int8).
 
 Thread-safe. Persistence is one ``.npz`` written atomically (tmp +
 ``os.replace``) after every change; the file is the reference's format, so
@@ -30,6 +31,7 @@ import torch
 
 from ..ops.kernels.knn import (nearest_neighbor_auto, nearest_neighbor_int8p,
                                pack_quantized_gallery)
+from ..parallel.knn import nearest_neighbor_sharded, place_gallery
 from .detector import resolve_device
 
 
@@ -60,13 +62,24 @@ class EnrollmentGallery:
     rewritten atomically after each ``enroll``/``remove``.
     ``quantized``: rank through the int8 path (default); ``False`` ranks in
     exact f32. The preference persists in the file; an explicit bool
-    overrides the stored one, ``None`` follows the file."""
+    overrides the stored one, ``None`` follows the file.
+    ``mesh`` (``parallel.sharding.Mesh``): the ranking state is padded to
+    the ``mesh_axis`` size and placed as one slice per shard once per
+    gallery version (int8: quantized on the host, ranked on K2b per shard
+    with its valid rows; f32: ``1e4`` pad rows), so the gallery's capacity
+    grows with the devices; probes go to the mesh's first device, which
+    replaces ``device``. ``placements`` counts the placements."""
 
     def __init__(self, path: Optional[str] = None,
-                 quantized: Optional[bool] = None, device="cuda"):
+                 quantized: Optional[bool] = None, device="cuda",
+                 mesh=None, mesh_axis: str = "data"):
         self.path = path
         self.quantized = True if quantized is None else quantized
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        self.placements = 0
+        self.device = (mesh.devices.flat[0] if mesh is not None
+                       else resolve_device(device))
         self._lock = threading.RLock()
         self._labels: List[str] = []
         self._feats: List[np.ndarray] = []
@@ -194,7 +207,9 @@ class EnrollmentGallery:
                 return None, None, None
             if self._rank_state is None:
                 g = np.stack(self._feats)
-                if self.quantized:
+                if self.mesh is not None:
+                    rank_fn = self._mesh_rank_fn(g)
+                elif self.quantized:
                     packed = pack_quantized_gallery(
                         *(torch.as_tensor(a, device=self.device)
                           for a in _quantize_host(g)))
@@ -204,6 +219,23 @@ class EnrollmentGallery:
                     rank_fn = lambda probes: nearest_neighbor_auto(probes, gallery)
                 self._rank_state = (rank_fn, g.shape[1], list(self._labels))
             return self._rank_state
+
+    def _mesh_rank_fn(self, g: np.ndarray):
+        """The gallery padded to the mesh axis and placed as shards, once;
+        each query runs the per-shard sweep and the cross-shard argmin."""
+        n, dim = g.shape
+        pad = (-n) % self.mesh.shape[self.mesh_axis]
+        if self.quantized:
+            # on the host: the reference's numpy mirror, an exact division
+            q, scale = _quantize_host(g)
+            q = np.concatenate([q, np.zeros((pad, dim), np.int8)])
+            placed = place_gallery((torch.from_numpy(q), torch.tensor(scale)),
+                                   self.mesh, self.mesh_axis, int8=True, n_valid=n)
+        else:
+            placed = place_gallery(torch.from_numpy(g), self.mesh, self.mesh_axis)
+        self.placements += 1
+        return lambda probes: nearest_neighbor_sharded(probes, placed, self.mesh,
+                                                       self.mesh_axis)
 
     def _save_locked(self):
         if not self.path:

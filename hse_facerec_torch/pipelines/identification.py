@@ -1,11 +1,13 @@
 """Face identification: 1-NN / k-NN on the device and the reference's
 protocols.
 
-Counterpart of ``hse_facerec_tf_tpu/pipelines/identification.py`` without
-the ``mesh`` branch (reference ``facerec_test.py:177-288,401-432``):
-features are L2-normalized, the gallery x probe distances are one matmul,
-and prediction is argmin / top-k + majority vote. ``quantized=True`` keeps
-the gallery int8 and ranks through the int8 1-NN kernel (K2b) on CUDA.
+Counterpart of ``hse_facerec_tf_tpu/pipelines/identification.py``
+(reference ``facerec_test.py:177-288,401-432``): features are
+L2-normalized, the gallery x probe distances are one matmul, and
+prediction is argmin / top-k + majority vote. ``quantized=True`` keeps the
+gallery int8 and ranks through the int8 1-NN kernel (K2b) on CUDA. With a
+``mesh``, k=1 euclidean prediction runs the gallery-sharded sweep
+(``parallel/knn.py``).
 
 Protocols: 50 % StratifiedShuffleSplit, seed 0 (``classifier_tester``
 :200-207); singleton-class removal (:408-414); one gallery image per class
@@ -21,6 +23,7 @@ import torch
 
 from ..ops.distance import l2_normalize, nearest_neighbor, top_k_neighbors
 from ..ops.kernels.knn import nearest_neighbor_auto, quantize_embeddings
+from ..parallel.knn import nearest_neighbor_sharded
 from .detector import resolve_device
 
 
@@ -34,17 +37,24 @@ class KNNIdentifier:
     ``quantized``: store the gallery int8 (one symmetric global scale,
     4x less device memory per enrolled identity) and rank through the int8
     kernel K2b on CUDA, its exact twin on the CPU; distances are exact
-    squared L2 between the dequantized embeddings."""
+    squared L2 between the dequantized embeddings.
+    ``mesh`` (``parallel.sharding.Mesh``): k=1 euclidean prediction splits
+    the gallery over its ``data`` axis (``nearest_neighbor_sharded``, f32
+    or quantized inside the sweep, as the reference's mesh path); the
+    rows live on the mesh's first device in between, which replaces
+    ``device``."""
 
     def __init__(self, k: int = 1, metric: str = "euclidean", normalize: bool = True,
-                 quantized: bool = False, device="cuda"):
+                 quantized: bool = False, device="cuda", mesh=None):
         if quantized and (k != 1 or metric != "euclidean"):
             raise ValueError("quantized gallery supports k=1 euclidean only")
         self.k = k
         self.metric = metric
         self.normalize = normalize
         self.quantized = quantized
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (mesh.devices.flat[0] if mesh is not None
+                       else resolve_device(device))
         self._gallery = None
         self._labels = None        # host numpy: labels are gathered on the host
 
@@ -55,15 +65,20 @@ class KNNIdentifier:
 
     def fit(self, features: np.ndarray, labels: np.ndarray) -> "KNNIdentifier":
         g = self._rows(features)
-        # the reference quantizes the gallery eagerly: an exact division
-        self._gallery = quantize_embeddings(g) if self.quantized else g
+        # the reference quantizes the gallery eagerly: an exact division;
+        # the mesh path quantizes inside the sharded sweep
+        self._gallery = (quantize_embeddings(g) if self.quantized and self.mesh is None
+                         else g)
         self._labels = np.asarray(labels)
         return self
 
     def predict(self, probes: np.ndarray) -> np.ndarray:
         p = self._rows(probes)
         if self.k == 1:
-            if self.quantized or self.metric == "euclidean":
+            if self.mesh is not None and self.metric == "euclidean":
+                _, idx = nearest_neighbor_sharded(p, self._gallery, self.mesh,
+                                                  int8=self.quantized)
+            elif self.quantized or self.metric == "euclidean":
                 # matmul + argmin, or a 1-NN kernel where the reference's
                 # routing rule picks one (int8 always, f32 past the limit)
                 _, idx = nearest_neighbor_auto(p, self._gallery,

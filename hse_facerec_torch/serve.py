@@ -470,21 +470,25 @@ def build_server(port: int = 8000, model: str = "agegender_identity",
     """The server as ``main`` runs it: the zoo's ``model`` behind the embed
     worker, the reference's analyzer (``zoo.MTCNN_PB``/``AGEGENDER_PB``) at
     8 lanes behind the analyze worker, an ``EnrollmentGallery`` at
-    ``gallery_path``, all on ``device``. ``data_parallel`` (several cards)
-    is not ported: on one card it is ignored, as in the reference; with
-    more it raises."""
+    ``gallery_path``, all on ``device``. ``data_parallel`` with several
+    cards builds one 1-D ``data`` mesh over all of them
+    (``parallel.sharding.make_mesh``) and hands it to the extractor, the
+    analyzer and the gallery; on one card it is ignored, as in the
+    reference."""
     import torch
 
     from .models import zoo
     from .models.zoo import build_extractor
 
+    mesh = None
     if data_parallel:
+        from .parallel.sharding import make_mesh
+
         if torch.cuda.device_count() > 1:
-            raise NotImplementedError(
-                "serve --data-parallel over several cards is not ported "
-                "(ROADMAP.md Queue 1 item 6: parallel/ on torch.distributed)")
-        print("serve: --data-parallel ignored (single device)")
-    extractor = build_extractor(model, device=device)
+            mesh = make_mesh()
+        else:
+            print("serve: --data-parallel ignored (single device)")
+    extractor = build_extractor(model, device=device, mesh=mesh)
     if prewarm:
         # run every embed batch bucket once BEFORE serving traffic: the
         # first call builds the kernels and lets cuDNN pick its algorithms
@@ -505,13 +509,15 @@ def build_server(port: int = 8000, model: str = "agegender_identity",
         from .pipelines.analyzer import FacialAnalyzer
 
         analyzer = FacialAnalyzer.from_reference_models(
-            zoo.MTCNN_PB, zoo.AGEGENDER_PB, device=device)
+            zoo.MTCNN_PB, zoo.AGEGENDER_PB, device=device, mesh=mesh)
         analyze_worker = _BatchingWorker(
             functools.partial(_analyze_batch_pow2, analyzer), max_batch=8,
             name="analyze_worker", timer=timer)
     from .pipelines.gallery import EnrollmentGallery
 
-    gallery = EnrollmentGallery(path=gallery_path, device=device)
+    # under --data-parallel the gallery's ranking state is split over the
+    # same mesh: its capacity grows with the cards
+    gallery = EnrollmentGallery(path=gallery_path, device=device, mesh=mesh)
     return ThreadingHTTPServer(
         ("0.0.0.0", port),
         make_handler(worker, analyze_worker,
@@ -546,8 +552,8 @@ def main(argv=None):
                         "album DistanceThreshold, process_photos.py:26)")
     p.add_argument("--data-parallel", action="store_true",
                    help="shard coalesced request batches over all local "
-                        "cards: not ported (ignored on one card, an error "
-                        "on several)")
+                        "cards (one 1-D data mesh for the embed extractor, "
+                        "the analyzer and the gallery); ignored on one card")
     p.add_argument("--prewarm", action="store_true",
                    help="run every embed batch bucket once before accepting "
                         "traffic (kernel build, cuDNN algorithm choice), so "

@@ -1,5 +1,6 @@
 """Seeded random parameters for the analyze path and the zoo's
-backbones, numpy only, and a seeded synthetic LBP cascade.
+backbones, numpy only, seeded synthetic photos and a seeded synthetic LBP
+cascade.
 
 The pytrees have the reference's layouts and shapes (HWIO convs,
 (H, W, C, 1) depthwise, (in, out) dense), so the same arrays go through
@@ -47,6 +48,19 @@ def _dense(rng, shape, gain=1.0):
 # face-logit bias per net: lifts P(face) of random candidates to around the
 # default thresholds (0.6, 0.7, 0.9), so that boxes survive to stage 3
 FACE_LOGIT_BIAS = {"pnet": 0.3, "rnet": 1.0, "onet": 2.0}
+
+
+def synthetic_photo(seed: int, h: int, w: int) -> np.ndarray:
+    """A seeded photo-like uint8 (h, w, 3) image: a bilinear upsample of an
+    8x10 colour field plus noise. The seeded MTCNN weights find faces in
+    such images."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    low = torch.from_numpy(rng.rand(1, 3, 8, 10).astype(np.float32) * 255)
+    img = torch.nn.functional.interpolate(low, size=(h, w), mode="bilinear")
+    img = img[0].permute(1, 2, 0).numpy() + rng.randn(h, w, 3) * 8
+    return np.clip(img, 0, 255).round().astype(np.uint8)
 
 
 def random_mtcnn_params(rng: np.random.RandomState) -> Dict[str, Dict]:

@@ -97,6 +97,12 @@ def forward(params: Dict, images, *, masks: Optional[Sequence[torch.Tensor]] = N
                                   train=backbone_train,
                                   stats_out=stats if backbone_train else None)
         emb = torch.mean(h, dim=(1, 2)).to(torch.float32)
+    return (*heads(params, emb, masks), stats)
+
+
+def heads(params: Dict, emb, masks: Optional[Sequence[torch.Tensor]] = None):
+    """The pooled embedding (N, backbone_dim) -> (age_logits, gender_logit),
+    with dropout where ``masks`` are given."""
     keep = 1.0 - DROPOUT_RATE
     if masks is not None:
         emb = div_const(emb * masks[0], keep)
@@ -105,7 +111,7 @@ def forward(params: Dict, images, *, masks: Optional[Sequence[torch.Tensor]] = N
         f = div_const(f * masks[1], keep)
     age_logits = dense(f, params["age"]["kernel"], params["age"]["bias"])
     gender_logit = dense(f, params["gender"]["kernel"], params["gender"]["bias"])[:, 0]
-    return age_logits, gender_logit, stats
+    return age_logits, gender_logit
 
 
 def _owner(excluded: frozenset) -> Callable[[Path], bool]:

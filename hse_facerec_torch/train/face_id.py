@@ -10,7 +10,9 @@ accuracy + early stopping patience 2 (:205-208).
 One train step: augmentation (K3), forward with batch-statistics BN, loss,
 autograd, an Adam update and the BN running-statistics update, all on the
 device. Params, Adam moments and BN statistics are updated in place (the
-reference donates their buffers to the jitted step).
+reference donates their buffers to the jitted step). ``FaceIdTrainer(mesh=
+...)`` splits each batch over the mesh's ``data`` axis
+(``parallel/train_step.py``).
 """
 
 from __future__ import annotations
@@ -192,23 +194,41 @@ class FaceIdTrainer:
     Weights are He-normal from ``seed + 1`` (drawn on the CPU, so a seed
     gives the same weights on every device); augmentation draws from a
     generator on the device seeded with ``seed``. ``compute_dtype`` is the
-    backbone's activation type (bf16 by default, as the reference's)."""
+    backbone's activation type (bf16 by default, as the reference's).
+    ``mesh`` (``parallel.sharding.Mesh``): pure data parallelism, the batch
+    split over its ``data`` axis and the params replicated (every BN layer
+    normalizes with the whole batch's moments, the augmentation is drawn
+    for the whole batch and warped per shard); the trainer's own params
+    live on the mesh's first device, which replaces ``device``."""
 
     def __init__(self, n_classes: int, cfg: Optional[TrainConfig] = None,
                  seed: int = 0, augment: Optional[AugmentConfig] = AugmentConfig(),
                  bn_momentum: float = 0.99, remat: bool = False, device="cuda",
-                 compute_dtype=torch.bfloat16):
+                 compute_dtype=torch.bfloat16, mesh=None):
         self.cfg = cfg or TrainConfig()
-        self.device = resolve_device(device)
+        self.device = (mesh.devices.flat[0] if mesh is not None
+                       else resolve_device(device))
         self.compute_dtype = compute_dtype
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.params = init_mobilenet_params(torch.Generator().manual_seed(seed + 1),
                                             n_classes=n_classes, device=self.device)
         self.optimizer = make_optimizer(self.cfg)
         self.opt_state = self.optimizer.init(self.params)
-        self._step = make_train_step(self.cfg, self.optimizer, augment,
-                                     bn_momentum=bn_momentum, remat=remat,
-                                     compute_dtype=compute_dtype)
+        self._sharded = None
+        if mesh is None:
+            self._step = make_train_step(self.cfg, self.optimizer, augment,
+                                         bn_momentum=bn_momentum, remat=remat,
+                                         compute_dtype=compute_dtype)
+        else:
+            from ..parallel.train_step import (make_sharded_face_id_step,
+                                               place_face_id_params)
+
+            # the master copies are self.params' own tensors
+            self._sharded = place_face_id_params(mesh, self.params,
+                                                 split_classifier=False)
+            self._step = make_sharded_face_id_step(
+                mesh, self.cfg, self.optimizer, augment, bn_momentum=bn_momentum,
+                remat=remat, compute_dtype=compute_dtype, split_classifier=False)
 
     def _input(self, images):
         return torch.as_tensor(images, dtype=torch.float32, device=self.device)
@@ -217,7 +237,8 @@ class FaceIdTrainer:
         """One step on (N, H, W, 3) float images (numpy or a tensor) and
         their integer labels."""
         y = torch.as_tensor(labels, device=self.device).to(torch.int64)
-        _, _, metrics = self._step(self.params, self.opt_state, self.generator,
+        params = self.params if self._sharded is None else self._sharded
+        _, _, metrics = self._step(params, self.opt_state, self.generator,
                                    self._input(images), y)
         # one host read for the whole metrics dict, not one per scalar
         loss, acc = torch.stack([metrics["loss"], metrics["acc"]]).tolist()

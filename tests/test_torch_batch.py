@@ -379,6 +379,18 @@ def test_oversample_matches_jax(multihead_np):
 
 
 def test_mesh_is_not_ported(multihead_np):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        FacialAnalyzer(random_mtcnn_params(np.random.RandomState(2)), multihead_np,
-                       device="cpu", mesh=object())
+    """A mesh analyzer shards ``analyze_batch`` (``test_torch_parallel.py``
+    holds it against the JAX package); the single-device retry and rotation
+    forms refuse a mesh, as the JAX package's retry form does."""
+    from hse_facerec_torch.parallel.sharding import make_mesh
+
+    mtcnn_np = random_mtcnn_params(np.random.RandomState(CASES["fits"][0]))
+    kw = dict(minsize=20, face_size=64, head_batch=4, **CASES["fits"][2])
+    an = FacialAnalyzer(mtcnn_np, multihead_np, mesh=make_mesh(devices=["cpu"] * 2), **kw)
+    imgs = _batch("fits")
+    _assert_same_batches(an.analyze_batch(imgs),
+                         FacialAnalyzer(mtcnn_np, multihead_np, device="cpu",
+                                        **kw).analyze_batch(imgs))
+    for form in (an.analyze_batch_retry_padded, an.analyze_batch_rotations_padded):
+        with pytest.raises(ValueError, match="mesh"):
+            form(imgs, 4)

@@ -4,8 +4,8 @@ the CLI's face-mode ``enroll``, and the repairs the server needs (locked
 launch counters, CUDA defaults).
 
 Every test of the JAX package's ``tests/test_serve.py`` has a twin here
-against the port, on the CPU (``device="cpu"``), apart from the sharded
-gallery (``mesh`` is not ported). The parity tests put the same seeded
+against the port, on the CPU (``device="cpu"``); the sharded gallery's is
+in ``test_torch_parallel.py``. The parity tests put the same seeded
 numpy weights behind a JAX handler and a port handler and send both the
 same request bodies: ``/embed`` within ``atol=1e-4`` (as
 ``test_torch_identification.py``), ``/analyze`` boxes within 1 px (as
@@ -624,19 +624,23 @@ def _fake_build(monkeypatch, seen):
             seen.setdefault("prewarm", []).append(len(imgs))
             return imgs.reshape(len(imgs), -1)[:, :4]
 
-    def fake_build_extractor(model, device="cuda", **kw):
+    def fake_build_extractor(model, device="cuda", mesh=None, **kw):
         seen["extractor"] = (model, device)
+        seen["extractor_mesh"] = mesh
         return FakeExtractor()
 
     class FakeAnalyzer:
         @classmethod
-        def from_reference_models(cls, mtcnn_pb, agegender_pb, device="cuda", **kw):
+        def from_reference_models(cls, mtcnn_pb, agegender_pb, device="cuda",
+                                  mesh=None, **kw):
             seen["analyzer"] = device
+            seen["analyzer_mesh"] = mesh
             return cls()
 
     class FakeGallery:
-        def __init__(self, path=None, device="cuda", **kw):
+        def __init__(self, path=None, device="cuda", mesh=None, **kw):
             seen["gallery"] = (path, device)
+            seen["gallery_mesh"] = mesh
 
     monkeypatch.setattr("hse_facerec_torch.models.zoo.build_extractor",
                         fake_build_extractor)
@@ -649,8 +653,8 @@ def _fake_build(monkeypatch, seen):
 def test_build_server_wiring(monkeypatch, tmp_path, capsys):
     """build_server wires the zoo model, the analyzer and the gallery on
     one device; --prewarm runs every embed bucket; --data-parallel is
-    ignored on one card (the JAX package's message) and refused on
-    several (not ported)."""
+    ignored on one card (the JAX package's message) and on several builds
+    one mesh from ``parallel.sharding.make_mesh`` for all three."""
     import hse_facerec_torch.serve as serve_mod
 
     seen = {}
@@ -665,6 +669,7 @@ def test_build_server_wiring(monkeypatch, tmp_path, capsys):
         assert seen["gallery"] == (str(tmp_path / "g.npz"), "cpu")
         assert seen["prewarm"] == serve_mod._prewarm_buckets(48, 64) == [8, 16, 32, 64]
         assert "--data-parallel ignored (single device)" in capsys.readouterr().out
+        assert seen["extractor_mesh"] is seen["analyzer_mesh"] is seen["gallery_mesh"] is None
     finally:
         srv.server_close()
 
@@ -675,9 +680,18 @@ def test_build_server_wiring(monkeypatch, tmp_path, capsys):
     finally:
         srv.server_close()
 
+    from hse_facerec_torch.parallel.sharding import make_mesh
+
+    mesh = make_mesh(devices=["cpu"] * 4)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        serve_mod.build_server(port=0, data_parallel=True, device="cpu")
+    monkeypatch.setattr("hse_facerec_torch.parallel.sharding.make_mesh", lambda: mesh)
+    seen.clear()
+    srv = serve_mod.build_server(port=0, data_parallel=True, device="cpu")
+    try:
+        assert seen["extractor_mesh"] is seen["analyzer_mesh"] is seen["gallery_mesh"] is mesh
+        assert "ignored" not in capsys.readouterr().out
+    finally:
+        srv.server_close()
 
 
 def test_build_server_defaults_to_cuda():
