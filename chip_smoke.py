@@ -43,9 +43,10 @@ kernels are built for sm_90a). It:
 5. holds K2a/K2b/K2c (1-NN) against their plain twins on ragged shapes
    with ties, at serving shapes (1 and 16 probes against 1,048,576
    gallery rows), for the int8 kernels at the design point (8192 x
-   1,048,576 x 512) and for K2a at its routed shape (2048 x 1,048,576 x
-   1024 f32), timed with CUDA events beside their bounds and a library
-   call (``torch._int_mm``, ``torch.mm``);
+   1,048,576 x 512), for K2a at its routed shape (2048 x 1,048,576 x
+   1024 f32) and on bf16 operands at the benchmark's shape (8192 x
+   1,048,576 x 512), timed with CUDA events beside their bounds and a
+   library call (``torch._int_mm``, ``torch.mm``);
 6. drives the identify paths at full width:
    - identify: the ``agegender_identity`` extractor, then the
      ``agegender_identity_int8`` one (K4), embeds a seeded gallery/probe
@@ -130,7 +131,14 @@ kernels are built for sm_90a). It:
    all at the JAX bench's sizes, with answers equal to one device's within
    the CPU tests' bounds; then ``dryrun_multichip(4)``. Virtual shards
    measure the mesh's bookkeeping and extra launches, not scaling over
-   cards.
+   cards;
+11. runs the port's benchmark, ``python -m hse_facerec_torch.bench --quick``
+   (the JAX bench's paths at its configurations, each timed once) in a
+   child process: every key of the JAX bench's ``extra`` present, finite
+   and positive, K1, K2a (bf16), K2c, K3 and K4 launched, the compact line
+   printed.
+The K1 checks and the K4 checks at batch 1024 and at 192² run in child
+processes too: profiler sessions late in one process lose kernel records.
 Each path runs with the launch counters set to 0 just before it and read
 just after, and fails if it did not launch its kernels.
 Weights are the shipped ones when present, seeded random ones otherwise.
@@ -146,10 +154,10 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import math
 import os
 import re
 import shutil
-import struct
 import subprocess
 import sys
 import tempfile
@@ -159,7 +167,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from hse_facerec_torch import set_parity_numerics
+from hse_facerec_torch import bench, set_parity_numerics
+from hse_facerec_torch.bench import bound, gpu_name_and_power_limit
 from hse_facerec_torch.config import AlbumConfig, TrainConfig
 from hse_facerec_torch.models import zoo
 from hse_facerec_torch.models.int8_infer import (block_int8, multihead_apply_int8,
@@ -168,7 +177,7 @@ from hse_facerec_torch.models.mobilenet import MOBILENET_V1_BLOCKS, init_mobilen
 from hse_facerec_torch.models.mtcnn import import_mtcnn_params
 from hse_facerec_torch.models.multihead import import_multihead_params, multihead_apply
 from hse_facerec_torch.native import rankorder
-from hse_facerec_torch.ops.kernels import build
+from hse_facerec_torch.ops.kernels import build, kernel_launches, reset_launches
 from hse_facerec_torch.ops.kernels import knn
 from hse_facerec_torch.ops.kernels import pw_conv
 from hse_facerec_torch.ops.kernels import warp
@@ -179,7 +188,7 @@ from hse_facerec_torch.ops.resize import (_crop_weights, crop_resize_bilinear,
                                           crop_resize_bilinear_batch,
                                           crop_resize_bilinear_lanes)
 from hse_facerec_torch.params import to_numpy, to_torch
-from hse_facerec_torch.pipelines.album import AlbumOrganizer, fused_distance_matrix
+from hse_facerec_torch.pipelines.album import fused_distance_matrix
 from hse_facerec_torch.pipelines.analyzer import FacialAnalyzer
 from hse_facerec_torch.pipelines.clustering import get_facial_clusters
 from hse_facerec_torch.pipelines.gallery import EnrollmentGallery
@@ -193,8 +202,9 @@ from hse_facerec_torch.parallel.sharding import make_mesh
 from hse_facerec_torch.parallel.train_step import (make_sharded_age_gender_trainer,
                                                    make_sharded_face_id_trainer)
 from hse_facerec_torch.pipelines.cascade_fallback import CascadeFallbackDetector
-from hse_facerec_torch.testing import (random_mtcnn_params, random_multihead_params,
-                                       write_lbp_cascade)
+from hse_facerec_torch.testing import (BmpAlbumOrganizer, bmp_bytes, decode_bmp,
+                                       random_mtcnn_params, random_multihead_params,
+                                       read_bmp, write_bmp, write_lbp_cascade)
 from hse_facerec_torch.train import age_gender, face_id
 from hse_facerec_torch.train.augment import AugmentConfig, sample_affine
 from hse_facerec_torch.train.checkpoints import flatten
@@ -230,6 +240,8 @@ DESIGN_CHECK_STRIDE = 32        # the design point's twin checks every 32nd prob
 # K2a's routed shape: what identify at scale launches (the f32 matrix would
 # be 8 GiB, so nearest_neighbor_auto takes the kernel); K2a's JSON shape
 KNN_ROUTED = (2048, 1 << 20, 1024)
+# K2a on bf16 operands at the benchmark's shape (bench.py's design point)
+KNN_BENCH_BF16 = (8192, 1 << 20, 512)
 INT_MM_MIN_ROWS = 32            # torch._int_mm refuses 16 rows or fewer
 # K2a sums in another order than its twin (rtol/atol of the reference test)
 KNN_F32_RTOL, KNN_F32_ATOL = 1e-4, 1e-3
@@ -308,9 +320,6 @@ TRAIN_OP_GROUPS = [("conv forward", ("aten::cudnn_convolution", "aten::_conv_dep
                    ("optimizer (Adam, foreach)", ("aten::_foreach_",)),
                    ("copies and casts", ("aten::copy_", "aten::_to_copy", "aten::clone",
                                          "aten::contiguous"))]
-# the card's peaks (NVIDIA H100 SXM data sheet, dense): bytes/s and ops/s
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
 # kernels whose SASS must hold tensor-core MMAs and no __dp4a: (function
 # name marker, kernel id)
 SASS_KERNELS = [("pw_conv_int8", "K4"), ("knn_int8", "K2b/K2c")]
@@ -400,13 +409,6 @@ T_START = time.perf_counter()
 def phase_done(name: str) -> None:
     """Print the run's elapsed host time at the end of a phase."""
     print(f"[{time.perf_counter() - T_START:.1f} s] {name} done")
-
-
-def gpu_name_and_power_limit() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip()
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -580,23 +582,41 @@ def check_crop_kernel(rng):
         results[name] = check_crop_site(name, images, boxes, 224, 1, "clamp", lanes)
     return results
 
-def check_crop_kernel_apart():
-    """``check_crop_kernel`` in a child process, its lines printed here.
-    Its nine profiler sessions, run in this process, made later sessions
-    lose kernel records (K3's one-call check saw no kernel, ten K4 calls
-    none; H100 runs), where the same later sessions never did without
-    them."""
-    code = ("import json, numpy as np, chip_smoke as cs\n"
+def apart(call: str, what: str):
+    """``call`` (a Python expression over ``cs``, this module) in a child
+    process, the child's lines printed here, its last line's JSON
+    returned. Profiler sessions late in one process lose kernel records
+    (K3's one-call check after the K1 checks saw no kernel; K4's layers at
+    batch 1024 after the album kept 4 or 5 of 10, and one layer none; H100
+    runs), where the same sessions in a fresh process keep them."""
+    code = ("import json, numpy as np, torch, chip_smoke as cs\n"
             "cs.set_parity_numerics()\n"
-            "print(json.dumps(cs.check_crop_kernel(np.random.RandomState(cs.SEED))))\n")
+            f"print(json.dumps({call}))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=os.path.dirname(os.path.abspath(__file__)), timeout=900)
     lines = out.stdout.strip().splitlines()
     print("\n".join(lines[:-1]))
     if out.returncode != 0:
-        raise AssertionError(f"K1 checks failed ({out.returncode}): "
+        raise AssertionError(f"{what} failed ({out.returncode}): "
                              f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
     return json.loads(lines[-1])
+
+
+def check_crop_kernel_apart():
+    """``check_crop_kernel`` in a child process (``apart``): its nine
+    profiler sessions, run in this process, made later sessions lose
+    kernel records."""
+    return apart("cs.check_crop_kernel(np.random.RandomState(cs.SEED))", "K1 checks")
+
+
+def check_pw_kernel_apart(seed: int, batch: int, iters: int, plain_iters: int,
+                          size: int = 224):
+    """``check_pw_kernel`` (no ragged shape) in a child process (``apart``),
+    on operands from a generator seeded with ``seed``: its profiler
+    sessions come after many others in this process."""
+    return apart(f"cs.check_pw_kernel(torch.Generator(device='cuda').manual_seed({seed}), "
+                 f"{batch}, False, {iters}, {plain_iters}, size={size})",
+                 f"K4 check at batch {batch}, {size}²")
 
 
 def pw_operands(gen, m: int, k: int, n: int):
@@ -916,6 +936,46 @@ def check_knn_routed(gen, results):
                               library_ms=lib_ms, shape=f"M={m} N={n} D={d} f32 (routed)")
 
 
+def check_knn_bench_bf16(gen, results):
+    """K2a on bf16 operands at the benchmark's shape (``KNN_BENCH_BF16``)
+    against the chunked twin on the same operands: distances within
+    tolerance, and where the two pick different rows, the kernel's row
+    ties the twin's minimum in the twin's own math; index agreement at
+    least 0.99. Timed beside the twin and ``torch.mm`` on the bf16
+    operands (the product alone, a 16 GiB bf16 matrix)."""
+    m, n, d = KNN_BENCH_BF16
+    g = unit_rows(gen, n, d)
+    p = unit_rows(gen, m, d)
+    gd, gi = knn.nearest_neighbor_f32(p, g, bf16=True)
+    wd, wi = knn.nearest_neighbor_chunked(p, g, chunk=512, bf16=True)
+    if not torch.allclose(gd, wd, rtol=KNN_F32_RTOL, atol=KNN_F32_ATOL):
+        raise AssertionError("knn_f32 bf16 at the bench's shape: distances off the twin")
+    diff = gi != wi
+    pb, gb = p[diff].bfloat16().float(), g[gi[diff]].bfloat16().float()
+    alt = torch.clamp((p[diff] ** 2).sum(1) + (g[gi[diff]] ** 2).sum(1)
+                      - 2.0 * (pb * gb).sum(1), min=0.0)
+    if not torch.allclose(alt, wd[diff], rtol=KNN_F32_RTOL, atol=KNN_F32_ATOL):
+        raise AssertionError("knn_f32 bf16 at the bench's shape: a row that does not "
+                             "tie the twin's minimum")
+    agree = 1.0 - float(diff.float().mean())
+    if agree < 0.99:
+        raise AssertionError(f"knn_f32 bf16 at the bench's shape: index agreement {agree}")
+    err = float((gd - wd).abs().max())
+    ms = cuda_ms(lambda: knn.nearest_neighbor_f32(p, g, bf16=True), 3, 1)
+    plain_ms = cuda_ms(lambda: knn.nearest_neighbor_chunked(p, g, 512, True), 1, 0)
+    p16, g16 = p.bfloat16(), g.bfloat16()
+    lib_ms = cuda_ms(lambda: torch.mm(p16, g16.T), 3, 1)
+    b_ms, b_by = bound(nbytes(p, g) + m * 8, 2.0 * m * n * d, "bf16")
+    print(f"knn_f32 at the bench's shape M={m} N={n} D={d} bf16: index agreement "
+          f"{agree}, max abs err {err:.3g}; kernel {ms:.3f} ms "
+          f"({2.0 * m * n * d / ms / 1e9:.1f} T FLOP/s), bound {b_ms:.3f} ms ({b_by}), "
+          f"torch.mm bf16 {lib_ms:.3f} ms, chunked twin {plain_ms:.3f} ms")
+    results["knn_f32"]["max_abs_err"] = max(results["knn_f32"]["max_abs_err"], err)
+    results["knn_f32"]["bench_bf16"] = {
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms, "shape": f"M={m} N={n} D={d} bf16"}
+
+
 def check_knn_design_point(gen, results):
     """K2b/K2c at 8192 x 1,048,576 x 512: the kernels on every probe, the
     twin on every 32nd probe with the same operands (the probe scale comes
@@ -968,6 +1028,8 @@ def check_knn_kernels():
         torch.cuda.empty_cache()
     check_knn_design_point(gen, results)
     check_knn_routed(gen, results)
+    torch.cuda.empty_cache()
+    check_knn_bench_bf16(gen, results)
     torch.cuda.empty_cache()
     return results
 
@@ -1113,24 +1175,6 @@ def int8_stages_cuda_vs_cpu(gpu, cpu, img):
     if not all(same[k] <= tol for k, tol in SAME_CROPS_TOL.items()):
         raise AssertionError(f"int8 heads on the same crops: {same} beyond "
                              f"{SAME_CROPS_TOL}")
-
-
-def kernel_launches():
-    return {"knn_f32": knn.nearest_neighbor_f32.launches,
-            "knn_int8q": knn.nearest_neighbor_int8q.launches,
-            "knn_int8p": knn.nearest_neighbor_int8p.launches,
-            "crop_resize": crop_resize.launches,
-            "pw_conv_int8": pw_conv.pw_conv_int8.launches,
-            "warp_batch": warp.warp_batch.launches}
-
-
-def reset_launches():
-    crop_resize.launches = 0
-    knn.nearest_neighbor_f32.launches = 0
-    knn.nearest_neighbor_int8q.launches = 0
-    knn.nearest_neighbor_int8p.launches = 0
-    pw_conv.pw_conv_int8.launches = 0
-    warp.warp_batch.launches = 0
 
 
 def cosine(a, b) -> np.ndarray:
@@ -1676,81 +1720,6 @@ def analyze_gallery_path(gpu, images, tmp: str):
 
 # ---------- the album phase ----------
 
-def bmp_bytes(rgb: np.ndarray) -> bytes:
-    """A 24-bit uncompressed BMP (bottom-up BGR rows padded to 4 bytes): the
-    card's machine has no JPEG or PNG codec."""
-    h, w = rgb.shape[:2]
-    row = (3 * w + 3) & ~3
-    px = np.zeros((h, row), np.uint8)
-    px[:, :3 * w] = rgb[::-1, :, ::-1].reshape(h, 3 * w)
-    return (struct.pack("<2sIHHI", b"BM", 54 + px.size, 0, 0, 54)
-            + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, px.size, 2835, 2835, 0, 0)
-            + px.tobytes())
-
-
-def decode_bmp(data: bytes):
-    """``bmp_bytes``' files -> RGB uint8 (H, W, 3), or None for anything
-    else (the serve phase's image decoder)."""
-    if len(data) < 54 or data[:2] != b"BM":
-        return None
-    offset, = struct.unpack_from("<I", data, 10)
-    w, h, _, bits, compression = struct.unpack_from("<iiHHI", data, 18)
-    row = (3 * w + 3) & ~3
-    if bits != 24 or compression != 0 or len(data) < offset + row * abs(h):
-        return None
-    px = np.frombuffer(data, np.uint8, row * abs(h), offset).reshape(abs(h), row)
-    px = px[:, :3 * w].reshape(abs(h), w, 3)
-    return np.ascontiguousarray((px[::-1] if h > 0 else px)[:, :, ::-1])
-
-
-def write_bmp(path: str, rgb: np.ndarray) -> None:
-    with open(path, "wb") as f:
-        f.write(bmp_bytes(rgb))
-
-
-def read_bmp(path: str) -> np.ndarray:
-    """``write_bmp``'s files -> RGB uint8 (H, W, 3)."""
-    with open(path, "rb") as f:
-        img = decode_bmp(f.read())
-    if img is None:
-        raise ValueError(f"{path}: not a 24-bit uncompressed BMP")
-    return img
-
-
-class FrameCapture:
-    """A capture over BGR frames in memory (``isOpened/grab/retrieve/release``),
-    as ``AlbumOrganizer._open_video`` may return."""
-
-    def __init__(self, frames):
-        self.frames, self.pos, self.opened = frames, 0, True
-
-    def isOpened(self):
-        return self.opened
-
-    def grab(self):
-        self.pos += 1
-        return self.pos <= len(self.frames)
-
-    def retrieve(self):
-        return True, self.frames[self.pos - 1]
-
-    def release(self):
-        self.opened = False
-
-
-class SmokeOrganizer(AlbumOrganizer):
-    """The album organizer on the smoke's files: photos through ``read_bmp``,
-    clips (``*.mp4`` placeholders) served from ``clips`` by name."""
-
-    clips: dict = {}
-
-    def _read_photo(self, path: str) -> np.ndarray:
-        return read_bmp(path)
-
-    def _open_video(self, path: str):
-        return FrameCapture(self.clips[os.path.basename(path)])
-
-
 def variant(img: np.ndarray, seed: int) -> np.ndarray:
     """``img`` with light seeded noise: the same faces, another photo."""
     noise = np.random.RandomState(seed).randint(-3, 4, img.shape)
@@ -1808,7 +1777,7 @@ def build_album(root: str, an, rng):
         clips[name] = [np.ascontiguousarray(variant(scenes[c], 5000 + i)[:, :, ::-1])
                        for i in range(CLIP_FRAMES)]
         with open(os.path.join(root, name), "wb") as f:
-            f.write(b"frames served by SmokeOrganizer._open_video")
+            f.write(b"frames served by BmpAlbumOrganizer._open_video")
         files.append((name, 10 + c))
     for name, days in files:
         t = now - days * 86400.0
@@ -1931,7 +1900,7 @@ def clustering_at_scale(device: str):
 
 
 def album_path(gpu, cpu, rng, batch_ips: float):
-    """The album organizer at full width on the card (``SmokeOrganizer``:
+    """The album organizer at full width on the card (``BmpAlbumOrganizer``:
     the batch path with K1, clustering, Dempster-Shafer, naming from an
     int8 gallery on K2c), timed, against a CPU organizer on a subset, the
     CPU's clustering and gallery, a cached re-run and a one-worker scan;
@@ -1944,11 +1913,12 @@ def album_path(gpu, cpu, rng, batch_ips: float):
               f"{BATCH} photos; the album runs at 40")
         minsize = 40
     cfg = AlbumConfig(minsize=minsize)
-    card = SmokeOrganizer(gpu, cfg, analyze_batch=BATCH)
     with tempfile.TemporaryDirectory() as root:
         album = os.path.join(root, "album")
         os.makedirs(album)
-        rotated, SmokeOrganizer.clips, scenes = build_album(album, card.analyzer, rng)
+        card = BmpAlbumOrganizer(gpu, cfg, analyze_batch=BATCH)
+        rotated, card.clips, scenes = build_album(album, card.analyzer, rng)
+        clips = card.clips
         # the gallery: one face of each of the first scenes (int8: K2c)
         enrolled = card.analyzer.analyze_batch(np.stack(scenes[:ALBUM_GALLERY]))
         names = [f"person{i}" for i, faces in enumerate(enrolled) if faces]
@@ -1991,7 +1961,7 @@ def album_path(gpu, cpu, rng, batch_ips: float):
         same_result(cached, result, "the cached re-run")
 
         # two flush threads against one
-        one = SmokeOrganizer(gpu, cfg, analyze_batch=BATCH)
+        one = BmpAlbumOrganizer(gpu, cfg, analyze_batch=BATCH, clips=clips)
         one.flush_workers = 1
         t0 = time.perf_counter()
         faces_one = one.scan_album(album, use_cache=False)
@@ -2007,8 +1977,8 @@ def album_path(gpu, cpu, rng, batch_ips: float):
                  + ["portrait00_v1.bmp"] + rotated[:2])
         for name in picks:
             shutil.copy2(os.path.join(album, name), subset_dir)
-        on_cpu = SmokeOrganizer(cpu, cfg, analyze_batch=BATCH)
-        sub_card, sub_cpu = (SmokeOrganizer(gpu, cfg, analyze_batch=BATCH), on_cpu)
+        on_cpu = BmpAlbumOrganizer(cpu, cfg, analyze_batch=BATCH, clips=clips)
+        sub_card, sub_cpu = (BmpAlbumOrganizer(gpu, cfg, analyze_batch=BATCH, clips=clips), on_cpu)
         boxes = [record_boxes(o) for o in (sub_card, sub_cpu)]
         subset = [o.scan_album(subset_dir, use_cache=False) for o in (sub_card, sub_cpu)]
         if boxes[0] != boxes[1]:
@@ -2779,15 +2749,6 @@ def check_knn_wide(gen, knn_results):
               + f", plain twin {plain_ms:.3f} ms")
     print("knn by width: " + json.dumps(rows))
     return rows
-
-
-def bound(nbytes: float, ops: float, kind: str):
-    """(ms, "bytes" or "operations"): the least time the card could take
-    for work that must move ``nbytes`` (each input read once, each output
-    written once) and do ``ops`` operations of ``kind`` (``PEAK_OPS``)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS[kind] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def nbytes(*tensors) -> int:
@@ -3663,6 +3624,43 @@ def multichip_path(mtcnn_params, mh_params):
     return path_launches, numbers
 
 
+def bench_path():
+    """The port's benchmark as a user runs it, ``python -m
+    hse_facerec_torch.bench --quick`` (every chain and iters 1, warmup 1,
+    at full widths), in a child process: the quick run in this process,
+    after the other phases' profiler sessions, lost half the kernel
+    records of its profiled call (device-busy rate 31,633 img/s over a
+    wall rate of 15,623, H100). ``bench.main`` sets the launch counts to 0
+    before its paths and reads them after (``extra["launches"]``). Checks
+    every key of the JAX bench's ``extra`` present, finite and positive
+    (the int8 cosine in (0, 1]), and K1, K2a, K2c, K3 and K4 launched.
+    Returns the launches of the run and the compact line."""
+    out = subprocess.run([sys.executable, "-m", "hse_facerec_torch.bench", "--quick"],
+                         capture_output=True, text=True, timeout=900,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = out.stdout.strip().splitlines()
+    print("\n".join(lines[:-2]))
+    if out.returncode != 0:
+        raise AssertionError(f"bench --quick failed ({out.returncode}): "
+                             f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    result, compact = json.loads(lines[-2]), json.loads(lines[-1])
+    extra = result["extra"]
+    launches = extra["launches"]
+    bad = [k for k in bench.EXTRA_KEYS if not (
+        isinstance(extra.get(k), (int, float)) and math.isfinite(extra[k]) and extra[k] > 0)]
+    if bad or extra["embed_int8_cosine_vs_f32"] > 1.0 or not result.get("quick"):
+        raise AssertionError(f"bench: keys missing, non-finite or not positive: {bad}")
+    if result["metric"] != "multihead_embed_images_per_sec_per_chip" or not (
+            result["value"] > 0 and result["vs_baseline"] > 0):
+        raise AssertionError(f"bench: malformed headline {result['metric']} {result['value']}")
+    idle = [k for k in ("crop_resize", "knn_f32", "knn_int8p", "warp_batch", "pw_conv_int8")
+            if launches[k] <= 0]
+    if idle:
+        raise AssertionError(f"bench: the run launched no {idle}")
+    print(f"bench (quick): launches {json.dumps(launches)}")
+    return launches, compact
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -3730,7 +3728,7 @@ def main() -> None:
     phase_done("int8 embed")
     # K4 at the embedder's batch, where the layers are no longer launch-bound
     # (after the analyze timing: its plain version allocates tens of GB)
-    pw_embed = check_pw_kernel(gen, EMBED_BATCH, False, 10, 2)
+    pw_embed = check_pw_kernel_apart(SEED + 5, EMBED_BATCH, 10, 2)
     torch.cuda.empty_cache()
     phase_done(f"K4 check at batch {EMBED_BATCH}")
 
@@ -3769,7 +3767,7 @@ def main() -> None:
         torch.cuda.empty_cache()
         phase_done(f"identify and zoo on {' and '.join(NEW_ZOO)}")
     # K4 at the shapes vgg2_mobilenet_int8 gives it (192², the zoo's batch)
-    pw_192 = check_pw_kernel(gen, ZOO_BATCH, False, 10, 2, size=192)
+    pw_192 = check_pw_kernel_apart(SEED + 6, ZOO_BATCH, 10, 2, size=192)
     torch.cuda.empty_cache()
     phase_done(f"K4 check at batch {ZOO_BATCH}, 192²")
     knn_wide = check_knn_wide(torch.Generator(device="cuda").manual_seed(SEED + 83),
@@ -3797,6 +3795,10 @@ def main() -> None:
     path_launches += mesh_launches
     mesh_total = {k: sum(p[k] for p in mesh_launches) for k in mesh_launches[0]}
     phase_done("multichip")
+    bench_launches, bench_line = bench_path()
+    path_launches.append(bench_launches)
+    torch.cuda.empty_cache()
+    phase_done("bench (quick)")
     launches = {k: sum(p[k] for p in path_launches) for k in path_launches[0]}
 
     # crop: the sums over the three single-image call sites, i.e. one image's
@@ -3811,6 +3813,7 @@ def main() -> None:
         "replaces": "hse_facerec_tf_tpu/ops/pallas/crop.py:103",
         "launches": launches["crop_resize"],
         "mesh_launches": mesh_total["crop_resize"],
+        "bench_launches": bench_launches["crop_resize"],
         "serve_launches": serve_launches["crop_resize"],
         "max_abs_err": max(r["max_abs_err"] for r in crop_results.values()),
         **{k: sum(r[k] for r in singles) for k in (
@@ -3829,7 +3832,7 @@ def main() -> None:
             "name": name, "route": "cuda", "source": "hse_facerec_torch/csrc/knn.cu",
             "replaces": f"hse_facerec_tf_tpu/ops/pallas/knn.py:{line}",
             "launches": launches[name], "serve_launches": serve_launches[name],
-            "mesh_launches": mesh_total[name],
+            "mesh_launches": mesh_total[name], "bench_launches": bench_launches[name],
             "equal": name != "knn_f32", **r,
             **({"widths": {k: {"tile": v["tile"], "ms": v[name + "_ms"],
                                **{f: v.get(f) for f in ("plain_ms", "bound_ms", "bound_by",
@@ -3841,6 +3844,7 @@ def main() -> None:
         "replaces": "hse_facerec_tf_tpu/ops/pallas/pw_conv.py:150",
         "launches": launches["pw_conv_int8"],
         "mesh_launches": mesh_total["pw_conv_int8"],
+        "bench_launches": bench_launches["pw_conv_int8"],
         "serve_launches": serve_launches["pw_conv_int8"], "equal": True,
         **pw,
         "max_abs_err": max(pw["max_abs_err"], pw_embed["max_abs_err"],
@@ -3856,6 +3860,7 @@ def main() -> None:
         "replaces": "hse_facerec_tf_tpu/ops/pallas/warp.py:166",
         "launches": launches["warp_batch"],
         "mesh_launches": mesh_total["warp_batch"],
+        "bench_launches": bench_launches["warp_batch"],
         "launches_per_face_id_step": max(n["warp_batch"] for n in train_launches) / TRAIN_STEPS,
         "launches_per_age_gender_pair": max(n["warp_batch"] for n in ag_launches) / AG_PAIRS,
         **warp_result})
@@ -3877,6 +3882,7 @@ def main() -> None:
     print("align: " + json.dumps(aligned))
     print("cascade: " + json.dumps(cascade))
     print("multichip: " + json.dumps(mesh_numbers))
+    print("bench (quick): " + json.dumps(bench_line))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,10 +25,15 @@ class MultiHeadOutput(NamedTuple):
     feats: torch.Tensor          # (N, 256) shared head representation
 
 
-def multihead_apply(params: Dict, x) -> MultiHeadOutput:
-    """x: (N, H, W, 3) preprocessed (BGR, ImageNet means subtracted)."""
-    h = mobilenet_v1_backbone(params["backbone"], x)
-    identity = global_avg_pool(h.permute(0, 3, 1, 2))  # == global_pooling/Mean
+def multihead_apply(params: Dict, x, compute_dtype=torch.float32) -> MultiHeadOutput:
+    """x: (N, H, W, 3) preprocessed (BGR, ImageNet means subtracted).
+
+    The backbone runs in ``compute_dtype`` (``torch.bfloat16``: the bf16
+    inference tier of the reference's ``compute_dtype``); the pooled
+    identity is cast to float32 and the heads run in float32."""
+    h = mobilenet_v1_backbone(params["backbone"], x, compute_dtype=compute_dtype)
+    # == global_pooling/Mean
+    identity = global_avg_pool(h.permute(0, 3, 1, 2)).to(torch.float32)
     f = torch.relu(dense(identity, params["feats"]["kernel"],
                          params["feats"]["bias"]))
     age_logits = dense(f, params["age"]["kernel"], params["age"]["bias"])

@@ -56,7 +56,7 @@ import queue
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -466,11 +466,15 @@ def build_server(port: int = 8000, model: str = "agegender_identity",
                  gallery_path: Optional[str] = None,
                  identify_threshold: float = 0.82,
                  data_parallel: bool = False,
-                 prewarm: bool = False, device="cuda"):
+                 prewarm: bool = False, device="cuda", host: str = "0.0.0.0",
+                 params: Optional[Dict] = None,
+                 decode: Callable[[bytes], Optional[np.ndarray]] = decode_image):
     """The server as ``main`` runs it: the zoo's ``model`` behind the embed
     worker, the reference's analyzer (``zoo.MTCNN_PB``/``AGEGENDER_PB``) at
     8 lanes behind the analyze worker, an ``EnrollmentGallery`` at
-    ``gallery_path``, all on ``device``. ``data_parallel`` with several
+    ``gallery_path``, all on ``device``, listening on ``host``:``port``.
+    ``params`` replaces the model's weights (``zoo.build_extractor``);
+    ``decode`` turns request bodies into images (``make_handler``). ``data_parallel`` with several
     cards builds one 1-D ``data`` mesh over all of them
     (``parallel.sharding.make_mesh``) and hands it to the extractor, the
     analyzer and the gallery; on one card it is ignored, as in the
@@ -488,7 +492,7 @@ def build_server(port: int = 8000, model: str = "agegender_identity",
             mesh = make_mesh()
         else:
             print("serve: --data-parallel ignored (single device)")
-    extractor = build_extractor(model, device=device, mesh=mesh)
+    extractor = build_extractor(model, device=device, params=params, mesh=mesh)
     if prewarm:
         # run every embed batch bucket once BEFORE serving traffic: the
         # first call builds the kernels and lets cuDNN pick its algorithms
@@ -519,13 +523,13 @@ def build_server(port: int = 8000, model: str = "agegender_identity",
     # same mesh: its capacity grows with the cards
     gallery = EnrollmentGallery(path=gallery_path, device=device, mesh=mesh)
     return ThreadingHTTPServer(
-        ("0.0.0.0", port),
+        (host, port),
         make_handler(worker, analyze_worker,
                      profile_input_hw=extractor.input_size,
                      request_timeout_s=request_timeout_s,
                      gallery=gallery,
                      identify_threshold=identify_threshold,
-                     timer=timer, device=device))
+                     timer=timer, decode=decode, device=device))
 
 
 def main(argv=None):

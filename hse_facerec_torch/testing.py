@@ -1,6 +1,10 @@
 """Seeded random parameters for the analyze path and the zoo's
 backbones, numpy only, seeded synthetic photos and a seeded synthetic LBP
-cascade.
+cascade, and codec-free inputs: 24-bit BMP files, an in-memory video
+capture, an album organizer that reads them (``BmpAlbumOrganizer``) and a
+synthetic album (``synthetic_album``). The card's machine has no JPEG,
+PNG or MP4 codec, so ``chip_smoke.py`` and ``bench.py`` feed photos and
+clips in these forms.
 
 The pytrees have the reference's layouts and shapes (HWIO convs,
 (H, W, C, 1) depthwise, (in, out) dense), so the same arrays go through
@@ -12,11 +16,15 @@ The cascade (``write_lbp_cascade``) stands in for OpenCV's
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+import os
+import struct
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from .models.mobilenet import MOBILENET_V1_BLOCKS
+from .ops.resize import resize_linear_u8
+from .pipelines.album import AlbumOrganizer
 
 # (name, kernel shape) per MTCNN layer with weights; shapes of the shipped
 # mtcnn.pb (hse_facerec_tf_tpu/models/mtcnn.py:9-16)
@@ -215,3 +223,117 @@ def write_lbp_cascade(path: str, images: Sequence[np.ndarray], seed: int = 0,
     with open(path, "w") as f:
         f.write(_cascade_xml(rects, stages))
     return path
+
+
+def bmp_bytes(rgb: np.ndarray) -> bytes:
+    """A 24-bit uncompressed BMP (bottom-up BGR rows padded to 4 bytes) of
+    an RGB uint8 (H, W, 3) image."""
+    h, w = rgb.shape[:2]
+    row = (3 * w + 3) & ~3
+    px = np.zeros((h, row), np.uint8)
+    px[:, :3 * w] = rgb[::-1, :, ::-1].reshape(h, 3 * w)
+    return (struct.pack("<2sIHHI", b"BM", 54 + px.size, 0, 0, 54)
+            + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, px.size, 2835, 2835, 0, 0)
+            + px.tobytes())
+
+
+def decode_bmp(data: bytes) -> Optional[np.ndarray]:
+    """A 24-bit uncompressed BMP (as ``bmp_bytes`` writes) -> RGB uint8
+    (H, W, 3), or None for anything else (a server's image decoder)."""
+    if len(data) < 54 or data[:2] != b"BM":
+        return None
+    offset, = struct.unpack_from("<I", data, 10)
+    w, h, _, bits, compression = struct.unpack_from("<iiHHI", data, 18)
+    row = (3 * w + 3) & ~3
+    if bits != 24 or compression != 0 or len(data) < offset + row * abs(h):
+        return None
+    px = np.frombuffer(data, np.uint8, row * abs(h), offset).reshape(abs(h), row)
+    px = px[:, :3 * w].reshape(abs(h), w, 3)
+    return np.ascontiguousarray((px[::-1] if h > 0 else px)[:, :, ::-1])
+
+
+def write_bmp(path: str, rgb: np.ndarray) -> None:
+    with open(path, "wb") as f:
+        f.write(bmp_bytes(rgb))
+
+
+def read_bmp(path: str) -> np.ndarray:
+    """``write_bmp``'s files -> RGB uint8 (H, W, 3)."""
+    with open(path, "rb") as f:
+        img = decode_bmp(f.read())
+    if img is None:
+        raise ValueError(f"{path}: not a 24-bit uncompressed BMP")
+    return img
+
+
+class FrameCapture:
+    """A capture over BGR frames in memory (``isOpened/grab/retrieve/release``),
+    as ``AlbumOrganizer._open_video`` may return."""
+
+    def __init__(self, frames):
+        self.frames, self.pos, self.opened = frames, 0, True
+
+    def isOpened(self):
+        return self.opened
+
+    def grab(self):
+        self.pos += 1
+        return self.pos <= len(self.frames)
+
+    def retrieve(self):
+        return True, self.frames[self.pos - 1]
+
+    def release(self):
+        self.opened = False
+
+
+class BmpAlbumOrganizer(AlbumOrganizer):
+    """The album organizer on codec-free files: photos through ``read_bmp``,
+    clips (video-named placeholder files) served from ``clips``, BGR frames
+    keyed by file name."""
+
+    def __init__(self, *args, clips: Optional[Dict[str, List[np.ndarray]]] = None,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.clips = clips or {}
+
+    def _read_photo(self, path: str) -> np.ndarray:
+        return read_bmp(path)
+
+    def _open_video(self, path: str):
+        return FrameCapture(self.clips[os.path.basename(path)])
+
+
+ALBUM_SIZES = ((1024, 768), (800, 600), (640, 480))    # (w, h) mixed "cameras"
+
+
+def synthetic_album(album_dir: str, n_photos: int = 64, video_frames: int = 40,
+                    seed: int = 0, sizes: Sequence[Tuple[int, int]] = ALBUM_SIZES
+                    ) -> Tuple[int, int, Dict[str, List[np.ndarray]]]:
+    """The JAX bench's synthetic album (``bench.py:534-565``) without
+    codecs: BMP photos of mixed camera sizes (``sizes``, (w, h), in turn),
+    every 4th uniform noise (no faces), the others a base photo resized to
+    the size (``resize_linear_u8``, cv2's INTER_LINEAR) plus ±12 jitter;
+    and one clip of ``video_frames`` frames, the base photo at 640x480
+    rolled by 2 px a frame. The base is ``synthetic_photo(seed, 480,
+    640)`` (the reference's fixture photo is not in the repository). The
+    clip is a ``clip.mp4`` placeholder in ``album_dir``, its frames
+    returned for ``BmpAlbumOrganizer(clips=...)``. Returns (n_photos,
+    n_videos, clips)."""
+    base = synthetic_photo(seed, 480, 640)
+    rng = np.random.RandomState(seed)
+    for i in range(n_photos):
+        w, h = sizes[i % len(sizes)]
+        if i % 4 == 3:
+            img = rng.randint(0, 255, (h, w, 3), np.uint8)
+        else:
+            img = resize_linear_u8(base, (h, w))
+            jitter = rng.randint(-12, 13, img.shape, np.int16)
+            img = np.clip(img.astype(np.int16) + jitter, 0, 255).astype(np.uint8)
+        write_bmp(os.path.join(album_dir, f"photo_{i:03d}.bmp"), img)
+    frame = np.ascontiguousarray(base[:, :, ::-1])
+    clips = {"clip.mp4": [np.roll(frame, 2 * i, axis=1) for i in range(video_frames)]}
+    for name in clips:
+        with open(os.path.join(album_dir, name), "wb") as f:
+            f.write(b"frames served by BmpAlbumOrganizer._open_video")
+    return n_photos, len(clips), clips
