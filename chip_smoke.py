@@ -15,8 +15,9 @@ kernels are built for sm_90a). It:
    ``torch.profiler``, its host µs a call and ``F.grid_sample``), and K4 (int8
    pointwise conv) at the 13 pointwise layers of a 16-face head batch and
    a ragged shape, and times both with CUDA events, K4 per layer beside
-   its bound and ``torch._int_mm``; counts the IMMA (tensor-core) and
-   IDP.4A instructions in the SASS of K4 and of the int8 1-NN sweep;
+   its bound and ``torch._int_mm``; counts the IMMA, HMMA and HGMMA
+   (tensor-core) and IDP.4A instructions in the SASS of K4 and of the
+   int8 and bf16 1-NN sweeps;
 4. drives the analyze path: ``FacialAnalyzer.analyze_with_rotations``
    (K1), timed, then checked against the same analyzer on the CPU; then
    the batch path at batch 8 (``analyze_batch``: one K1 launch per crop
@@ -45,8 +46,11 @@ kernels are built for sm_90a). It:
    gallery rows), for the int8 kernels at the design point (8192 x
    1,048,576 x 512), for K2a at its routed shape (2048 x 1,048,576 x
    1024 f32) and on bf16 operands at the benchmark's shape (8192 x
-   1,048,576 x 512), timed with CUDA events beside their bounds and a
-   library call (``torch._int_mm``, ``torch.mm``);
+   1,048,576 x 512: the bf16 tensor-core sweep, its wrapper's own passes
+   timed apart), timed with CUDA events beside their bounds and a
+   library call (``torch._int_mm``, ``torch.mm``); the SASS of the bf16
+   sweep must hold HMMA (its 16-probe tile) and HGMMA (its 128-probe
+   tile);
 6. drives the identify paths at full width:
    - identify: the ``agegender_identity`` extractor, then the
      ``agegender_identity_int8`` one (K4), embeds a seeded gallery/probe
@@ -90,9 +94,10 @@ kernels are built for sm_90a). It:
    - identify ``--quantized`` and the gallery (K2b, K2c) on
      ``insightface_arcface`` (IResNet-100, 512-d at 112²) and
      ``vggface_vgg16`` (4096-d at 224²), and their embed img/s at batch 64;
-   - K2b/K2c at D 4096 (16 and 8192 x 1,048,576 probes): the probe tile,
-     bit-equality with the twin, ms beside the bound, the twin and
-     ``torch._int_mm``;
+   - K2b/K2c at D 4096 (16 and 8192 x 1,048,576 probes): the probe tile
+     (16 resident; 128 streamed beside the gallery), bit-equality with
+     the twin, ms, T int8 ops/s and the share of the bound beside the
+     bound, the twin and ``torch._int_mm``;
    - align: the card's detector's landmarks through
      ``landmarks_from_detector`` and ``align_faces`` at 112² on the card
      and on the CPU, and faces/s at a batch of 256 faces;
@@ -321,8 +326,10 @@ TRAIN_OP_GROUPS = [("conv forward", ("aten::cudnn_convolution", "aten::_conv_dep
                    ("copies and casts", ("aten::copy_", "aten::_to_copy", "aten::clone",
                                          "aten::contiguous"))]
 # kernels whose SASS must hold tensor-core MMAs and no __dp4a: (function
-# name marker, kernel id)
-SASS_KERNELS = [("pw_conv_int8", "K4"), ("knn_int8", "K2b/K2c")]
+# name marker, kernel id, the MMA instructions: the bf16 sweep's 16-probe
+# tile runs mma.sync, its 128-probe tile wgmma)
+SASS_KERNELS = [("pw_conv_int8", "K4", ("IMMA",)), ("knn_int8", "K2b/K2c", ("IMMA",)),
+                ("knn_bf16", "K2a bf16", ("HMMA", "HGMMA"))]
 
 
 # the album phase: 24 landscape scenes x 4 variants (640x480), 2 portrait
@@ -727,35 +734,38 @@ def check_pw_kernel(gen, batch: int, ragged: bool, iters: int, plain_iters: int,
 def sass_counts():
     """Per ``SASS_KERNELS`` entry: the number of functions whose name holds
     its marker in the built library's SASS (``cuobjdump -sass``), and their
-    IMMA (tensor-core) and IDP.4A (``__dp4a``) instructions."""
+    IMMA, HMMA and HGMMA (tensor-core) and IDP.4A (``__dp4a``)
+    instructions."""
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(build.library_path())],
                           capture_output=True, text=True, check=True, timeout=300).stdout
-    counts = {mark: [0, 0, 0] for mark, _ in SASS_KERNELS}
+    ops = ("IMMA", "HMMA", "HGMMA", "IDP.4A")
+    counts = {mark: dict.fromkeys(("functions",) + ops, 0) for mark, *_ in SASS_KERNELS}
     fn = ""
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1]
             for mark in counts:
-                counts[mark][0] += mark in fn
+                counts[mark]["functions"] += mark in fn
             continue
         for mark, c in counts.items():
             if mark in fn:
-                c[1] += bool(re.search(r"\bIMMA\b", line))
-                c[2] += bool(re.search(r"\bIDP\.?4A\b", line))
+                for op in ops:
+                    c[op] += bool(re.search(r"\b" + op.replace(".", r"\.?") + r"\b", line))
     return counts
 
 
 def check_sass():
-    """K4 and the int8 1-NN sweep run on the tensor cores: fail unless each
-    has functions, IMMA > 0 and IDP.4A == 0 in its SASS."""
+    """K4 and the 1-NN sweeps run on the tensor cores: fail unless each has
+    functions, its MMAs (IMMA for int8, HMMA and HGMMA for bf16) > 0 and
+    IDP.4A == 0 in its SASS."""
     counts = sass_counts()
-    for mark, kid in SASS_KERNELS:
-        functions, imma, idp4a = counts[mark]
-        print(f"{kid} SASS: {functions} {mark} functions, {imma} IMMA, {idp4a} IDP.4A")
-        if functions == 0 or imma == 0 or idp4a:
-            raise AssertionError(f"{kid} is not on the tensor cores: {functions} "
-                                 f"functions, {imma} IMMA, {idp4a} IDP.4A")
+    for mark, kid, mmas in SASS_KERNELS:
+        c = counts[mark]
+        print(f"{kid} SASS: {c['functions']} {mark} functions, "
+              + ", ".join(f"{c[k]} {k}" for k in ("IMMA", "HMMA", "HGMMA", "IDP.4A")))
+        if c["functions"] == 0 or not all(c[op] for op in mmas) or c["IDP.4A"]:
+            raise AssertionError(f"{kid} is not on the tensor cores: {json.dumps(c)}")
 
 
 def unit_rows(gen, n: int, d: int):
@@ -936,13 +946,36 @@ def check_knn_routed(gen, results):
                               library_ms=lib_ms, shape=f"M={m} N={n} D={d} f32 (routed)")
 
 
+def bf16_wrapper_passes(p, g) -> dict:
+    """K2a's bf16 call apart: the wrapper's own device passes (as
+    ``nearest_neighbor_f32`` runs them: the f32 copies, the ``a*a`` /
+    ``b*b`` norms, the bf16 casts; its 8-value pad is none at D 512) and
+    the sweep alone on their results, each timed by CUDA events."""
+    m, d = p.shape
+    n = g.shape[0]
+    a2, b2 = torch.sum(p * p, dim=1), torch.sum(g * g, dim=1)
+    a16, b16 = p.to(torch.bfloat16), g.to(torch.bfloat16)
+    lib, _, _, fn = knn._kernels()
+    cfg = knn.sweep_config(m, n, knn._sms(p.device), knn.bf16_tile(m), knn.BF16_PER_SM)
+    args = (a16.data_ptr(), b16.data_ptr(), a2.data_ptr(), b2.data_ptr(), m, n, d)
+    return {
+        "f32 copies": cuda_ms(lambda: (p.to(torch.float32).contiguous(),
+                                       g.to(torch.float32).contiguous()), 5, 1),
+        "a*a norms": cuda_ms(lambda: torch.sum(p * p, dim=1), 5, 1),
+        "b*b norms": cuda_ms(lambda: torch.sum(g * g, dim=1), 5, 1),
+        "bf16 casts": cuda_ms(lambda: (p.to(torch.bfloat16), g.to(torch.bfloat16)), 5, 1),
+        "sweep alone": cuda_ms(lambda: knn._launch("knn_bf16", fn, lib, m, cfg, p.device,
+                                                   args), 5, 1)}
+
+
 def check_knn_bench_bf16(gen, results):
     """K2a on bf16 operands at the benchmark's shape (``KNN_BENCH_BF16``)
     against the chunked twin on the same operands: distances within
     tolerance, and where the two pick different rows, the kernel's row
     ties the twin's minimum in the twin's own math; index agreement at
     least 0.99. Timed beside the twin and ``torch.mm`` on the bf16
-    operands (the product alone, a 16 GiB bf16 matrix)."""
+    operands (the product alone, a 16 GiB bf16 matrix), with the wrapper's
+    own passes apart (``bf16_wrapper_passes``)."""
     m, n, d = KNN_BENCH_BF16
     g = unit_rows(gen, n, d)
     p = unit_rows(gen, m, d)
@@ -963,17 +996,23 @@ def check_knn_bench_bf16(gen, results):
     err = float((gd - wd).abs().max())
     ms = cuda_ms(lambda: knn.nearest_neighbor_f32(p, g, bf16=True), 3, 1)
     plain_ms = cuda_ms(lambda: knn.nearest_neighbor_chunked(p, g, 512, True), 1, 0)
+    passes = bf16_wrapper_passes(p, g)
     p16, g16 = p.bfloat16(), g.bfloat16()
     lib_ms = cuda_ms(lambda: torch.mm(p16, g16.T), 3, 1)
-    b_ms, b_by = bound(nbytes(p, g) + m * 8, 2.0 * m * n * d, "bf16")
-    print(f"knn_f32 at the bench's shape M={m} N={n} D={d} bf16: index agreement "
-          f"{agree}, max abs err {err:.3g}; kernel {ms:.3f} ms "
-          f"({2.0 * m * n * d / ms / 1e9:.1f} T FLOP/s), bound {b_ms:.3f} ms ({b_by}), "
-          f"torch.mm bf16 {lib_ms:.3f} ms, chunked twin {plain_ms:.3f} ms")
+    ops = 2.0 * m * n * d
+    b_ms, b_by = bound(nbytes(p, g) + m * 8, ops, "bf16")
+    tile = knn.bf16_tile(m)
+    print(f"knn_f32 at the bench's shape M={m} N={n} D={d} bf16: probe tile {tile} "
+          f"(streamed); index agreement {agree}, max abs err {err:.3g}; kernel "
+          f"{ms:.3f} ms a call ({ops / ms / 1e9:.1f} T FLOP/s, {b_ms / ms:.3f} of the bound), "
+          f"bound {b_ms:.3f} ms ({b_by}), torch.mm bf16 {lib_ms:.3f} ms "
+          f"({ms / lib_ms:.2f}x), chunked twin {plain_ms:.3f} ms; the call apart (ms): "
+          + json.dumps({k: round(v, 4) for k, v in passes.items()}))
     results["knn_f32"]["max_abs_err"] = max(results["knn_f32"]["max_abs_err"], err)
     results["knn_f32"]["bench_bf16"] = {
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib_ms, "shape": f"M={m} N={n} D={d} bf16"}
+        "tile": tile, "ms": ms, "t_ops": ops / ms / 1e9, "share_of_bound": b_ms / ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        "passes_ms": passes, "shape": f"M={m} N={n} D={d} bf16"}
 
 
 def check_knn_design_point(gen, results):
@@ -2702,7 +2741,8 @@ def check_knn_wide(gen, knn_results):
                      "knn_int8p_ms": (knn_results["knn_int8p"]["ms"] if m == 16
                                       else src["knn_int8p_ms"]),
                      "plain_ms": src["plain_ms"], "bound_ms": src["bound_ms"],
-                     "bound_by": src["bound_by"], "library_ms": src["library_ms"]}
+                     "bound_by": src["bound_by"], "library_ms": src["library_ms"],
+                     "ops": 2.0 * m * n * d}
     for m, n, d in KNN_WIDE:
         g = unit_rows(gen, n, d)
         p = unit_rows(gen, m, d)
@@ -2739,10 +2779,12 @@ def check_knn_wide(gen, knn_results):
         key = f"D{d}_M{m}"
         rows[key] = {"tile": tile, "knn_int8q_ms": q_ms, "knn_int8p_ms": p_ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": lib_ms}
-        print(f"knn wide M={m} N={n} D={d}: probe tile {tile}; int8 bit-equal on "
+                     "library_ms": lib_ms, "ops": 2.0 * m * n * d}
+        print(f"knn wide M={m} N={n} D={d}: probe tile {tile}"
+              f"{' (streamed)' if tile == 128 and d > 1536 else ''}; int8 bit-equal on "
               f"{len(sub)} probes, both epilogues; knn_int8q {q_ms:.3f} ms, knn_int8p "
-              f"{p_ms:.3f} ms ({2.0 * m * n * d / p_ms / 1e9:.1f} T int8 ops/s), bound "
+              f"{p_ms:.3f} ms ({2.0 * m * n * d / p_ms / 1e9:.1f} T int8 ops/s, "
+              f"{b_ms / p_ms:.3f} of the bound), bound "
               f"{b_ms:.3f} ms ({b_by}), torch._int_mm "
               + (f"{lib_ms:.3f} ms" if lib_ms is not None else f"refused ({why})")
               + (f" (probes padded to {INT_MM_MIN_ROWS} rows)" if m < INT_MM_MIN_ROWS else "")
@@ -3835,6 +3877,8 @@ def main() -> None:
             "mesh_launches": mesh_total[name], "bench_launches": bench_launches[name],
             "equal": name != "knn_f32", **r,
             **({"widths": {k: {"tile": v["tile"], "ms": v[name + "_ms"],
+                               "t_ops": v["ops"] / v[name + "_ms"] / 1e9,
+                               "share_of_bound": v["bound_ms"] / v[name + "_ms"],
                                **{f: v.get(f) for f in ("plain_ms", "bound_ms", "bound_by",
                                                         "library_ms")}}
                            for k, v in knn_wide.items()}} if name != "knn_f32" else {})})

@@ -1,14 +1,17 @@
-// Matrix-free 1-NN over a gallery: kernels K2a (f32 / bf16) and K2b/K2c
+// Matrix-free 1-NN over a gallery: kernels K2a (f32, bf16) and K2b/K2c
 // (int8).
 //
 // Replaces hse_facerec_tf_tpu/ops/pallas/knn.py: nearest_neighbor_tpu
-// (_make_kernel(int8=False), _pallas_nn_call) with knn_f32_sweep_kernel, and
-// nearest_neighbor_tpu_int8q and nearest_neighbor_tpu_int8p
+// (_make_kernel(int8=False), _pallas_nn_call) with knn_f32_sweep_kernel
+// (bf16=False) and knn_bf16_sweep_kernel (bf16=True, the reference's
+// default), and nearest_neighbor_tpu_int8q and nearest_neighbor_tpu_int8p
 // (_make_kernel(int8=True), _make_kernel_packed) with knn_int8_sweep_kernel.
 // For each probe row they find the gallery row with the least ranking
 // value, without writing the (M, N) matrix:
-//   K2a: d = (a2[m] + b2[n]) - 2 * dot(a[m], b[n]), f32 FMAs (bf16 operands
-//        are widened to f32 as they are read);
+//   K2a: d = (a2[m] + b2[n]) - 2 * dot(a[m], b[n]), f32 norms from the host;
+//        the dot in f32 FMAs (f32 sweep), or on the tensor cores from bf16
+//        operands with f32 accumulation (bf16 sweep: the products are
+//        exact, only the order of the sum differs from the twin's);
 //   K2b/K2c: e = b2v[n] - (float)dot(qa[m], qb[n]), an exact int32 dot of
 //        int8 rows on the tensor cores. The host folds the scales, the +inf /
 //        sentinel of invalid rows and, for the packed mode, the offset into
@@ -34,55 +37,99 @@
 // vary fastest in the grid, so the blocks that share a split's gallery rows
 // run together and read them from device memory once.
 //
-// int8 sweep (K2b, K2c). What bounds it on an H100: at a serving query
-// (M <= 16, N = 1M, D = 512) the 512 MiB gallery read once, 0.16 ms at
-// 3.35 TB/s; at the design point (8192 x 1M x 512) its 8.8 T int8
-// operations, 4.4 ms at 1,979 T ops/s. Design:
-// - the block's probe tile (TM = 16 probes at M <= 16, where they fill one
-//   m16 tile, else 128) stays in shared memory for the whole sweep, every
-//   64-byte K tile of it, up to 128 KB at D = 1024;
-// - the gallery rows stream through a 4-stage cp.async ring of (128 rows x
-//   64 bytes) tiles, 16-byte copies (4-byte where D % 16 != 0), zero-filled
-//   past N and D; the ring runs on across gallery tiles, so loads never
-//   drain between them;
-// - warps run mma.sync.m16n8k32 s8 x s8 -> s32 on ldmatrix fragments of the
-//   XOR-swizzled tiles (mma_s8.cuh, shared with K4): 8 warps of 16 x 16
-//   (TM = 16) or 32 x 64 (TM = 128) outputs;
-// - after a gallery tile's last K step the epilogue works on the C
-//   fragments in registers: e, the mask and the running lexicographic
-//   minimum of each fragment row; at the end the 4 lanes of a row, then the
-//   warps that share it (through shared memory), reduce to one partial.
-// - K2b's norms in the sweep (two-pass epilogue, b2v == nullptr): the
-//   gallery's sums of squares are exact int32 diagonals of B·Bᵀ, taken on
-//   the tensor cores from the B fragments each warp already holds (two
-//   n-tiles as the A operand against each: one extra MMA per n-tile and
-//   k32 step, for one n-tile pair a warp), so no __dp4a and no pass over
-//   the gallery on the host; b2v[n] = n < valid_n ? (float)sumsq * c :
-//   +inf, the single rounding of the plain twin's where(valid, b2raw * c,
-//   inf). Every probe tile sums the squares again, so the wrapper asks for
-//   this only while the probes make at most 32 tiles (ops/kernels/knn.py,
-//   NORMS_MAX_M_TILES; on an H100 one host pass costs as much there). The
-//   packed epilogue needs max(b2raw) before the sweep and K2c has its norms
-//   precomputed: both take b2v from the host.
+// The tensor-core sweeps (int8: K2b, K2c; bf16: K2a's default) share one
+// block mainloop, templated on its MMA atom: mma.sync.m16n8k32 s8 x s8 ->
+// s32 (IMMA), mma.sync.m16n8k16 bf16 x bf16 -> f32 (HMMA), or, for the bf16
+// 128-probe tile, wgmma.m64n128k16 bf16 -> f32 (HGMMA). All read rows of
+// 64-byte K slices (64 int8 or 32 bf16 values) from XOR-swizzled shared
+// tiles; the atoms' fragments hold the same bytes and the swizzle is
+// wgmma's 64-byte one (mma_s8.cuh), so one tile layout, one set of copies
+// and one epilogue serve all three. A block takes TM probes (16 at M <= 16,
+// one m16 tile, else 128) against 128-row gallery tiles, 8 warps of 16 x 16
+// (TM = 16), 32 x 64 (int8, TM = 128) or 16 x 128 outputs (two warpgroups of
+// 64 x 128 on wgmma):
+// - the gallery rows stream through a ring of (128 rows x 64 bytes) slices,
+//   zero-filled past N and D; the ring runs on across gallery tiles, so
+//   loads never drain between them. The copies are cp.async (16 bytes, 4
+//   where an int8 D % 16 != 0) by every thread, or, on wgmma, TMA: one
+//   thread asks for the stage's two tiles as 2-d tensor copies in the same
+//   swizzled layout, counted in bytes on a barrier in shared memory; wgmma
+//   reads what the async proxy wrote, with no proxy fence and no thread
+//   spent on addresses;
+// - the probe tile is either resident, every K slice of it loaded once for
+//   the whole sweep, or streamed: each ring stage holds the probe tile's
+//   (TM x 64-byte) slice beside the gallery's, re-read from L2 for every
+//   gallery tile (8192 probes of 4096 int8 or 512 bf16 values are 32 or 8
+//   MiB, inside the 50 MB L2). The resident tile halves what a step reads
+//   from L2; the streamed one needs no shared memory that grows with D;
+// - an outer loop walks the split's gallery tiles, an inner one their K
+//   slices, and the accumulators stay in registers across the inner loop.
+//   On wgmma nothing else touches them there (the tile's first k16
+//   overwrites them instead of a zeroing pass), so one wgmma group stays in
+//   flight across each step's barrier and its slot is refilled a step
+//   later: register writes to the accumulators, or an epilogue inside the
+//   K loop's body, make ptxas drain every group at every step;
+// - after a tile's K loop the epilogue works on the C fragments: v (e and
+//   the mask, or a2 + b2 - 2 acc; +inf past N, with no branch) and the
+//   running lexicographic minimum of each fragment row; at the end the 4
+//   lanes of a row, then the warps that share it (through shared memory),
+//   reduce to one partial. The tile's b2v (b2 for bf16) rides the ring with
+//   its last K slice (cp.async).
+// Which probe tile, and what bounds each form on an H100:
+// - int8 serving query (M <= 16, N = 1M, D = 512 or 4096): the gallery read
+//   once, 0.16 or 1.28 ms at 3.35 TB/s. The resident 16-probe tile (8 or 64
+//   KB), two blocks an SM.
+// - int8 design point (8192 x 1M x 512): 8.8 T int8 operations, 4.4 ms at
+//   1,979 T ops/s. The resident 128-probe tile (32 KB at D 512, up to 128
+//   KB at D 1024: one block an SM there) and a 4-stage gallery ring, 256
+//   int8 operations a byte read from L2; streaming it was slower there.
+// - int8 at 8192 x 1M x 4096 (vggface_vgg16): 70 T operations, 35.6 ms. A
+//   resident 128-probe tile of 4096-byte rows is 512 KB, past the 227 KB a
+//   block may hold, so past Dp = 1536 (int8_tile) the probe tile streams:
+//   a 6-stage ring of 16 KB stages, 99.5 KB a block, two blocks an SM; 128
+//   operations a byte from L2. (Before, the 16-probe tile swept the whole
+//   4 GiB gallery once for every 16 probes.)
+// - bf16 at 8192 x 1M x 512 (the benchmark's K2a): 8.8 T bf16 FLOP, 8.9 ms
+//   at 989 T FLOP/s. wgmma fed by TMA, the probe tile streamed at every
+//   width: resident (128 KB at D 512, one block an SM) was slower, and so
+//   were mma.sync and cp.async copies on the same ring. (Before, the
+//   operands were widened to f32 and ran the f32 sweep's FFMA tiles, 28x
+//   this bound.)
+// - K2b's norms in the sweep (two-pass epilogue, b2v == nullptr), resident
+//   or streamed alike: the gallery's sums of squares are exact int32
+//   diagonals of B·Bᵀ, taken on the tensor cores from the B fragments each
+//   warp already holds (two n-tiles as the A operand against each: one
+//   extra MMA per n-tile and k32 step, for one n-tile pair a warp), so no
+//   __dp4a and no pass over the gallery on the host; b2v[n] = n < valid_n ?
+//   (float)sumsq * c : +inf, the single rounding of the plain twin's
+//   where(valid, b2raw * c, inf). Every probe tile sums the squares again,
+//   so the wrapper asks for this only while the probes make at most 32
+//   tiles (ops/kernels/knn.py, NORMS_MAX_M_TILES; on an H100 one host pass
+//   costs as much there). The packed epilogue needs max(b2raw) before the
+//   sweep and K2c has its norms precomputed: both take b2v from the host.
 //
-// f32 sweep (K2a). What bounds it: at its routed shape (2048 x 1M x 1024,
-// where the f32 matrix would pass 4 GiB) 4.4 T f32 operations, 66 ms at
-// 67 T FLOP/s outside the tensor cores (TF32 is not exact). Design: 128 x
-// 128 block tiles, 256 threads with 8 x 8 accumulators each, 16 k a stage,
-// two stages. Both operands lie k-major in shared memory, so each thread
-// reads its 8 probes and 8 gallery rows at one k as two 16-byte words each:
-// the probes arrive k-major from the host (a (D, M) copy, small) by
-// 16-byte cp.async; the gallery rows, row-major in device memory, pass
-// through registers (16-byte loads issued before the stage's FMAs, stored
-// transposed after them), since cp.async cannot transpose and reading them
-// row-major would double the shared-memory traffic. Each accumulator sums
-// fmaf(a[k], b[k], acc) in k order 0..D-1 (zeros past D), as the first
-// version of this kernel did, so the distances equal its distances bit for
-// bit. Small M runs the same kernel on a zero-padded probe tile.
+// f32 sweep (K2a, bf16=False). What bounds it: at its routed shape (2048 x
+// 1M x 1024, where the f32 matrix would pass 4 GiB) 4.4 T f32 operations,
+// 66 ms at 67 T FLOP/s outside the tensor cores (TF32 is not exact).
+// Design: 128 x 128 block tiles, 256 threads with 8 x 8 accumulators each,
+// 16 k a stage, two stages. Both operands lie k-major in shared memory, so
+// each thread reads its 8 probes and 8 gallery rows at one k as two
+// 16-byte words each: the probes arrive k-major from the host (a (D, M)
+// copy, small) by 16-byte cp.async; the gallery rows, row-major in device
+// memory, pass through registers (16-byte loads issued before the stage's
+// FMAs, stored transposed after them), since cp.async cannot transpose and
+// reading them row-major would double the shared-memory traffic. Each
+// accumulator sums fmaf(a[k], b[k], acc) in k order 0..D-1 (zeros past D),
+// as the first version of this kernel did, so the distances equal its
+// distances bit for bit. Small M runs the same kernel on a zero-padded
+// probe tile.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma_s8.cuh"
 
@@ -91,8 +138,10 @@ namespace {
 using namespace mma_s8;
 
 constexpr int kThreads = 256;
-constexpr int kTN = 128;          // gallery rows per tile, both sweeps
-constexpr int kRingStages = 4;    // int8 gallery ring
+constexpr int kTN = 128;           // gallery rows per tile, every sweep
+constexpr int kRingStages = 4;     // ring of the resident-probe sweep
+constexpr int kStreamStages = 6;   // of the streamed one: 2 x 99.5 KB an SM
+constexpr int kAlignPad = 1024;    // the bf16 sweep's base, rounded up to this
 
 __device__ __forceinline__ bool lex_less(float v, int i, float bv, int bi) {
   return v < bv || (v == bv && i < bi);
@@ -111,12 +160,15 @@ __device__ __forceinline__ void lex_min_shfl(float& bv, int& bi, int off) {
   lex_min(bv, bi, ov, oi);
 }
 
-// ---------------------------------------------------------------- int8 sweep
+// ------------------------------------------------------- tensor-core sweeps
 
-// TM probes x kTN gallery rows a block, 8 warps of WM x WN outputs.
-template <int TM_, int WM_, int WN_>
+// TM probes x kTN gallery rows a block, 8 warps of WM x WN outputs, on
+// mma.sync (each warp its own fragments) or on wgmma (each warpgroup 64
+// probes x kTN: its warps hold 16 rows each, in mma.sync's C layout).
+template <int TM_, int WM_, int WN_, bool WGMMA_ = false>
 struct SweepTile {
   static constexpr int TM = TM_, WM = WM_, WN = WN_;
+  static constexpr bool kWgmma = WGMMA_;
   static constexpr int kWarpsM = TM / WM, kWarpsN = kTN / WN;
   static constexpr int kMT = WM / 16, kNT = WN / 8;   // mma tiles of a warp
   static constexpr int kNG = kNT < 4 ? kNT : 4;       // n-tiles per B load group
@@ -126,31 +178,47 @@ struct SweepTile {
 };
 using ServeTile = SweepTile<16, 16, 16>;    // 1 x 8 warps
 using BatchTile = SweepTile<128, 32, 64>;   // 4 x 2 warps
+using WgmmaTile = SweepTile<128, 16, 128, true>;   // 2 warpgroups of 64 x 128
 
-// the resident probe tile, the gallery ring, the tile's row norms and a
-// b2v tile beside each ring stage
-__host__ __device__ constexpr int int8_smem_bytes(int tm, int Dp) {
-  return tm * ((Dp + kBK - 1) / kBK) * kBK + kRingStages * kTN * kBK + kTN * 4 +
-         kRingStages * kTN * 4;
+// A block's shared memory for tm probes of kb bytes: the resident probe
+// tile (resident only), the ring (each stage the gallery slice and, when
+// streamed, the probe slice, the gallery tile's b2v and a barrier for its
+// TMA copies) and the tile's row norms.
+__host__ __device__ constexpr int sweep_smem_bytes(int tm, int kb, bool stream) {
+  return stream ? kStreamStages * ((tm + kTN) * kBK + kTN * 4 + 8) + kTN * 4
+                : tm * ((kb + kBK - 1) / kBK) * kBK + kRingStages * (kTN * kBK + kTN * 4 + 8) +
+                      kTN * 4;
 }
 
-// qa (M, Dp) and qb (N, Dp) int8, Dp a multiple of 4 (of 16 for LOAD 16).
-// NORMS: b2v is formed here from the rows' squares, c = sb / (2 sa) and
-// valid_n; else b2v (N,) comes from the host.
-template <class T, int LOAD, bool NORMS>
-__global__ void __launch_bounds__(kThreads, 2)
-knn_int8_sweep_kernel(const int8_t* __restrict__ qa, const int8_t* __restrict__ qb,
-                      const float* __restrict__ b2v, const float* __restrict__ c,
-                      int valid_n, int M, int N, int Dp, unsigned mask,
-                      int tiles_per_split, float* __restrict__ part_v,
-                      int* __restrict__ part_i) {
-  extern __shared__ __align__(128) uint8_t smem[];
+// The block mainloop of both tensor-core sweeps. qa (M, Kb) and qb (N, Kb)
+// are rows of Kb bytes (int8 values, or bf16 ones when Acc is float), Kb a
+// multiple of 4 (of 16 for LOAD 16). Acc int: e = b2v - acc, masked; NORMS:
+// b2v is formed here from the rows' squares, c = sb / (2 sa) and valid_n,
+// else b2v (N,) comes from the host. Acc float: d = (a2 + b2v) - 2 acc.
+template <class Acc, class T, int LOAD, bool STREAM, bool NORMS>
+__device__ __forceinline__ void sweep(uint8_t* smem, const CUtensorMap* tma_b,
+                                      const CUtensorMap* tma_a, const int8_t* __restrict__ qa,
+                                      const int8_t* __restrict__ qb,
+                                      const float* __restrict__ a2,
+                                      const float* __restrict__ b2v,
+                                      const float* __restrict__ c, int valid_n, int M, int N,
+                                      int Kb, unsigned mask, int tiles_per_split,
+                                      float* __restrict__ part_v, int* __restrict__ part_i) {
+  constexpr bool kInt8 = std::is_same<Acc, int>::value;
+  static_assert(kInt8 || !NORMS, "norms in the sweep are the int8 two-pass epilogue's");
   constexpr int TM = T::TM, kMT = T::kMT, kNT = T::kNT, kNG = T::kNG;
-  const int KT = (Dp + kBK - 1) / kBK;
-  uint8_t* const As = smem;                               // KT x (TM, 64)
-  uint8_t* const ring = smem + KT * TM * kBK;             // stages x (kTN, 64)
-  int* const nrm = reinterpret_cast<int*>(ring + kRingStages * kTN * kBK);
-  float* const b2s = reinterpret_cast<float*>(nrm + kTN);   // stages x kTN
+  constexpr int S = STREAM ? kStreamStages : kRingStages;
+  constexpr bool TMA = T::kWgmma;   // wgmma reads what TMA writes, no proxy fence
+  // wgmma keeps one group in flight across the next barrier, so a slot is
+  // refilled one step later (the ring runs S - 1 - kLag stages ahead)
+  constexpr int kLag = T::kWgmma ? 1 : 0;
+  constexpr int kStage = (STREAM ? TM + kTN : kTN) * kBK;   // a stage's slices
+  const int KT = (Kb + kBK - 1) / kBK;
+  uint8_t* const As = smem;                                   // resident: KT x (TM, 64)
+  uint8_t* const ring = smem + (STREAM ? 0 : KT * TM * kBK);  // S x [(kTN, 64), (TM, 64)]
+  float* const b2s = reinterpret_cast<float*>(ring + S * kStage);   // S x kTN
+  int* const nrm = reinterpret_cast<int*>(b2s + S * kTN);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(nrm + kTN);   // TMA: S barriers
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = warp / T::kWarpsN, wn = warp % T::kWarpsN;
   const long long m0 = static_cast<long long>(blockIdx.x) * TM;
@@ -158,28 +226,54 @@ knn_int8_sweep_kernel(const int8_t* __restrict__ qa, const int8_t* __restrict__ 
   const int n_tiles = (N + kTN - 1) / kTN;
   const int t_begin = split * tiles_per_split;
   const int t_end = min(t_begin + tiles_per_split, n_tiles);
-  const int steps = (t_end - t_begin) * KT;   // (gallery tile, K tile) pairs
+  const int steps = (t_end - t_begin) * KT;   // (gallery tile, K slice) pairs
 
-  // the probe tile, resident for the whole sweep (committed with stage 0)
-  for (int kt = 0; kt < KT; ++kt)
-    load_tile<LOAD, TM, kThreads>(As + kt * TM * kBK, qa, m0, M, Dp, kt * kBK);
-  auto load_stage = [&](int s) {
-    const long long row0 = static_cast<long long>(t_begin + s / KT) * kTN;
-    load_tile<LOAD, kTN, kThreads>(ring + (s % kRingStages) * kTN * kBK, qb, row0, N,
-                                   Dp, (s % KT) * kBK);
-    // the tile's b2v rides with its last K stage, so the epilogue reads it
-    // from shared memory; the slot is refilled only after that step
-    if (!NORMS && s % KT == KT - 1 && threadIdx.x < kTN) {
-      const long long n = row0 + threadIdx.x;
-      cp_async4(smem_addr(b2s + (s % kRingStages) * kTN + threadIdx.x),
-                n < N ? b2v + n : b2v, n < N ? 4 : 0);
+  static_assert(!TMA || STREAM, "TMA feeds the streamed wgmma tile");
+  if constexpr (TMA) {
+    if (threadIdx.x == 0)
+      for (int i = 0; i < S; ++i) mbar_init(full + i, 1);
+    fence_mbar_init();
+    __syncthreads();
+  }
+  // a resident probe tile is committed with stage 0
+  if constexpr (!STREAM)
+    for (int kt = 0; kt < KT; ++kt)
+      load_tile<LOAD, TM, kThreads>(As + kt * TM * kBK, qa, m0, M, Kb, kt * kBK);
+  // the next step to load: K slice lk of gallery tile t_begin + lt, into
+  // ring slot ls (the tile's b2v rides with its last K slice, so the
+  // epilogue reads it from shared memory; the slot is refilled only after
+  // that tile's epilogue)
+  int loaded = 0, lt = 0, lk = 0, ls = 0;
+  auto load_next = [&]() {
+    if (loaded < steps) {
+      uint8_t* const st = ring + ls * kStage;
+      const long long row0 = static_cast<long long>(t_begin + lt) * kTN;
+      if constexpr (TMA) {
+        // one thread: the 64-byte K slice (32 bf16 values) of 128 gallery
+        // rows and of the TM probes, swizzled as the tiles, zeros past N and D
+        if (threadIdx.x == 0) {
+          mbar_expect_tx(full + ls, kStage);
+          tma_load_2d(st, tma_b, lk * (kBK / 2), static_cast<int>(row0), full + ls);
+          tma_load_2d(st + kTN * kBK, tma_a, lk * (kBK / 2), static_cast<int>(m0), full + ls);
+        }
+      } else {
+        load_tile<LOAD, kTN, kThreads>(st, qb, row0, N, Kb, lk * kBK);
+        if constexpr (STREAM)
+          load_tile<LOAD, TM, kThreads>(st + kTN * kBK, qa, m0, M, Kb, lk * kBK);
+      }
+      if (!NORMS && lk == KT - 1 && threadIdx.x < kTN) {
+        const long long n = row0 + threadIdx.x;
+        cp_async4(smem_addr(b2s + ls * kTN + threadIdx.x), n < N ? b2v + n : b2v,
+                  n < N ? 4 : 0);
+      }
     }
+    cp_async_commit();
+    ++loaded;
+    if (++lk == KT) lk = 0, ++lt;
+    if (++ls == S) ls = 0;
   };
 #pragma unroll
-  for (int s = 0; s < kRingStages - 1; ++s) {
-    if (s < steps) load_stage(s);
-    cp_async_commit();
-  }
+  for (int i = 0; i < S - 1 - kLag; ++i) load_next();
   const float cval = NORMS ? __ldg(c) : 0.0f;
 
   // ldmatrix row addresses of this lane (mma_s8.cuh)
@@ -188,7 +282,20 @@ knn_int8_sweep_kernel(const int8_t* __restrict__ qa, const int8_t* __restrict__ 
   const int b_row = wn * T::WN + (q >> 1) * 8 + r8, b_chunk = q & 1;
   const int g = lane >> 2, t = lane & 3;
 
-  int acc[kMT][kNT][4];
+  // bf16: the probe norms of rows g and g + 8 of each m-tile, fixed for the
+  // block
+  float a2r[kMT][2];
+  if constexpr (!kInt8) {
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long m = m0 + wm * T::WM + i * 16 + g + 8 * h;
+        a2r[i][h] = m < M ? __ldg(a2 + m) : 0.0f;
+      }
+  }
+
+  Acc acc[kMT][kNT][4];
   int sq[2][4];                 // NORMS: the warp's n-tile pair, B·Bᵀ blocks
   // Running minimum of rows g and g + 8. A thread meets its candidates in
   // increasing index, so a strict v < bv keeps the lowest index of equal
@@ -205,63 +312,88 @@ knn_int8_sweep_kernel(const int8_t* __restrict__ qa, const int8_t* __restrict__ 
       bi[i][h] = t_begin * kTN;
     }
 
-  for (int s = 0; s < steps; ++s) {
-    cp_async_wait<kRingStages - 2>();
-    __syncthreads();
-    if (s + kRingStages - 1 < steps) load_stage(s + kRingStages - 1);
-    cp_async_commit();
-    const int kt = s % KT;
-    if (kt == 0) {
+  int slot = 0, phase = 0;   // the ring slot of the step computed, its use's parity
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    // the tile's K loop: nothing but its MMAs touches the accumulators, so
+    // wgmma groups stay in flight across its steps
+    for (int kt = 0; kt < KT; ++kt) {
+      cp_async_wait<S - 2 - kLag>();
+      if constexpr (TMA) mbar_wait(full + slot, phase);
+      __syncthreads();
+      load_next();
+      const uint8_t* const Bs = ring + slot * kStage;
+      const uint8_t* const At = STREAM ? Bs + kTN * kBK : As + kt * TM * kBK;
+      if constexpr (T::kWgmma) {
+        // the warpgroup's 64 probes against the 128 gallery rows, k16 twice,
+        // the tile's first overwriting the accumulators; the step before is
+        // done when this one is issued (its slot is refilled after the next
+        // barrier)
+        const uint32_t a0 = smem_addr(At) + (warp >> 2) * 64 * kBK, b0 = smem_addr(Bs);
+        wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < kMT; ++i)
+        for (int ks = 0; ks < kBK / 32; ++ks)
+          if (kt * kBK + ks * 32 < Kb)
+            wgmma_m64n128k16_bf16(acc[0], wgmma_desc(a0 + ks * 32),
+                                  wgmma_desc(b0 + ks * 32), kt + ks > 0);
+        wgmma_commit();
+        wgmma_wait<kLag>();
+      } else {
+        if (kt == 0) {
 #pragma unroll
-        for (int j = 0; j < kNT; ++j)
+          for (int i = 0; i < kMT; ++i)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+            for (int j = 0; j < kNT; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sq[0][e] = sq[1][e] = 0;
-    }
-    const uint8_t* At = As + kt * TM * kBK;
-    const uint8_t* Bs = ring + (s % kRingStages) * kTN * kBK;
+              for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
 #pragma unroll
-    for (int ks = 0; ks < kBK / 32; ++ks) {
-      if (kt * kBK + ks * 32 >= Dp) break;
-      uint32_t af[kMT][4];
-#pragma unroll
-      for (int i = 0; i < kMT; ++i)
-        ldmatrix_x4(smem_addr(At + swizzle(a_row + i * 16, ks * 2 + a_chunk)), af[i]);
-#pragma unroll
-      for (int j0 = 0; j0 < kNT; j0 += kNG) {
-        uint32_t bfr[kNG][2];
-#pragma unroll
-        for (int j = 0; j < kNG; j += 2) {
-          uint32_t r[4];
-          ldmatrix_x4(smem_addr(Bs + swizzle(b_row + (j0 + j) * 8, ks * 2 + b_chunk)), r);
-          bfr[j][0] = r[0];
-          bfr[j][1] = r[1];
-          bfr[j + 1][0] = r[2];
-          bfr[j + 1][1] = r[3];
+          for (int e = 0; e < 4; ++e) sq[0][e] = sq[1][e] = 0;
         }
 #pragma unroll
-        for (int i = 0; i < kMT; ++i)
+        for (int ks = 0; ks < kBK / 32; ++ks) {
+          if (kt * kBK + ks * 32 >= Kb) break;
+          uint32_t af[kMT][4];
 #pragma unroll
-          for (int j = 0; j < kNG; ++j) mma(acc[i][j0 + j], af[i], bfr[j]);
-        if constexpr (NORMS) {
+          for (int i = 0; i < kMT; ++i)
+            ldmatrix_x4(smem_addr(At + swizzle(a_row + i * 16, ks * 2 + a_chunk)), af[i]);
 #pragma unroll
-          for (int j = 0; j < kNG; j += 2) {
-            if ((j0 + j) / 2 != wm) continue;      // warp-uniform
-            // rows 0-7 of this A: n-tile j, rows 8-15: n-tile j + 1
-            const uint32_t an[4] = {bfr[j][0], bfr[j + 1][0], bfr[j][1], bfr[j + 1][1]};
-            mma(sq[0], an, bfr[j]);
-            mma(sq[1], an, bfr[j + 1]);
+          for (int j0 = 0; j0 < kNT; j0 += kNG) {
+            uint32_t bfr[kNG][2];
+#pragma unroll
+            for (int j = 0; j < kNG; j += 2) {
+              uint32_t r[4];
+              ldmatrix_x4(smem_addr(Bs + swizzle(b_row + (j0 + j) * 8, ks * 2 + b_chunk)), r);
+              bfr[j][0] = r[0];
+              bfr[j][1] = r[1];
+              bfr[j + 1][0] = r[2];
+              bfr[j + 1][1] = r[3];
+            }
+#pragma unroll
+            for (int i = 0; i < kMT; ++i)
+#pragma unroll
+              for (int j = 0; j < kNG; ++j) mma(acc[i][j0 + j], af[i], bfr[j]);
+            if constexpr (NORMS) {
+#pragma unroll
+              for (int j = 0; j < kNG; j += 2) {
+                if ((j0 + j) / 2 != wm) continue;      // warp-uniform
+                // rows 0-7 of this A: n-tile j, rows 8-15: n-tile j + 1
+                const uint32_t an[4] = {bfr[j][0], bfr[j + 1][0], bfr[j][1], bfr[j + 1][1]};
+                mma(sq[0], an, bfr[j]);
+                mma(sq[1], an, bfr[j + 1]);
+              }
+            }
           }
         }
       }
+      if (++slot == S) slot = 0, phase ^= 1;
     }
-    if (kt != KT - 1) continue;
+    if constexpr (T::kWgmma) {
+      wgmma_wait<0>();
+      wgmma_fence_operands(acc[0]);
+    }
 
-    // epilogue of gallery tile t_begin + s / KT, on the C fragments
-    const long long n_tile0 = static_cast<long long>(t_begin + s / KT) * kTN;
+    // epilogue of the gallery tile, on the C fragments
+    const long long n_tile0 = static_cast<long long>(tile) * kTN;
+    const float* const b2t = b2s + (slot == 0 ? S - 1 : slot - 1) * kTN;   // its last step's
     if constexpr (NORMS) {
       // diagonal (g, g) of tile·tileᵀ: lane t == g / 2, element g % 2 (first
       // n-tile, C rows 0-7) or 2 + g % 2 (second, C rows 8-15)
@@ -278,19 +410,27 @@ knn_int8_sweep_kernel(const int8_t* __restrict__ qa, const int8_t* __restrict__ 
       for (int e = 0; e < 2; ++e) {
         const int col = wn * T::WN + j * 8 + 2 * t + e;
         const long long n = n_tile0 + col;
-        if (n >= N) continue;
+        const bool in = n < N;   // past N: +inf, which no strict < picks
         float b2;
         if constexpr (NORMS)
           b2 = n < valid_n ? __fmul_rn(__int2float_rn(nrm[col]), cval)
                            : __int_as_float(0x7f800000);
         else
-          b2 = b2s[(s % kRingStages) * kTN + col];
+          b2 = b2t[col];
 #pragma unroll
         for (int i = 0; i < kMT; ++i)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const float ev = __fsub_rn(b2, __int2float_rn(acc[i][j][2 * h + e]));
-            const float v = __uint_as_float(__float_as_uint(ev) & mask);
+            float v;
+            if constexpr (kInt8) {
+              const float ev = __fsub_rn(b2, __int2float_rn(acc[i][j][2 * h + e]));
+              v = __uint_as_float(__float_as_uint(ev) & mask);
+            } else {
+              // 2 * acc is exact, so this is the reference's a2 + b2 - 2ab
+              // with or without a fused multiply-add
+              v = __fsub_rn(__fadd_rn(a2r[i][h], b2), 2.0f * acc[i][j][2 * h + e]);
+            }
+            if (!in) v = __int_as_float(0x7f800000);
             if (v < bv[i][h]) {
               bv[i][h] = v;
               bi[i][h] = static_cast<int>(n);
@@ -330,21 +470,99 @@ knn_int8_sweep_kernel(const int8_t* __restrict__ qa, const int8_t* __restrict__ 
   }
 }
 
+// qa (M, Dp) and qb (N, Dp) int8, Dp a multiple of 4 (of 16 for LOAD 16).
+template <class T, int LOAD, bool STREAM, bool NORMS>
+__global__ void __launch_bounds__(kThreads, 2)
+knn_int8_sweep_kernel(const int8_t* __restrict__ qa, const int8_t* __restrict__ qb,
+                      const float* __restrict__ b2v, const float* __restrict__ c,
+                      int valid_n, int M, int N, int Dp, unsigned mask,
+                      int tiles_per_split, float* __restrict__ part_v,
+                      int* __restrict__ part_i) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  sweep<int, T, LOAD, STREAM, NORMS>(smem, nullptr, nullptr, qa, qb, nullptr, b2v, c, valid_n,
+                                     M, N, Dp, mask, tiles_per_split, part_v, part_i);
+}
+
+// a (M, Dp) and b (N, Dp) bf16, Dp a multiple of 8, 16-byte aligned; the
+// probe tile streams at every width. The ring starts on a 1024-byte
+// boundary, so its tiles start on the 512-byte ones wgmma's swizzle and TMA
+// need: the launch asks for kAlignPad bytes more and the base is rounded up
+// here (an extern shared array aligned past 128 bytes would pad every
+// kernel of this file).
+template <class T>
+__global__ void __launch_bounds__(kThreads, 2)
+knn_bf16_sweep_kernel(const __grid_constant__ CUtensorMap tma_b,
+                      const __grid_constant__ CUtensorMap tma_a,
+                      const __nv_bfloat16* __restrict__ a,
+                      const __nv_bfloat16* __restrict__ b, const float* __restrict__ a2,
+                      const float* __restrict__ b2, int M, int N, int Dp,
+                      int tiles_per_split, float* __restrict__ part_v,
+                      int* __restrict__ part_i) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  sweep<float, T, 16, true, false>(smem + ((kAlignPad - smem_addr(smem) % kAlignPad) % kAlignPad),
+                                   &tma_b, &tma_a,
+                                          reinterpret_cast<const int8_t*>(a),
+                                          reinterpret_cast<const int8_t*>(b), a2, b2, nullptr, 0,
+                                          M, N, 2 * Dp, 0xffffffffu, tiles_per_split, part_v,
+                                          part_i);
+}
+
+// A 2-d tensor map of (rows, Dp) bf16 rows for TMA: boxes of 32 values (64
+// bytes) x box_rows rows, 64-byte swizzle (mma_s8.cuh's), zeros outside.
+// cuTensorMapEncodeTiled is looked up at run time, so the library links no
+// libcuda.
+cudaError_t bf16_tensor_map(CUtensorMap* map, const void* base, int rows, int Dp,
+                            int box_rows) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    return cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
+                                   &found) == cudaSuccess &&
+                   found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<Encode>(fn)
+               : nullptr;
+  }();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(Dp), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(Dp) * 2};
+  const cuuint32_t box[2] = {kBK / 2, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+                 CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
 using Int8Sweep = void (*)(const int8_t*, const int8_t*, const float*, const float*,
                            int, int, int, int, unsigned, int, float*, int*);
 
-template <class T>
+template <class T, bool STREAM>
 Int8Sweep int8_sweep(int load, bool norms) {
   if (load == 16)
-    return norms ? &knn_int8_sweep_kernel<T, 16, true> : &knn_int8_sweep_kernel<T, 16, false>;
-  return norms ? &knn_int8_sweep_kernel<T, 4, true> : &knn_int8_sweep_kernel<T, 4, false>;
+    return norms ? &knn_int8_sweep_kernel<T, 16, STREAM, true>
+                 : &knn_int8_sweep_kernel<T, 16, STREAM, false>;
+  return norms ? &knn_int8_sweep_kernel<T, 4, STREAM, true>
+               : &knn_int8_sweep_kernel<T, 4, STREAM, false>;
 }
 
-// The int8 block tile for M probes of Dp bytes on the current device: TM =
-// 16 at M <= 16 (one m16 tile), else 128; the other where the first does
-// not fit a block's shared memory. *per_sm: blocks an SM that shared memory
-// admits, at most the 2 of __launch_bounds__.
-cudaError_t int8_tile(int M, int Dp, int* tm, int* per_sm) {
+struct Int8Tile {
+  int tm;        // probes a block
+  int per_sm;    // blocks an SM that shared memory admits, at most the 2 of
+                 // __launch_bounds__
+  bool stream;   // the probe tile streams through the ring
+};
+
+// The int8 block tile for M probes of Dp bytes on the current device: the
+// resident probe tile, TM = 16 at M <= 16 (one m16 tile), else 128, where it
+// fits a block's shared memory; else the streamed 128-probe tile, whose
+// shared memory does not depend on Dp.
+cudaError_t int8_tile(int M, int Dp, Int8Tile* tile) {
   int dev, block_max, sm_max, reserved;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -354,18 +572,15 @@ cudaError_t int8_tile(int M, int Dp, int* tm, int* per_sm) {
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
   if (e != cudaSuccess) return e;
-  const int first = M <= ServeTile::TM ? ServeTile::TM : BatchTile::TM;
-  const int order[2] = {first, ServeTile::TM + BatchTile::TM - first};
-  for (const int t : order) {
-    const int smem = Dp >= 4 && Dp <= (1 << 16) ? int8_smem_bytes(t, Dp) : block_max + 1;
-    if (smem <= block_max) {
-      const int fit = sm_max / (smem + reserved);
-      *tm = t;
-      *per_sm = fit < 2 ? fit : 2;
-      return cudaSuccess;
-    }
-  }
-  return cudaErrorInvalidValue;
+  if (Dp < 4 || Dp % 4) return cudaErrorInvalidValue;
+  const int tm = M <= ServeTile::TM ? ServeTile::TM : BatchTile::TM;
+  const bool fits = Dp <= (1 << 16) && sweep_smem_bytes(tm, Dp, false) <= block_max;
+  *tile = {fits ? tm : BatchTile::TM, 0, !fits};
+  const int smem = sweep_smem_bytes(tile->tm, Dp, tile->stream);
+  if (smem > block_max) return cudaErrorInvalidValue;
+  const int fit = sm_max / (smem + reserved);
+  tile->per_sm = fit < 2 ? fit : 2;
+  return cudaSuccess;
 }
 
 // ----------------------------------------------------------------- f32 sweep
@@ -393,26 +608,8 @@ struct F32Io<float> {
   }
 };
 
-template <>
-struct F32Io<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  __device__ static void widen(const uint4& w, float* out) {
-    const uint32_t v[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      out[2 * i] = __uint_as_float(v[i] << 16);           // bf16 -> f32: exact
-      out[2 * i + 1] = __uint_as_float(v[i] & 0xffff0000u);
-    }
-  }
-  __device__ static float4 read4(const __nv_bfloat16* p) {
-    const uint2 w = *reinterpret_cast<const uint2*>(p);
-    return make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
-                       __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
-  }
-};
-
 // aT (Dp, Mp) k-major probes, Mp a multiple of 128; b (N, Dp) gallery rows;
-// T float or bf16, Dp a multiple of 16 bytes' worth, both 16-byte aligned.
+// Dp a multiple of 16 bytes' worth, both 16-byte aligned.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 knn_f32_sweep_kernel(const T* __restrict__ aT, const T* __restrict__ b,
@@ -613,15 +810,27 @@ bool bad_split(int M, int N, int tm, int splits, int tiles_per_split) {
          m_tiles >= (1LL << 31);
 }
 
+// Dynamic shared memory past the default 48 KB is granted per kernel.
+template <class Kernel>
+int set_smem(Kernel kernel, int smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+}
+
 }  // namespace
 
 extern "C" {
 
 // The int8 sweep's block tile for M probes of Dp bytes on the current
 // device: *tm probes a block, *per_sm blocks an SM. Returns
-// cudaErrorInvalidValue where no tile fits shared memory.
+// cudaErrorInvalidValue where Dp is not a whole number of 4-byte words.
 int knn_int8_tile(int M, int Dp, int* tm, int* per_sm) {
-  return static_cast<int>(int8_tile(M, Dp, tm, per_sm));
+  Int8Tile tile{};
+  const cudaError_t e = int8_tile(M, Dp, &tile);
+  *tm = tile.tm;
+  *per_sm = tile.per_sm;
+  return static_cast<int>(e);
 }
 
 // int8 1-NN (K2b, K2c). qa (M, Dp) and qb (N, Dp) int8, Dp a multiple of 4
@@ -637,22 +846,19 @@ int knn_int8(const void* qa, const void* qb, const float* b2v, const float* c,
              int valid_n, int M, int N, int Dp, unsigned mask, int load, int splits,
              int tiles_per_split, float* part_v, int* part_i, float* out_v, int* out_i,
              void* stream) {
-  int tm, per_sm;
-  const cudaError_t e = int8_tile(M, Dp, &tm, &per_sm);
+  Int8Tile tile{};
+  const cudaError_t e = int8_tile(M, Dp, &tile);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (Dp % 4 || (load != 16 && load != 4) || Dp % load ||
-      (b2v == nullptr && c == nullptr) || bad_split(M, N, tm, splits, tiles_per_split))
+  if ((load != 16 && load != 4) || Dp % load || (b2v == nullptr && c == nullptr) ||
+      bad_split(M, N, tile.tm, splits, tiles_per_split))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Int8Sweep kernel = tm == ServeTile::TM ? int8_sweep<ServeTile>(load, !b2v)
-                                               : int8_sweep<BatchTile>(load, !b2v);
-  const int smem = int8_smem_bytes(tm, Dp);
-  if (smem > 48 * 1024) {
-    const cudaError_t a =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (a != cudaSuccess) return static_cast<int>(a);
-  }
+  const Int8Sweep kernel = tile.stream ? int8_sweep<BatchTile, true>(load, !b2v)
+                           : tile.tm == ServeTile::TM ? int8_sweep<ServeTile, false>(load, !b2v)
+                                                      : int8_sweep<BatchTile, false>(load, !b2v);
+  const int smem = sweep_smem_bytes(tile.tm, Dp, tile.stream);
+  if (const int a = set_smem(kernel, smem)) return a;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  kernel<<<dim3((M + tm - 1) / tm, splits), kThreads, smem, s>>>(
+  kernel<<<dim3((M + tile.tm - 1) / tile.tm, splits), kThreads, smem, s>>>(
       static_cast<const int8_t*>(qa), static_cast<const int8_t*>(qb), b2v, c, valid_n, M, N,
       Dp, mask, tiles_per_split, part_v, part_i);
   const int err = static_cast<int>(cudaGetLastError());
@@ -660,26 +866,49 @@ int knn_int8(const void* qa, const void* qb, const float* b2v, const float* c,
   return launch_reduce(part_v, part_i, M, splits, out_v, out_i, s);
 }
 
-// f32 / bf16 1-NN (K2a). aT (Dp, Mp): the probes k-major, zero past M and
-// D, Mp a multiple of 128; b (N, Dp) gallery rows; f32 (bf16 = 0) or bf16
-// (bf16 = 1), Dp a multiple of 16 bytes' worth, 16-byte aligned bases; a2
-// (M,), b2 (N,) f32 norms. Otherwise as knn_int8.
-int knn_f32(const void* aT, const void* b, int bf16, const float* a2, const float* b2,
-            int M, int Mp, int N, int Dp, int splits, int tiles_per_split, float* part_v,
-            int* part_i, float* out_v, int* out_i, void* stream) {
-  if (Dp < 1 || Dp % (bf16 ? 8 : 4) || Mp % kF32TM || Mp < M ||
+// bf16 1-NN (K2a, bf16 = True). a (M, Dp) and b (N, Dp) bf16 rows, Dp a
+// multiple of 8, 16-byte aligned bases; a2 (M,), b2 (N,) f32 norms. The
+// block tile is 16 probes on mma.sync at M <= 16, else 128 on wgmma, two
+// blocks an SM. Otherwise as knn_int8.
+int knn_bf16(const void* a, const void* b, const float* a2, const float* b2, int M, int N,
+             int Dp, int splits, int tiles_per_split, float* part_v, int* part_i,
+             float* out_v, int* out_i, void* stream) {
+  const int tm = M <= ServeTile::TM ? ServeTile::TM : BatchTile::TM;
+  if (Dp < 8 || Dp % 8 || (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) % 16 ||
+      bad_split(M, N, tm, splits, tiles_per_split))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = tm == ServeTile::TM ? &knn_bf16_sweep_kernel<ServeTile>
+                                          : &knn_bf16_sweep_kernel<WgmmaTile>;
+  CUtensorMap tma_b{}, tma_a{};
+  if (tm == WgmmaTile::TM) {
+    if (const cudaError_t e = bf16_tensor_map(&tma_b, b, N, Dp, kTN)) return static_cast<int>(e);
+    if (const cudaError_t e = bf16_tensor_map(&tma_a, a, M, Dp, tm)) return static_cast<int>(e);
+  }
+  const int smem = sweep_smem_bytes(tm, 2 * Dp, true) + kAlignPad;
+  if (const int e = set_smem(kernel, smem)) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  kernel<<<dim3((M + tm - 1) / tm, splits), kThreads, smem, s>>>(
+      tma_b, tma_a, static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
+      a2, b2, M, N, Dp, tiles_per_split, part_v, part_i);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  return launch_reduce(part_v, part_i, M, splits, out_v, out_i, s);
+}
+
+// f32 1-NN (K2a, bf16 = False). aT (Dp, Mp): the probes k-major, zero past
+// M and D, Mp a multiple of 128; b (N, Dp) gallery rows, Dp a multiple of
+// 4, 16-byte aligned bases; a2 (M,), b2 (N,) f32 norms. Otherwise as
+// knn_int8.
+int knn_f32(const void* aT, const void* b, const float* a2, const float* b2, int M, int Mp,
+            int N, int Dp, int splits, int tiles_per_split, float* part_v, int* part_i,
+            float* out_v, int* out_i, void* stream) {
+  if (Dp < 1 || Dp % 4 || Mp % kF32TM || Mp < M ||
       bad_split(M, N, kF32TM, splits, tiles_per_split))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(Mp / kF32TM, splits);
-  if (bf16)
-    knn_f32_sweep_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(aT), static_cast<const __nv_bfloat16*>(b), a2,
-        b2, M, Mp, N, Dp, tiles_per_split, part_v, part_i);
-  else
-    knn_f32_sweep_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(aT), static_cast<const float*>(b), a2, b2, M, Mp, N,
-        Dp, tiles_per_split, part_v, part_i);
+  knn_f32_sweep_kernel<float><<<dim3(Mp / kF32TM, splits), kThreads, 0, s>>>(
+      static_cast<const float*>(aT), static_cast<const float*>(b), a2, b2, M, Mp, N, Dp,
+      tiles_per_split, part_v, part_i);
   const int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   return launch_reduce(part_v, part_i, M, splits, out_v, out_i, s);

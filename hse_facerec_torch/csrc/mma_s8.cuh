@@ -1,6 +1,7 @@
-// Helpers of the int8 tensor-core kernels K4 (pw_conv.cu) and the int8 1-NN
-// sweep (knn.cu): cp.async copies into shared memory, ldmatrix, and the
-// m16n8k32 s8 x s8 -> s32 mma.sync (IMMA).
+// Helpers of the tensor-core kernels K4 (pw_conv.cu) and the int8 and bf16
+// 1-NN sweeps (knn.cu): cp.async copies into shared memory, ldmatrix, the
+// m16n8k32 s8 x s8 -> s32 mma.sync (IMMA), the m16n8k16 bf16 x bf16 -> f32
+// one (HMMA) and the m64n128k16 bf16 wgmma (HGMMA) on the same tiles.
 //
 // Tiles of int8 operands lie in shared memory as rows of 64 bytes of K
 // (kBK), two k32 MMA steps. An ldmatrix phase reads 8 rows of 16 bytes at
@@ -16,6 +17,12 @@
 // ldmatrix.x4 hands out exactly these: for A, matrix q = lane / 8 at rows
 // (q % 2) * 8 + lane % 8, chunk q / 2; for two B n-tiles, rows
 // (q / 2) * 8 + lane % 8, chunk q % 2.
+// mma.m16n8k16 with bf16 operands holds the same bytes in the same
+// registers: a 32-byte K step is 16 bf16 values instead of 32 int8 ones, and
+// each 4-byte word two values instead of four (a[0] row g, k 2t..2t+1; b[0]
+// column g, k 2t..2t+1; C as above, in f32). So one tile layout, one
+// ldmatrix address and one copy routine serve both atoms; only the mma
+// differs.
 
 #pragma once
 
@@ -68,6 +75,127 @@ __device__ __forceinline__ void mma(int c[4], const uint32_t a[4], const uint32_
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a (16 x 16 bf16, row) * b (16 x 8 bf16, col), f32 accumulation: the
+// products are exact, the sum's order is the tensor core's.
+__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// wgmma (warpgroup MMA) over the same tiles. A K-major tile of 64-byte rows
+// swizzled as above is wgmma's 64-byte-swizzle layout: 8-row groups 512
+// bytes apart (the stride byte offset), rows contiguous, the tile base
+// aligned to 512 bytes. The descriptor's start address moves 32 bytes for
+// the second k16 of a 64-byte slice; the swizzle acts on the address.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |   // start address
+         (static_cast<uint64_t>(1) << 16) |                // leading offset (unused)
+         (static_cast<uint64_t>(512 >> 4) << 32) |         // stride offset
+         (static_cast<uint64_t>(2) << 62);                 // 64-byte swizzle
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses of d across wgmma's asynchrony.
+__device__ __forceinline__ void wgmma_fence_operands(float (&d)[16][4]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e]) :: "memory");
+}
+
+// d (64 x 128) = a (64 x 16 bf16) * b (128 x 16 bf16)ᵀ (+ d where
+// accumulate), both K-major in shared memory (descriptors), f32
+// accumulation, by one warpgroup. Thread
+// (warp w of the group, lane g * 4 + t) holds d[j] = rows 16w + g and
+// 16w + g + 8 at columns 8j + 2t, 8j + 2t + 1: the C fragment of mma.m16n8
+// for each of 16 n-tiles, so one epilogue reads both.
+__device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[16][4], uint64_t da,
+                                                      uint64_t db, bool accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(da), "l"(db), "r"(static_cast<int>(accumulate)));
+}
+
+// TMA (cp.async.bulk.tensor) and mbarriers: a tile copied by the async
+// proxy, which wgmma reads without a proxy fence, its arrival counted in
+// bytes on a barrier in shared memory.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The calling thread arrives and the barrier expects `bytes` more.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Waits for the barrier's phase of this parity to complete; a copy that
+// never lands fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  for (int i = 0;; ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if (i == (1 << 22)) __trap();
+  }
+}
+
+// The (c0, c1) box of a 2-d tensor map into shared memory at dst.
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_addr(dst)), "l"(map), "r"(c0), "r"(c1), "r"(smem_addr(bar)) : "memory");
 }
 
 // Rows row0 .. row0+ROWS-1 of a (rows_total, K) int8 matrix, bytes k0 ..

@@ -7,7 +7,11 @@ writes the (M, N) distance matrix and argmins it; the kernels keep a
 running (value, index) per probe instead, so memory traffic is O(M·D + N·D).
 
 - ``nearest_neighbor_f32`` (K2a): squared L2, f32 or bf16 operands (bf16 by
-  default, as the reference), f32 accumulation.
+  default, as the reference), f32 norms and f32 accumulation. On CUDA the
+  bf16 form runs the tensor-core mainloop shared with K2b/K2c on the bf16
+  rows as they are (``wgmma`` fed by TMA above 16 probes, ``mma.sync`` at
+  16 or fewer; no k-major probe copy); the exact f32 form keeps its FFMA
+  sweep.
 - ``nearest_neighbor_int8q`` (K2b): probes quantized here, against a
   gallery quantized once by ``quantize_embeddings``; an exact int8 dot, the
   scales folded into the norm terms. ``pack_idx=True`` selects the
@@ -23,7 +27,10 @@ plain twin, CUDA tensors launch the kernel or raise. ``<wrapper>.launches``
 counts kernel launches, under a lock (``build.count_launch``): the
 server's threads rank at once. ``sweep_config`` picks the gallery splits here,
 where the CPU tests reach it; the int8 block tile, which follows from the
-kernel's shared memory, comes from ``knn.cu`` (``int8_tile``). The
+kernel's shared memory, comes from ``knn.cu`` (``int8_tile``): the probe
+tile resident in shared memory where it fits, else streamed through the
+gallery's ring beside it (past 1536 bytes a row, e.g. the 4096-d
+``vggface_vgg16`` embeddings). The
 host-side arithmetic around the int8 kernels
 (scales, norms, the packed offset) is computed as the jitted reference
 computes it, so K2b/K2c equal their twins, and the twins the reference, bit
@@ -47,8 +54,10 @@ HBM_LIMIT_BYTES = 4 * 1024 ** 3
 PLAIN_CHUNK = 1024          # probes per (chunk, N) matrix of the int8 twin
 
 # csrc/knn.cu's geometry (the int8 block tile comes from knn_int8_tile)
-TILE_N = 128                # gallery rows per tile, both sweeps
+TILE_N = 128                # gallery rows per tile, every sweep
 F32_TM = 128                # probes a block of the f32 sweep, 2 blocks an SM
+SERVE_TM, BATCH_TM = 16, 128    # probes a block of the tensor-core sweeps
+BF16_PER_SM = 2             # the bf16 sweep's streamed tile, 2 blocks an SM
 MAX_SPLITS = 65535          # the grid's y extent
 CUDA_ERROR_INVALID_VALUE = 1
 # K2b forms the gallery norms in the sweep while the probes make at most
@@ -98,7 +107,9 @@ def _pad_dim(q):
 
 
 def _pad_to(qa, width: int):
-    """Zero-pad quantized probes to the gallery's padded width."""
+    """Zero-pad the last axis to ``width`` (quantized probes to the
+    gallery's padded width, K2a's operands to whole 16-byte words); zero
+    columns change no dot."""
     if qa.shape[1] > width:
         raise ValueError(f"probe dim {qa.shape[1]} > gallery dim {width}")
     if qa.shape[1] == width:
@@ -229,11 +240,15 @@ def _kernels():
                                   ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     lib.knn_int8_tile.restype = ctypes.c_int
     f32 = lib.knn_f32
-    f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_int, *tail]
+    f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, *tail]
     f32.restype = ctypes.c_int
-    return lib, int8, f32
+    bf16 = lib.knn_bf16
+    bf16.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, *tail]
+    bf16.restype = ctypes.c_int
+    return lib, int8, f32, bf16
 
 
 class SweepConfig(NamedTuple):
@@ -268,18 +283,26 @@ def sweep_config(m: int, n: int, sms: int, tm: int, per_sm: int) -> SweepConfig:
 @functools.lru_cache(maxsize=1024)
 def int8_tile(m: int, dp: int, device_index: int):
     """(probes a block, blocks an SM) of the int8 sweep for m probes of
-    ``dp`` bytes on a CUDA device, from ``knn.cu``'s ``knn_int8_tile``: 16
-    probes at m <= 16 (one m16 MMA tile), else 128 while the resident probe
-    tile fits a block's shared memory. Raises where no tile fits."""
+    ``dp`` bytes on a CUDA device, from ``knn.cu``'s ``knn_int8_tile``: the
+    resident probe tile, 16 probes at m <= 16 (one m16 MMA tile), else 128,
+    where it fits a block's shared memory; else the streamed 128-probe
+    tile, which fits at every width. Raises where ``dp`` is not whole
+    4-byte words."""
     lib = _kernels()[0]
     tm, per_sm = ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(device_index):
         code = lib.knn_int8_tile(m, dp, ctypes.byref(tm), ctypes.byref(per_sm))
     if code == CUDA_ERROR_INVALID_VALUE:
-        raise ValueError(f"int8 1-NN: a {dp}-byte probe row is too wide for "
-                         "the probe tile's shared memory")
+        raise ValueError(f"int8 1-NN: a {dp}-byte row is not whole 4-byte words")
     build.check(lib, code, "knn_int8_tile")
     return tm.value, per_sm.value
+
+
+def bf16_tile(m: int) -> int:
+    """Probes a block of the bf16 sweep: 16 at m <= 16 (one m16 MMA tile,
+    ``mma.sync``), else 128 (two ``wgmma`` warpgroups); its probe tile
+    streams, so the width does not matter."""
+    return SERVE_TM if m <= SERVE_TM else BATCH_TM
 
 
 def _sms(device) -> int:
@@ -327,7 +350,7 @@ def _rank_int8_cuda(qa, qb, b2v, pack_idx: bool, c=None, valid_n: int = 0):
     qa, qb = _aligned(qa, 4), _aligned(qb, 4)
     load = 16 if dp % 16 == 0 and qa.data_ptr() % 16 == 0 and qb.data_ptr() % 16 == 0 else 4
     cfg = sweep_config(m, n, _sms(dev), *int8_tile(m, dp, dev.index))
-    lib, fn, _ = _kernels()
+    lib, fn = _kernels()[:2]
     mask = (PACK_MASK if pack_idx else -1) & 0xFFFFFFFF
     return _launch("knn_int8", fn, lib, m, cfg, dev,
                    (qa.data_ptr(), qb.data_ptr(),
@@ -365,21 +388,27 @@ def nearest_neighbor_f32(probes, gallery, bf16: bool = True):
     b = gallery.to(torch.float32).contiguous()
     a2 = torch.sum(a * a, dim=1)
     b2 = torch.sum(b * b, dim=1)
-    if bf16:
-        a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
     (m, d), n = a.shape, b.shape[0]
-    cfg = sweep_config(m, n, _sms(dev), F32_TM, 2)
-    # rows of whole 16-byte words; the probes k-major, zero past m and d
-    vec = 16 // a.element_size()
-    dp = -(-d // vec) * vec
-    mp = -(-m // cfg.tm) * cfg.tm
-    a_t = torch.zeros((dp, mp), dtype=a.dtype, device=dev)
-    a_t[:d, :m] = a.T
-    b = _aligned(torch.nn.functional.pad(b, (0, dp - d)) if dp != d else b, 16)
-    lib, _, fn = _kernels()
-    dmin, idx = _launch("knn_f32", fn, lib, m, cfg, dev,
-                        (a_t.data_ptr(), b.data_ptr(), int(bf16), a2.data_ptr(),
-                         b2.data_ptr(), m, mp, n, dp))
+    lib, _, f32, bf16_sweep = _kernels()
+    if bf16:
+        # bf16 rows of whole 16-byte words, zero past d
+        dp = -(-d // 8) * 8
+        a, b = (_aligned(_pad_to(x.to(torch.bfloat16), dp), 16) for x in (a, b))
+        cfg = sweep_config(m, n, _sms(dev), bf16_tile(m), BF16_PER_SM)
+        dmin, idx = _launch("knn_bf16", bf16_sweep, lib, m, cfg, dev,
+                            (a.data_ptr(), b.data_ptr(), a2.data_ptr(), b2.data_ptr(),
+                             m, n, dp))
+    else:
+        # f32 rows of whole 16-byte words; the probes k-major, zero past m and d
+        cfg = sweep_config(m, n, _sms(dev), F32_TM, 2)
+        dp = -(-d // 4) * 4
+        mp = -(-m // cfg.tm) * cfg.tm
+        a_t = torch.zeros((dp, mp), dtype=a.dtype, device=dev)
+        a_t[:d, :m] = a.T
+        b = _aligned(_pad_to(b, dp), 16)
+        dmin, idx = _launch("knn_f32", f32, lib, m, cfg, dev,
+                            (a_t.data_ptr(), b.data_ptr(), a2.data_ptr(), b2.data_ptr(),
+                             m, mp, n, dp))
     build.count_launch(nearest_neighbor_f32)
     return torch.clamp(dmin, min=0.0), idx
 

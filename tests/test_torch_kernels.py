@@ -243,11 +243,14 @@ def test_knn_wrappers_reject_other_devices():
 
 # (M, N, D): ragged and tiny, tile edges, the serving shapes; then D off
 # whole 32- and 64-byte K steps (30, 100, 1000: 4-byte copies where D % 16
-# != 0) and M at the probe tiles' edges (16 and 128 probes a block)
+# != 0) and M at the probe tiles' edges (16 and 128 probes a block); then
+# widths past the resident 128-probe tile, where it streams (1700: 4-byte
+# copies; 4096: vggface_vgg16's), and the 16-probe tile at 4096
 KNN_CARD_SHAPES = [(1, 5, 30), (7, 129, 64), (37, 1000, 30), (1, 100_000, 512),
                    (16, 100_000, 512), (300, 20_000, 512), (1, 300, 1000),
                    (16, 777, 100), (17, 5000, 100), (128, 3000, 1000),
-                   (129, 2000, 30)]
+                   (129, 2000, 30), (129, 1000, 1700), (300, 3000, 4096),
+                   (16, 5000, 4096)]
 
 
 @pytest.mark.cuda
@@ -295,26 +298,37 @@ def test_knn_int8_kernel_ties_and_valid_n_on_card(cuda, pack_idx):
 def test_knn_int8_tile_on_card(cuda):
     """The int8 block tile from the kernel's shared memory: 16 probes at M
     <= 16; 128 and two blocks an SM at D = 512; 128 and one at D = 1024
-    (the 128 KB probe tile, within 227 KB)."""
+    (the 128 KB probe tile, within 227 KB); at D = 4096 the streamed
+    128-probe tile, two blocks an SM (99.5 KB each)."""
     idx = torch.cuda.current_device()
     assert knn.int8_tile(16, 512, idx) == (16, 2)
     assert knn.int8_tile(8192, 512, idx) == (128, 2)
     assert knn.int8_tile(2048, 1024, idx) == (128, 1)
+    assert knn.int8_tile(8192, 4096, idx) == (128, 2)
 
 
 @pytest.mark.cuda
 def test_knn_sweep_config_falls_back_to_the_small_tile(cuda):
-    """Past D = 1568 the 128-probe tile no longer fits: 16 probes a block;
-    past about 12 KB a row nothing fits."""
+    """The small tile is a fallback no more. Past D = 1536 the resident
+    128-probe tile no longer fits and the probe tile streams: 128 probes,
+    two blocks an SM, at every width. The 16-probe tile keeps M <= 16 while
+    its resident tile fits (D = 4096: 64 KB; D = 8192: 128 KB, one block an
+    SM) and gives way to the streamed 128 past it. No width is too wide;
+    only a row of part words is refused."""
     idx = torch.cuda.current_device()
-    assert knn.int8_tile(4096, 2048, idx)[0] == 16
+    assert knn.int8_tile(4096, 2048, idx) == (128, 2)
+    assert knn.int8_tile(4096, 16384, idx) == (128, 2)
+    assert knn.int8_tile(16, 4096, idx) == (16, 2)
+    assert knn.int8_tile(16, 8192, idx) == (16, 1)
+    assert knn.int8_tile(16, 16384, idx) == (128, 2)
     with pytest.raises(ValueError):
-        knn.int8_tile(4096, 16384, idx)
+        knn.int8_tile(4096, 6, idx)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("in_sweep", [True, False])
-@pytest.mark.parametrize("m,n,d", [(5, 5000, 100), (129, 3001, 1000)])
+@pytest.mark.parametrize("m,n,d", [(5, 5000, 100), (129, 3001, 1000),
+                                   (129, 3001, 2000)])
 def test_knn_int8q_norms_in_sweep_under_valid_n_on_card(cuda, monkeypatch, m, n, d,
                                                         in_sweep):
     """K2b's two-pass sweep forms b2v from the rows' squares itself, or past
@@ -363,6 +377,33 @@ def test_knn_f32_kernel_matches_plain_on_card(cuda, m, n, d, bf16):
         clear[:] = True
     mask = clear.cpu().numpy()
     np.testing.assert_array_equal(gi.cpu().numpy()[mask], wi.cpu().numpy()[mask])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [30, 512])
+@pytest.mark.parametrize("m", [1, 37, 300])
+def test_knn_bf16_kernel_matches_twin_on_card(cuda, m, d):
+    """K2a's bf16 sweep (the tensor-core mainloop on bf16 rows) against its
+    twin at ragged shapes: one launch, distances within rtol 1e-4 and atol
+    1e-3 (the bf16 products are exact in f32, only the sum's order
+    differs), the index equal wherever the twin's top two are further
+    apart than that."""
+    rng = np.random.RandomState(m + d)
+    n = 4999
+    p = _t(_unit_rows(rng, m, d)).to(cuda)
+    g = _t(_unit_rows(rng, n, d)).to(cuda)
+    g[n // 2:n // 2 + 3] = g[1:4]                 # exact ties with lower rows
+    before = knn.nearest_neighbor_f32.launches
+    gd, gi = knn.nearest_neighbor_f32(p, g, bf16=True)
+    wd, wi = knn.nearest_neighbor_plain(p, g, bf16=True)
+    torch.cuda.synchronize()
+    assert knn.nearest_neighbor_f32.launches == before + 1
+    np.testing.assert_allclose(gd.cpu().numpy(), wd.cpu().numpy(), rtol=1e-4, atol=1e-3)
+    a, b = p.to(torch.bfloat16).float(), g.to(torch.bfloat16).float()
+    d2 = (p * p).sum(1)[:, None] + (g * g).sum(1)[None, :] - 2.0 * (a @ b.T)
+    top2 = torch.topk(d2, 2, dim=1, largest=False).values
+    clear = ((top2[:, 1] - top2[:, 0]) > 1e-3 + 1e-4 * top2[:, 0].abs()).cpu().numpy()
+    np.testing.assert_array_equal(gi.cpu().numpy()[clear], wi.cpu().numpy()[clear])
 
 
 def _pw_operands(rng, m, k, n, device="cpu"):

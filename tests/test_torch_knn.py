@@ -72,7 +72,8 @@ def test_quantize_embeddings_three_call_paths(path):
 
 
 @pytest.mark.parametrize("pack_idx", [False, True])
-@pytest.mark.parametrize("m,n,d", [(1, 5, 16), (13, 300, 30), (37, 700, 64)])
+@pytest.mark.parametrize("m,n,d", [(1, 5, 16), (13, 300, 30), (37, 700, 64),
+                                   (9, 300, 4096)])
 def test_int8q_twin_matches_interpret_kernel(m, n, d, pack_idx):
     rng = np.random.RandomState(m * 1000 + n)
     p, g = _unit_rows(rng, m, d), _unit_rows(rng, n, d)
@@ -84,15 +85,16 @@ def test_int8q_twin_matches_interpret_kernel(m, n, d, pack_idx):
 
 
 @pytest.mark.parametrize("pack_idx", [False, True])
-def test_int8p_twin_matches_interpret_kernel(pack_idx):
+@pytest.mark.parametrize("m,n,d", [(21, 333, 30), (9, 300, 4096)])
+def test_int8p_twin_matches_interpret_kernel(pack_idx, m, n, d):
     rng = np.random.RandomState(11)
-    p, g = _unit_rows(rng, 21, 30), _unit_rows(rng, 333, 30)
+    p, g = _unit_rows(rng, m, d), _unit_rows(rng, n, d)
     qb, sb = jk.quantize_embeddings(jnp.asarray(g))
     packed = jk.pack_quantized_gallery(qb, sb, tile_n=128)
     want = jk.nearest_neighbor_tpu_int8p(jnp.asarray(p), *packed, interpret=True,
                                          pack_idx=pack_idx, **_TILES)
     mine = tk.pack_quantized_gallery(_t(qb), _t(sb))
-    assert mine.q.shape == (333, 32) and mine.b2i.shape == (333,)
+    assert mine.q.shape == (n, -(-d // 4) * 4) and mine.b2i.shape == (n,)
     got = tk.nearest_neighbor_int8p(_t(p), *mine, pack_idx=pack_idx)
     _assert_bit_equal(got, want)
     # K2c and K2b agree on the same gallery
@@ -155,12 +157,15 @@ def test_f32_twin_matches_interpret_kernel(m, n, d):
     np.testing.assert_allclose(gd.numpy(), np.asarray(wd), rtol=1e-4, atol=1e-3)
 
 
-def test_f32_bf16_twin_rounds_operands_only():
+@pytest.mark.parametrize("d", [30, 64, 512])
+def test_f32_bf16_twin_rounds_operands_only(d):
     """bf16 twin = f32 math on bf16-rounded operands with f32 norms and an
-    f32 sum, as the reference's bf16 kernel (interpret) computes it."""
+    f32 sum, as the reference's bf16 kernel (interpret) computes it; at
+    widths off the bf16 sweep's 8-value words (30), on them (64) and at
+    the benchmark's (512)."""
     rng = np.random.RandomState(8)
-    p = rng.randn(40, 64).astype(np.float32)
-    g = rng.randn(500, 64).astype(np.float32)
+    p = rng.randn(40, d).astype(np.float32)
+    g = rng.randn(500, d).astype(np.float32)
     wd, wi = jk.nearest_neighbor_tpu(jnp.asarray(p), jnp.asarray(g), bf16=True,
                                      interpret=True, tile_m=64, tile_n=256)
     gd, gi = tk.nearest_neighbor_f32(_t(p), _t(g))

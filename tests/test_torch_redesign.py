@@ -130,21 +130,32 @@ def test_kernel_prologue_equals_warp_scalars_bitwise(cfg, flips):
 
 
 
-# (M probes, N gallery rows, D, int8): serving queries, the int8 design
-# point, K2a's routed shape and the int8 identify at scale, K2a at serving
+# (M probes, N gallery rows, D, sweep: True int8, False f32, "bf16"):
+# serving queries, the int8 design point, K2a's routed shape and the int8
+# identify at scale, K2a at serving; the int8 sweep at vggface_vgg16's
+# 4096-d (the streamed probe tile); K2a's bf16 sweep at the benchmark's
+# shape and at a serving query
 KNN_SWEEPS = [(1, 1 << 20, 512, True), (16, 1 << 20, 512, True),
               (8192, 1 << 20, 512, True), (2048, 1 << 20, 1024, True),
-              (2048, 1 << 20, 1024, False), (16, 1 << 20, 512, False)]
+              (2048, 1 << 20, 1024, False), (16, 1 << 20, 512, False),
+              (8192, 1 << 20, 4096, True), (8192, 1 << 20, 512, "bf16"),
+              (16, 1 << 20, 512, "bf16")]
 
 
 def _h100_tile(m, d, int8):
     """(probes a block, blocks an SM) on an H100: ``knn.int8_tile``'s answer
     for the int8 sweep (held on the card by ``test_knn_int8_tile_on_card``:
-    at D = 1024 the 128 KB probe tile leaves room for one block an SM), and
-    the f32 sweep's fixed tile."""
+    at D = 1024 the 128 KB resident probe tile leaves room for one block an
+    SM; past D = 1536 the probe tile streams, 128 probes and two blocks an
+    SM at any width), the bf16 sweep's streamed tile and the f32 sweep's
+    fixed one."""
+    if int8 == "bf16":
+        return knn.bf16_tile(m), knn.BF16_PER_SM
     if not int8:
         return knn.F32_TM, 2
-    return (16, 2) if m <= 16 else (128, 1 if d > 768 else 2)
+    if m <= 16:
+        return 16, 2
+    return 128, 1 if 768 < d <= 1536 else 2
 
 
 @pytest.mark.parametrize("m,n,d,int8", KNN_SWEEPS)
@@ -186,7 +197,7 @@ def _in_sweep_b2v(q, c, valid_n):
 
 
 @pytest.mark.parametrize("valid_n", [None, 0, 1, 127, 128, 299, 10_000])
-@pytest.mark.parametrize("d", [30, 512, 1024])
+@pytest.mark.parametrize("d", [30, 512, 1024, 4096])
 def test_in_sweep_norms_equal_host_b2v_bitwise(d, valid_n):
     rng = np.random.RandomState(d)
     n = 300
