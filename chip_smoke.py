@@ -15,7 +15,7 @@ kernels are built for sm_90a). It:
    ``torch.profiler``, its host µs a call and ``F.grid_sample``), and K4 (int8
    pointwise conv) at the 13 pointwise layers of a 16-face head batch and
    a ragged shape, and times both with CUDA events, K4 per layer beside
-   its bound and ``torch._int_mm``; counts the IMMA, HMMA and HGMMA
+   its bound and ``torch._int_mm``; counts the IMMA, IGMMA, HMMA and HGMMA
    (tensor-core) and IDP.4A instructions in the SASS of K4 and of the
    int8 and bf16 1-NN sweeps;
 4. drives the analyze path: ``FacialAnalyzer.analyze_with_rotations``
@@ -157,6 +157,7 @@ call's time where one PyTorch call computes a like function) and
 
 from __future__ import annotations
 
+import ctypes
 import importlib.util
 import json
 import math
@@ -263,6 +264,10 @@ PW_LAYERS = [("pw1", 12544, 32, 64), ("pw2", 3136, 64, 128),
     ("pw12", 49, 512, 1024), ("pw13", 49, 1024, 1024)]
 PW_BATCH = 16
 PW_RAGGED = ("ragged", 1000, 30, 50)     # M, K, N off the tile and word
+# K4's numbers in the kernels line at each batch: the 13 layers' sums and
+# each layer's route (wgmma, every layer), tile, ms, T ops/s and share
+PW_KEYS = ("ms", "device_ms", "host_us", "plain_ms", "bound_ms", "bound_by",
+           "library_ms", "layers")
 # CUDA vs CPU bounds of the analyzer. f32: only sums in another order.
 # int8 heads: the card's head crops come from K1 and the CPU's from its
 # plain version (4.6e-5 px apart on the seeded photo 0); conv1 rounds its
@@ -325,11 +330,16 @@ TRAIN_OP_GROUPS = [("conv forward", ("aten::cudnn_convolution", "aten::_conv_dep
                    ("optimizer (Adam, foreach)", ("aten::_foreach_",)),
                    ("copies and casts", ("aten::copy_", "aten::_to_copy", "aten::clone",
                                          "aten::contiguous"))]
-# kernels whose SASS must hold tensor-core MMAs and no __dp4a: (function
-# name marker, kernel id, the MMA instructions: the bf16 sweep's 16-probe
-# tile runs mma.sync, its 128-probe tile wgmma)
-SASS_KERNELS = [("pw_conv_int8", "K4", ("IMMA",)), ("knn_int8", "K2b/K2c", ("IMMA",)),
-                ("knn_bf16", "K2a bf16", ("HMMA", "HGMMA"))]
+# kernels whose SASS must hold tensor-core MMAs: (function name marker,
+# kernel id, the MMA instructions: the int8 kernels IGMMA (wgmma; no IMMA,
+# mma.sync, may remain in them); the bf16 sweep's 16-probe tile runs
+# mma.sync, its 128-probe tile wgmma; whether __dp4a may appear: only in
+# the int8 sweep, whose K2b form squares the gallery rows with it for the
+# norms, never for a dot)
+SASS_KERNELS = [("pw_conv_int8", "K4", ("IGMMA",), False),
+                ("knn_int8", "K2b/K2c", ("IGMMA",), True),
+                ("knn_bf16", "K2a bf16", ("HMMA", "HGMMA"), False)]
+SASS_OPS = ("IMMA", "IGMMA", "HMMA", "HGMMA", "IDP.4A")
 
 
 # the album phase: 24 landscape scenes x 4 variants (640x480), 2 portrait
@@ -617,12 +627,12 @@ def check_crop_kernel_apart():
 
 
 def check_pw_kernel_apart(seed: int, batch: int, iters: int, plain_iters: int,
-                          size: int = 224):
+                          size: int = 224, tiles: bool = False):
     """``check_pw_kernel`` (no ragged shape) in a child process (``apart``),
     on operands from a generator seeded with ``seed``: its profiler
     sessions come after many others in this process."""
     return apart(f"cs.check_pw_kernel(torch.Generator(device='cuda').manual_seed({seed}), "
-                 f"{batch}, False, {iters}, {plain_iters}, size={size})",
+                 f"{batch}, False, {iters}, {plain_iters}, size={size}, tiles={tiles})",
                  f"K4 check at batch {batch}, {size}²")
 
 
@@ -654,18 +664,22 @@ def int_mm_call(a, w):
 
 
 def check_pw_kernel(gen, batch: int, ragged: bool, iters: int, plain_iters: int,
-                    size: int = 224):
+                    size: int = 224, tiles: bool = False):
     """K4 against its plain version at the 13 pointwise layers of ``batch``
     faces at ``size``² (224², or 192² for ``vgg2_mobilenet_int8``: feature
     maps 96²…6²) (and the ragged shape): int8 and f32 out both bit-equal
     (the count of differing elements is printed and must be 0). Per layer,
-    at its own output type (CUDA events): the kernel's ms, its bound, the
-    GB/s and T int8 ops/s it reaches, the plain version's ms and
-    ``torch._int_mm``'s (or "refused"); the kernel's device time by the
-    profiler too (at batch 16 the CUDA events time the wrapper's host
-    work). Returns the sums over the 13 layers and the f32 out's max abs
+    at its own output type: the tile ``pw_conv.plan`` gives; by CUDA events
+    the kernel's ms, its bound, the GB/s and T int8 ops/s it reaches and
+    its share of the bound, the plain version's ms and ``torch._int_mm``'s
+    (or "refused"); the kernel's device time by the profiler too (at batch
+    16 the CUDA events time the wrapper's host work, so the host µs a call
+    is printed beside them); with ``tiles``, the ms of every tile the
+    layer may take too (``pw_conv.TILES``, each bit-equal). Returns the
+    sums over the 13 layers, each layer's numbers and the f32 out's max abs
     err."""
     worst, ms_sum, dev_sum, plain_sum, lib_sum, refused = 0.0, 0.0, 0.0, 0.0, 0.0, []
+    host_sum, layers = 0.0, {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     bound_by = {"bytes": 0.0, "operations": 0.0}
     for name, pixels, k, n in PW_LAYERS + ([PW_RAGGED] if ragged else []):
@@ -699,19 +713,52 @@ def check_pw_kernel(gen, batch: int, ragged: bool, iters: int, plain_iters: int,
         lib_ms = cuda_ms(lib_call, iters) if lib_call else None
         moved = nbytes(*ops) + m * n * (1 if requant else 4)
         b_ms, b_by = bound(moved, 2.0 * m * k * n, "int8")
-        print(f"pw_conv_int8 {name}: M={m} K={k} N={n} tile "
-              f"{pw_conv.tile_config(m, n, sms)} differing int8 {diffs['int8']} f32 "
-              f"{diffs['f32']}; {'int8' if requant else 'f32'} out kernel_ms={ms:.4f} "
-              f"device_ms={dev_ms:.4f} ({records} of 10 records) bound_ms={b_ms:.4f} ({b_by}) "
-              f"{moved / dev_ms / 1e6:.1f} GB/s {2.0 * m * k * n / dev_ms / 1e9:.2f} T "
+        plan = pw_conv.plan(m, n, -(-k // pw_conv.ROW_WORD) * pw_conv.ROW_WORD, sms)
+        tiles_ms = {}
+        if tiles:
+            want = pw_conv.pw_conv_int8_plain(*ops, requant=requant)
+            for tile in pw_conv.TILES:
+                if tile[1] > n * plan.pack and tile[1] != 64:
+                    continue
+                got = pw_conv.launch(*ops, requant=requant, tile=tile)
+                diffs["tiles"] = diffs.get("tiles", 0) + int((got != want).sum())
+                tiles_ms[f"{tile[0]}x{tile[1]}"] = cuda_ms(
+                    lambda: pw_conv.launch(*ops, requant=requant, tile=tile), iters)
+            del got, want
+        # host µs a call: the wrapper's enqueue time over back-to-back calls
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            pw_conv.pw_conv_int8(*ops, requant=requant)
+        host_us = (time.perf_counter() - t0) / iters * 1e6
+        torch.cuda.synchronize()
+        t_ops = 2.0 * m * k * n / dev_ms / 1e9
+        print(f"pw_conv_int8 {name}: M={m} K={k} N={n} route wgmma tile "
+              f"{plan.bm}x{plan.bn} grid {plan.grid}"
+              + (f" ({plan.pack} pixels a row)" if plan.pack > 1 else "")
+              + f" differing int8 {diffs['int8']} f32 "
+              f"{diffs['f32']}"
+              + (f" (tiles {diffs['tiles']})" if "tiles" in diffs else "")
+              + f"; {'int8' if requant else 'f32'} out kernel_ms={ms:.4f} "
+              f"device_ms={dev_ms:.4f} ({records} of 10 records) host_us={host_us:.1f} "
+              + f"bound_ms={b_ms:.4f} ({b_by}) {b_ms / dev_ms:.3f} of the bound "
+              f"{moved / dev_ms / 1e6:.1f} GB/s {t_ops:.2f} T "
               f"int8 ops/s plain_ms={plain_ms:.4f} "
-              + (f"int_mm_ms={lib_ms:.4f}" if lib_call else f"int_mm refused ({why})"))
-        if diffs["int8"] or diffs["f32"]:
+              + (f"int_mm_ms={lib_ms:.4f}" if lib_call else f"int_mm refused ({why})")
+              + (" tiles_ms=" + json.dumps({k: round(v, 4) for k, v in tiles_ms.items()})
+                 if tiles_ms else ""))
+        layers[name] = {"route": "wgmma", "tile": [plan.bm, plan.bn], "grid": plan.grid,
+                        "pack": plan.pack,
+                        "ms": ms, "device_ms": dev_ms, "host_us": host_us, "t_ops": t_ops,
+                        "share_of_bound": b_ms / dev_ms, "bound_ms": b_ms,
+                        "library_ms": lib_ms, **({"tiles_ms": tiles_ms} if tiles_ms else {})}
+        if any(diffs.values()):
             raise AssertionError(f"pw_conv_int8 {name}: not bit-equal to the "
                                  f"plain version ({diffs})")
         if name != PW_RAGGED[0]:
             ms_sum += ms
             dev_sum += dev_ms
+            host_sum += host_us
             plain_sum += plain_ms
             bound_by[b_by] += b_ms
             if lib_call:
@@ -720,26 +767,50 @@ def check_pw_kernel(gen, batch: int, ragged: bool, iters: int, plain_iters: int,
                 refused.append(name)
         del ops, lib_call
     bound_sum = sum(bound_by.values())
-    print(f"pw_conv_int8 at batch {batch}, {size}²: 13 layers {ms_sum:.4f} ms (device "
-          f"{dev_sum:.4f} ms by the profiler), plain "
+    print(f"pw_conv_int8 at batch {batch}, {size}²: 13 layers {ms_sum:.4f} ms "
+          f"(device {dev_sum:.4f} ms by the profiler, {bound_sum / dev_sum:.3f} of the bound; "
+          f"host {host_sum:.1f} µs), plain "
           f"{plain_sum:.4f} ms, bound {bound_sum:.4f} ms (layers bound by bytes "
           f"{bound_by['bytes']:.4f} ms, by operations {bound_by['operations']:.4f} ms), "
           f"torch._int_mm {lib_sum:.4f} ms over {13 - len(refused)} layers"
           + (f" (refused: {refused})" if refused else ""))
-    return {"max_abs_err": worst, "ms": ms_sum, "device_ms": dev_sum, "plain_ms": plain_sum,
+    return {"max_abs_err": worst, "ms": ms_sum, "device_ms": dev_sum, "host_us": host_sum,
+            "plain_ms": plain_sum,
             "bound_ms": bound_sum, "bound_by": max(bound_by, key=bound_by.get),
-            "library_ms": lib_sum if len(refused) < 13 else None}
+            "library_ms": lib_sum if len(refused) < 13 else None, "layers": layers}
+
+
+def tensor_map_encode_us(calls: int = 2000) -> dict:
+    """Host µs of K4's TMA tensor maps: one ``cuTensorMapEncodeTiled`` through
+    ``pw_conv_weight_map`` (the encode the launch makes for the activation
+    every call; ctypes' call included) and one cached weight map
+    (``pw_conv._weight_map``'s lookup), each over ``calls`` calls."""
+    lib = pw_conv._kernels()[0]
+    w = torch.zeros((1024, 1024), dtype=torch.int8, device="cuda")
+    buf = ctypes.create_string_buffer(128)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        lib.pw_conv_weight_map(w.data_ptr(), 1024, 1024, 128, buf)
+    encode = (time.perf_counter() - t0) / calls * 1e6
+    pw_conv._weight_map(w.data_ptr(), 1024, 1024, 128)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        pw_conv._weight_map(w.data_ptr(), 1024, 1024, 128)
+    cached = (time.perf_counter() - t0) / calls * 1e6
+    print(f"K4 tensor maps: an encode {encode:.2f} µs (ctypes included), a cached "
+          f"weight map {cached:.2f} µs, host clock over {calls} calls")
+    return {"encode_us": encode, "cached_us": cached}
 
 
 def sass_counts():
     """Per ``SASS_KERNELS`` entry: the number of functions whose name holds
     its marker in the built library's SASS (``cuobjdump -sass``), and their
-    IMMA, HMMA and HGMMA (tensor-core) and IDP.4A (``__dp4a``)
+    IMMA, IGMMA, HMMA and HGMMA (tensor-core) and IDP.4A (``__dp4a``)
     instructions."""
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(build.library_path())],
                           capture_output=True, text=True, check=True, timeout=300).stdout
-    ops = ("IMMA", "HMMA", "HGMMA", "IDP.4A")
+    ops = SASS_OPS
     counts = {mark: dict.fromkeys(("functions",) + ops, 0) for mark, *_ in SASS_KERNELS}
     fn = ""
     for line in sass.splitlines():
@@ -757,14 +828,16 @@ def sass_counts():
 
 def check_sass():
     """K4 and the 1-NN sweeps run on the tensor cores: fail unless each has
-    functions, its MMAs (IMMA for int8, HMMA and HGMMA for bf16) > 0 and
+    functions, its MMAs (IGMMA for int8, HMMA and HGMMA for bf16) > 0, the
+    int8 kernels no IMMA (mma.sync) and, but in the int8 sweep's norms,
     IDP.4A == 0 in its SASS."""
     counts = sass_counts()
-    for mark, kid, mmas in SASS_KERNELS:
+    for mark, kid, mmas, dp4a_ok in SASS_KERNELS:
         c = counts[mark]
         print(f"{kid} SASS: {c['functions']} {mark} functions, "
-              + ", ".join(f"{c[k]} {k}" for k in ("IMMA", "HMMA", "HGMMA", "IDP.4A")))
-        if c["functions"] == 0 or not all(c[op] for op in mmas) or c["IDP.4A"]:
+              + ", ".join(f"{c[k]} {k}" for k in SASS_OPS))
+        if (c["functions"] == 0 or not all(c[op] for op in mmas) or (c["IDP.4A"] and not dp4a_ok)
+                or ("IGMMA" in mmas and c["IMMA"])):
             raise AssertionError(f"{kid} is not on the tensor cores: {json.dumps(c)}")
 
 
@@ -788,29 +861,27 @@ def int8_twin_rows(p, qb, sb, sub, pack: bool):
 
 
 def int8q_norms(in_sweep: bool):
-    """K2b with its gallery norms formed in the sweep, or in one host pass,
-    whichever ``NORMS_MAX_M_TILES`` would pick: to time that choice."""
+    """K2b a call with its gallery norms formed in the sweep or taken from
+    one host pass (``_sumsq``): to time that choice."""
     def call(p, qb, sb):
-        limit = knn.NORMS_MAX_M_TILES
-        knn.NORMS_MAX_M_TILES = 1 << 30 if in_sweep else 0
-        try:
-            return knn.nearest_neighbor_int8q(p, qb, sb)
-        finally:
-            knn.NORMS_MAX_M_TILES = limit
+        q = knn._pad_dim(qb)
+        ops = knn._int8_operands(p, None if in_sweep else knn._sumsq(q), sb, None, False)
+        emin, idx = knn._rank_int8_cuda(ops.qa, q, ops.b2v, False, c=ops.c,
+                                        valid_n=q.shape[0])
+        return knn._int8_distances(ops, emin, False), idx
     return call
 
 
 def time_norms_choice(label, p, qb, sb, iters: int):
-    """Print K2b's time a call with its norms in the sweep and with one host
-    pass, in one interleaved order (sweep, host, host, sweep)."""
-    t = {True: [], False: []}
+    """Print K2b's time a call with its norms in the sweep and from one host
+    pass, in turns (each order, then reversed). The public call's choice:
+    in the sweep."""
+    t = {}
     for in_sweep in (True, False, False, True):
         fn = int8q_norms(in_sweep)
-        t[in_sweep].append(cuda_ms(lambda: fn(p, qb, sb), iters, 1))
-    tiles = -(-p.shape[0] // knn.int8_tile(p.shape[0], qb.shape[1], p.device.index)[0])
-    print(f"K2b norms at {label} ({tiles} probe tiles; in the sweep up to "
-          f"{knn.NORMS_MAX_M_TILES}): in the sweep {[round(x, 4) for x in t[True]]} ms, "
-          f"one host pass {[round(x, 4) for x in t[False]]} ms a call")
+        key = "in the sweep" if in_sweep else "host pass"
+        t.setdefault(key, []).append(round(cuda_ms(lambda: fn(p, qb, sb), iters, 1), 4))
+    print(f"K2b norms at {label} ({p.shape[0]} probes), ms a call: " + json.dumps(t))
 
 
 def check_knn_shape(gen, name, m, n, d, results):
@@ -891,11 +962,13 @@ def check_knn_shape(gen, name, m, n, d, results):
         print(f"knn {name} device ms (profiler, the 1-NN kernels alone): "
               + json.dumps({k: round(v, 4) for k, v in dev_ms.items()}))
         time_norms_choice(name, p, qb, sb, 20)
+        # the serving query's sweep on the resident and the streamed probe tile
+        sweeps = time_int8_sweeps(p, packed, sb, [0, 1], 20)
         for kname in ("knn_int8q", "knn_int8p"):
             results[kname].update(ms=times[kname], device_ms=dev_ms[kname],
                                   plain_ms=times[kname + "_plain"],
                                   bound_ms=bounds[kname][0], bound_by=bounds[kname][1],
-                                  library_ms=lib["knn_int8"],
+                                  library_ms=lib["knn_int8"], sweeps_ms=sweeps,
                                   shape=f"M={m} N={n} D={d}")
         results["knn_f32"][name] = {
             "ms": times["knn_f32"], "plain_ms": times["knn_f32_plain"],
@@ -1015,6 +1088,29 @@ def check_knn_bench_bf16(gen, results):
         "passes_ms": passes, "shape": f"M={m} N={n} D={d} bf16"}
 
 
+def time_int8_sweeps(p, packed, sb, tiles, iters: int) -> dict:
+    """The int8 sweep alone (K2c's operands, the two-pass epilogue) on each
+    probe tile of ``tiles`` (-1 the rule's, 0 resident, 1 streamed), in
+    turns (each order, then reversed), every answer equal to the first; ms
+    a call by CUDA events, keyed by tile."""
+    ops = knn._int8_operands(p, packed.b2i, sb, None, False)
+    m, dp = p.shape[0], packed.q.shape[1]
+    t, first = {}, None
+    for stream in tiles + tiles[::-1]:
+        tile = knn.int8_tile(m, dp, p.device.index, stream)
+        key = f"{tile.tm} {'streamed' if tile.streamed else 'resident'}"
+        fn = lambda: knn._rank_int8_cuda(ops.qa, packed.q, ops.b2v, False, stream=stream)
+        got = fn()
+        first = first or got
+        if not same(got, first):
+            raise AssertionError(f"int8 sweep {key}: answers differ from {tiles[0]}")
+        t.setdefault(key, []).append(cuda_ms(fn, iters, 1))
+    print(f"int8 sweep alone at M={p.shape[0]} N={packed.q.shape[0]} D={p.shape[1]} by "
+          f"probe tile (ms, in turns): "
+          + json.dumps({k: [round(x, 3) for x in v] for k, v in t.items()}))
+    return t
+
+
 def check_knn_design_point(gen, results):
     """K2b/K2c at 8192 x 1,048,576 x 512: the kernels on every probe, the
     twin on every 32nd probe with the same operands (the probe scale comes
@@ -1039,6 +1135,8 @@ def check_knn_design_point(gen, results):
     plain_ms = cuda_ms(lambda: knn.nearest_neighbor_int8_plain(p, qb, sb), 1, 0)
     time_norms_choice("the design point", p, qb, sb, 3)
     time_norms_choice(f"M={m // 2} of the design point's probes", p[:m // 2], qb, sb, 3)
+    sweeps = time_int8_sweeps(p, packed, sb, [0, 1], 3)
+    tile = knn.int8_tile(m, d, torch.cuda.current_device())
     b_ms, b_by = bound(nbytes(p, qb) + m * 8, 2.0 * m * n * d, "int8")
     qa = knn.quantize_embeddings(p, reciprocal=True)[0]
     del g, p, packed, want, got
@@ -1047,16 +1145,19 @@ def check_knn_design_point(gen, results):
     lib_ms = cuda_ms(int_mm, 3, 1) if int_mm else None
     del int_mm
     torch.cuda.empty_cache()
-    print(f"knn design point M={m} N={n} D={d}: int8 bit-equal on {len(sub)} "
+    print(f"knn design point M={m} N={n} D={d}: route wgmma, probe tile {tile.tm} "
+          f"({'streamed' if tile.streamed else 'resident'}); int8 bit-equal on {len(sub)} "
           f"probes (1 in {DESIGN_CHECK_STRIDE}), both epilogues; "
           f"knn_int8q {q_ms:.3f} ms, knn_int8p {p_ms:.3f} ms "
-          f"({2.0 * m * n * d / p_ms / 1e9:.1f} T int8 ops/s), bound {b_ms:.3f} ms "
-          f"({b_by}), torch._int_mm "
+          f"({2.0 * m * n * d / p_ms / 1e9:.1f} T int8 ops/s, {b_ms / p_ms:.3f} of the "
+          f"bound), bound {b_ms:.3f} ms ({b_by}), torch._int_mm "
           + (f"{lib_ms:.3f} ms" if lib_ms is not None else f"refused ({why})")
           + f", plain twin (chunked, all probes) {plain_ms:.3f} ms")
-    results["design_point"] = {"M": m, "N": n, "D": d, "knn_int8q_ms": q_ms,
+    results["design_point"] = {"M": m, "N": n, "D": d, "route": "wgmma",
+                               "streamed": tile.streamed, "knn_int8q_ms": q_ms,
                                "knn_int8p_ms": p_ms, "plain_ms": plain_ms,
-                               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+                               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                               "sweeps_ms": sweeps}
 
 
 def check_knn_kernels():
@@ -2736,7 +2837,8 @@ def check_knn_wide(gen, knn_results):
     report = next((m, n, d) for name, m, n, d in KNN_SHAPES if name == KNN_REPORT)
     for (m, n, d), key in ((report, "D512_M16"), (KNN_DESIGN, "D512_M8192")):
         src = knn_results["knn_int8q"] if m == 16 else knn_results["design_point"]
-        rows[key] = {"tile": knn.int8_tile(m, d, dev)[0],
+        tile = knn.int8_tile(m, d, dev)
+        rows[key] = {"route": "wgmma", "tile": tile.tm, "streamed": tile.streamed,
                      "knn_int8q_ms": src.get("ms", src.get("knn_int8q_ms")),
                      "knn_int8p_ms": (knn_results["knn_int8p"]["ms"] if m == 16
                                       else src["knn_int8p_ms"]),
@@ -2767,6 +2869,7 @@ def check_knn_wide(gen, knn_results):
         q_ms = cuda_ms(lambda: knn.nearest_neighbor_int8q(p, qb, sb), iters, 1)
         p_ms = cuda_ms(lambda: knn.nearest_neighbor_int8p(p, *packed), iters, 1)
         plain_ms = cuda_ms(lambda: knn.nearest_neighbor_int8_plain(p, qb, sb), 1, 0)
+        sweeps = time_int8_sweeps(p, packed, sb, [-1], iters)
         b_ms, b_by = bound(nbytes(p, qb) + m * 8, 2.0 * m * n * d, "int8")
         qa = knn.quantize_embeddings(p, reciprocal=True)[0]
         del packed
@@ -2775,13 +2878,14 @@ def check_knn_wide(gen, knn_results):
         lib_ms = cuda_ms(int_mm, iters, 1) if int_mm else None
         del int_mm, qa, qb, p
         torch.cuda.empty_cache()
-        tile = knn.int8_tile(m, d, dev)[0]
+        tile = knn.int8_tile(m, d, dev)
         key = f"D{d}_M{m}"
-        rows[key] = {"tile": tile, "knn_int8q_ms": q_ms, "knn_int8p_ms": p_ms,
+        rows[key] = {"route": "wgmma", "tile": tile.tm, "streamed": tile.streamed,
+                     "knn_int8q_ms": q_ms, "knn_int8p_ms": p_ms,
                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": lib_ms, "ops": 2.0 * m * n * d}
-        print(f"knn wide M={m} N={n} D={d}: probe tile {tile}"
-              f"{' (streamed)' if tile == 128 and d > 1536 else ''}; int8 bit-equal on "
+                     "library_ms": lib_ms, "ops": 2.0 * m * n * d, "sweeps_ms": sweeps}
+        print(f"knn wide M={m} N={n} D={d}: route wgmma, probe tile {tile.tm}"
+              f"{' (streamed)' if tile.streamed else ''}; int8 bit-equal on "
               f"{len(sub)} probes, both epilogues; knn_int8q {q_ms:.3f} ms, knn_int8p "
               f"{p_ms:.3f} ms ({2.0 * m * n * d / p_ms / 1e9:.1f} T int8 ops/s, "
               f"{b_ms / p_ms:.3f} of the bound), bound "
@@ -3730,6 +3834,7 @@ def main() -> None:
     check_sass()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     pw = check_pw_kernel(gen, PW_BATCH, True, 20, 5)
+    pw_maps = tensor_map_encode_us()
     warp_result = check_warp_kernel()
     phase_done("K1, K4 and K3 checks")
 
@@ -3770,7 +3875,7 @@ def main() -> None:
     phase_done("int8 embed")
     # K4 at the embedder's batch, where the layers are no longer launch-bound
     # (after the analyze timing: its plain version allocates tens of GB)
-    pw_embed = check_pw_kernel_apart(SEED + 5, EMBED_BATCH, 10, 2)
+    pw_embed = check_pw_kernel_apart(SEED + 5, EMBED_BATCH, 10, 2, tiles=True)
     torch.cuda.empty_cache()
     phase_done(f"K4 check at batch {EMBED_BATCH}")
 
@@ -3869,18 +3974,20 @@ def main() -> None:
         r = dict(knn_results[name])
         if name != "knn_f32":
             r["design_point"] = {"ms": design[name + "_ms"], **{
-                k: design[k] for k in ("plain_ms", "bound_ms", "bound_by", "library_ms")}}
+                k: design[k] for k in ("route", "streamed", "sweeps_ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")}}
         kernels.append({
             "name": name, "route": "cuda", "source": "hse_facerec_torch/csrc/knn.cu",
             "replaces": f"hse_facerec_tf_tpu/ops/pallas/knn.py:{line}",
             "launches": launches[name], "serve_launches": serve_launches[name],
             "mesh_launches": mesh_total[name], "bench_launches": bench_launches[name],
             "equal": name != "knn_f32", **r,
-            **({"widths": {k: {"tile": v["tile"], "ms": v[name + "_ms"],
+            **({"widths": {k: {"route": v["route"], "tile": v["tile"],
+                               "streamed": v["streamed"], "ms": v[name + "_ms"],
                                "t_ops": v["ops"] / v[name + "_ms"] / 1e9,
                                "share_of_bound": v["bound_ms"] / v[name + "_ms"],
                                **{f: v.get(f) for f in ("plain_ms", "bound_ms", "bound_by",
-                                                        "library_ms")}}
+                                                        "library_ms", "sweeps_ms")}}
                            for k, v in knn_wide.items()}} if name != "knn_f32" else {})})
     kernels.append({
         "name": "pw_conv_int8", "route": "cuda",
@@ -3894,10 +4001,9 @@ def main() -> None:
         "max_abs_err": max(pw["max_abs_err"], pw_embed["max_abs_err"],
                            pw_192["max_abs_err"]),
         "shape": f"13 pointwise layers at batch {PW_BATCH}, 224²",
-        f"batch_{EMBED_BATCH}": {k: pw_embed[k] for k in (
-            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        f"batch_{ZOO_BATCH}_192": {k: pw_192[k] for k in (
-            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+        "tensor_map_us": pw_maps,
+        f"batch_{EMBED_BATCH}": {k: pw_embed[k] for k in PW_KEYS},
+        f"batch_{ZOO_BATCH}_192": {k: pw_192[k] for k in PW_KEYS}})
     kernels.append({
         "name": "warp_batch", "route": "cuda",
         "source": "hse_facerec_torch/csrc/warp.cu",

@@ -5,7 +5,7 @@
 // (_make_kernel(int8=False), _pallas_nn_call) with knn_f32_sweep_kernel
 // (bf16=False) and knn_bf16_sweep_kernel (bf16=True, the reference's
 // default), and nearest_neighbor_tpu_int8q and nearest_neighbor_tpu_int8p
-// (_make_kernel(int8=True), _make_kernel_packed) with knn_int8_sweep_kernel.
+// (_make_kernel(int8=True), _make_kernel_packed) with knn_int8_wgmma_kernel.
 // For each probe row they find the gallery row with the least ranking
 // value, without writing the (M, N) matrix:
 //   K2a: d = (a2[m] + b2[n]) - 2 * dot(a[m], b[n]), f32 norms from the host;
@@ -38,33 +38,37 @@
 // run together and read them from device memory once.
 //
 // The tensor-core sweeps (int8: K2b, K2c; bf16: K2a's default) share one
-// block mainloop, templated on its MMA atom: mma.sync.m16n8k32 s8 x s8 ->
-// s32 (IMMA), mma.sync.m16n8k16 bf16 x bf16 -> f32 (HMMA), or, for the bf16
-// 128-probe tile, wgmma.m64n128k16 bf16 -> f32 (HGMMA). All read rows of
-// 64-byte K slices (64 int8 or 32 bf16 values) from XOR-swizzled shared
-// tiles; the atoms' fragments hold the same bytes and the swizzle is
-// wgmma's 64-byte one (mma_s8.cuh), so one tile layout, one set of copies
-// and one epilogue serve all three. A block takes TM probes (16 at M <= 16,
-// one m16 tile, else 128) against 128-row gallery tiles, 8 warps of 16 x 16
-// (TM = 16), 32 x 64 (int8, TM = 128) or 16 x 128 outputs (two warpgroups of
-// 64 x 128 on wgmma):
+// block mainloop, templated on its MMA atom: wgmma.m64n128k32 s8 x s8 ->
+// s32 (IGMMA; every int8 call, any M) or wgmma.m64n128k16 bf16 -> f32
+// (HGMMA; above 16 probes), fed by TMA; for bf16 at 16 probes or fewer,
+// mma.sync.m16n8k16 (HMMA) fed by cp.async. TMA copies rows of whole
+// 16-byte words from 16-byte aligned bases: the wrapper zero-pads int8
+// rows to whole words (zero columns change no dot, so the int32 dots and
+// norms stay exact) and copies an operand whose base is off 16 bytes, so
+// every int8 shape takes the one route. All read rows of 64-byte K slices
+// (64 int8 or 32 bf16 values) from XOR-swizzled shared tiles; the atoms'
+// fragments hold the same bytes and the swizzle is wgmma's and TMA's
+// 64-byte one (mma_s8.cuh), so one tile layout and one epilogue serve all
+// three. A block takes TM probes (16 for bf16 at M <= 16, else 128)
+// against 128-row gallery tiles, 8 warps of 16 x 16 (TM = 16) or 16 x 128
+// outputs (two warpgroups of 64 x 128 on wgmma):
 // - the gallery rows stream through a ring of (128 rows x 64 bytes) slices,
 //   zero-filled past N and D; the ring runs on across gallery tiles, so
-//   loads never drain between them. The copies are cp.async (16 bytes, 4
-//   where an int8 D % 16 != 0) by every thread, or, on wgmma, TMA: one
-//   thread asks for the stage's two tiles as 2-d tensor copies in the same
-//   swizzled layout, counted in bytes on a barrier in shared memory; wgmma
-//   reads what the async proxy wrote, with no proxy fence and no thread
-//   spent on addresses;
-// - the probe tile is either resident, every K slice of it loaded once for
-//   the whole sweep, or streamed: each ring stage holds the probe tile's
-//   (TM x 64-byte) slice beside the gallery's, re-read from L2 for every
-//   gallery tile (8192 probes of 4096 int8 or 512 bf16 values are 32 or 8
-//   MiB, inside the 50 MB L2). The resident tile halves what a step reads
-//   from L2; the streamed one needs no shared memory that grows with D;
+//   loads never drain between them. On wgmma one thread asks for a stage
+//   as 2-d TMA copies in the same swizzled layout, counted in bytes on a
+//   barrier in shared memory; wgmma reads what the async proxy wrote, with
+//   no proxy fence and no thread spent on addresses. On mma.sync every
+//   thread issues 16-byte cp.async copies;
+// - the probe tile is either resident (int8), every K slice of it loaded
+//   once for the whole sweep in one TMA transaction on its own barrier, or
+//   streamed: each ring stage holds the probe tile's (TM x 64-byte) slice
+//   beside the gallery's, re-read from L2 for every gallery tile (8192
+//   probes of 4096 int8 or 512 bf16 values are 32 or 8 MiB, inside the 50
+//   MB L2). The resident tile halves what a step reads from L2; the
+//   streamed one needs no shared memory that grows with D;
 // - an outer loop walks the split's gallery tiles, an inner one their K
 //   slices, and the accumulators stay in registers across the inner loop.
-//   On wgmma nothing else touches them there (the tile's first k16
+//   On wgmma nothing else touches them there (the tile's first K step
 //   overwrites them instead of a zeroing pass), so one wgmma group stays in
 //   flight across each step's barrier and its slot is refilled a step
 //   later: register writes to the accumulators, or an epilogue inside the
@@ -75,38 +79,42 @@
 //   lanes of a row, then the warps that share it (through shared memory),
 //   reduce to one partial. The tile's b2v (b2 for bf16) rides the ring with
 //   its last K slice (cp.async).
-// Which probe tile, and what bounds each form on an H100:
+// Which probe tile, and what bounds each form on an H100 at 700 W (times
+// by chip_smoke.py and by int8_ab.py, which also ran the earlier design
+// on its own tree: mma.sync fed by cp.async, 4 warps a tile pair, an
+// ldmatrix and IMMA stream per warp, a 16-probe tile at M <= 16):
 // - int8 serving query (M <= 16, N = 1M, D = 512 or 4096): the gallery read
-//   once, 0.16 or 1.28 ms at 3.35 TB/s. The resident 16-probe tile (8 or 64
-//   KB), two blocks an SM.
+//   once, 0.16 or 1.28 ms at 3.35 TB/s, so the padded probe rows cost no
+//   time. wgmma's 128-probe tile (112 rows of zeros) takes 0.216 ms of
+//   device time at D 512 and 1.77-1.78 ms a call at D 4096, where the
+//   earlier design took 0.274-0.278 and 2.16-2.20: TMA's copies keep more
+//   of the gallery in flight.
 // - int8 design point (8192 x 1M x 512): 8.8 T int8 operations, 4.4 ms at
-//   1,979 T ops/s. The resident 128-probe tile (32 KB at D 512, up to 128
-//   KB at D 1024: one block an SM there) and a 4-stage gallery ring, 256
-//   int8 operations a byte read from L2; streaming it was slower there.
+//   1,979 T ops/s; 256 operations a byte the resident tile reads from L2.
+//   wgmma, the resident 128-probe tile (64 KB at D 512; to D 1408 where
+//   it fits, one block an SM past D 768) and a 5-stage gallery ring, two
+//   blocks an SM: 11.3-11.5 ms for the sweep (the streamed tile 12.1-12.3),
+//   11.8-12.0 a call where the earlier design took 21.1-21.8.
 // - int8 at 8192 x 1M x 4096 (vggface_vgg16): 70 T operations, 35.6 ms. A
 //   resident 128-probe tile of 4096-byte rows is 512 KB, past the 227 KB a
-//   block may hold, so past Dp = 1536 (int8_tile) the probe tile streams:
-//   a 6-stage ring of 16 KB stages, 99.5 KB a block, two blocks an SM; 128
-//   operations a byte from L2. (Before, the 16-probe tile swept the whole
-//   4 GiB gallery once for every 16 probes.)
+//   block may hold, so past D 1408 (int8_tile) the probe tile streams: a
+//   6-stage ring of 16 KB stages, 99.5 KB a block, two blocks an SM; 128
+//   operations a byte from L2. 83.6-90.7 ms a call where the earlier
+//   design took 157-165.
 // - bf16 at 8192 x 1M x 512 (the benchmark's K2a): 8.8 T bf16 FLOP, 8.9 ms
 //   at 989 T FLOP/s. wgmma fed by TMA, the probe tile streamed at every
 //   width: resident (128 KB at D 512, one block an SM) was slower, and so
-//   were mma.sync and cp.async copies on the same ring. (Before, the
-//   operands were widened to f32 and ran the f32 sweep's FFMA tiles, 28x
-//   this bound.)
-// - K2b's norms in the sweep (two-pass epilogue, b2v == nullptr), resident
-//   or streamed alike: the gallery's sums of squares are exact int32
-//   diagonals of B·Bᵀ, taken on the tensor cores from the B fragments each
-//   warp already holds (two n-tiles as the A operand against each: one
-//   extra MMA per n-tile and k32 step, for one n-tile pair a warp), so no
-//   __dp4a and no pass over the gallery on the host; b2v[n] = n < valid_n ?
-//   (float)sumsq * c : +inf, the single rounding of the plain twin's
-//   where(valid, b2raw * c, inf). Every probe tile sums the squares again,
-//   so the wrapper asks for this only while the probes make at most 32
-//   tiles (ops/kernels/knn.py, NORMS_MAX_M_TILES; on an H100 one host pass
-//   costs as much there). The packed epilogue needs max(b2raw) before the
-//   sweep and K2c has its norms precomputed: both take b2v from the host.
+//   were mma.sync and cp.async copies on the same ring.
+// - K2b's norms in the sweep (two-pass epilogue, b2v == nullptr): b2v[n] =
+//   n < valid_n ? (float)sumsq * c : +inf, the single rounding of the
+//   plain twin's where(valid, b2raw * c, inf), from exact int32 sums of
+//   the rows' squares. The gallery rows never reach registers under
+//   wgmma, so each thread squares half a row of the slice in shared memory
+//   with __dp4a (8 a step) beside the MMAs; on an H100 that cost less than
+//   one host pass from 16 to 8192 probes (13.0-13.5 against 14.7-15.1 ms
+//   at the design point), so K2b's two-pass call always takes it. The
+//   packed epilogue needs max(b2raw) before the sweep and K2c has its
+//   norms precomputed: both take b2v from the host.
 //
 // f32 sweep (K2a, bf16=False). What bounds it: at its routed shape (2048 x
 // 1M x 1024, where the f32 matrix would pass 4 GiB) 4.4 T f32 operations,
@@ -139,9 +147,9 @@ using namespace mma_s8;
 
 constexpr int kThreads = 256;
 constexpr int kTN = 128;           // gallery rows per tile, every sweep
-constexpr int kRingStages = 4;     // ring of the resident-probe sweep
+constexpr int kRingStages = 5;     // ring of the resident-probe sweep: 2 x 109 KB an SM at D 512
 constexpr int kStreamStages = 6;   // of the streamed one: 2 x 99.5 KB an SM
-constexpr int kAlignPad = 1024;    // the bf16 sweep's base, rounded up to this
+constexpr int kAlignPad = 1024;    // the wgmma sweeps' base, rounded up to this
 
 __device__ __forceinline__ bool lex_less(float v, int i, float bv, int bi) {
   return v < bv || (v == bv && i < bi);
@@ -173,29 +181,33 @@ struct SweepTile {
   static constexpr int kMT = WM / 16, kNT = WN / 8;   // mma tiles of a warp
   static constexpr int kNG = kNT < 4 ? kNT : 4;       // n-tiles per B load group
   static_assert(kWarpsM * kWarpsN * 32 == kThreads, "8 warps");
-  // the warps that share a band of n-tiles take one n-tile pair of norms each
-  static_assert(kNT / 2 == kWarpsM && kNG % 2 == 0, "one norm pair a warp");
 };
-using ServeTile = SweepTile<16, 16, 16>;    // 1 x 8 warps
-using BatchTile = SweepTile<128, 32, 64>;   // 4 x 2 warps
+using ServeTile = SweepTile<16, 16, 16>;           // bf16 on mma.sync: 1 x 8 warps
 using WgmmaTile = SweepTile<128, 16, 128, true>;   // 2 warpgroups of 64 x 128
+
+__host__ __device__ constexpr int ring_stages(bool stream) {
+  return stream ? kStreamStages : kRingStages;
+}
 
 // A block's shared memory for tm probes of kb bytes: the resident probe
 // tile (resident only), the ring (each stage the gallery slice and, when
 // streamed, the probe slice, the gallery tile's b2v and a barrier for its
-// TMA copies) and the tile's row norms.
+// TMA copies), the tile's row norms and the resident tile's TMA barrier.
 __host__ __device__ constexpr int sweep_smem_bytes(int tm, int kb, bool stream) {
   return stream ? kStreamStages * ((tm + kTN) * kBK + kTN * 4 + 8) + kTN * 4
-                : tm * ((kb + kBK - 1) / kBK) * kBK + kRingStages * (kTN * kBK + kTN * 4 + 8) +
-                      kTN * 4;
+                : tm * ((kb + kBK - 1) / kBK) * kBK +
+                      kRingStages * (kTN * kBK + kTN * 4 + 8) + kTN * 4 + 8;
 }
 
 // The block mainloop of both tensor-core sweeps. qa (M, Kb) and qb (N, Kb)
 // are rows of Kb bytes (int8 values, or bf16 ones when Acc is float), Kb a
-// multiple of 4 (of 16 for LOAD 16). Acc int: e = b2v - acc, masked; NORMS:
-// b2v is formed here from the rows' squares, c = sb / (2 sa) and valid_n,
-// else b2v (N,) comes from the host. Acc float: d = (a2 + b2v) - 2 acc.
-template <class Acc, class T, int LOAD, bool STREAM, bool NORMS>
+// multiple of 16, 16-byte aligned: on wgmma TMA copies them through the
+// tensor maps tma_a and tma_b, on mma.sync (bf16, the streamed 16-probe
+// tile) 16-byte cp.async copies from qa and qb. Acc int: e = b2v - acc,
+// masked; NORMS: b2v is formed here from the rows' squares, c = sb / (2 sa)
+// and valid_n, else b2v (N,) comes from the host. Acc float: d = (a2 +
+// b2v) - 2 acc.
+template <class Acc, class T, bool STREAM, bool NORMS>
 __device__ __forceinline__ void sweep(uint8_t* smem, const CUtensorMap* tma_b,
                                       const CUtensorMap* tma_a, const int8_t* __restrict__ qa,
                                       const int8_t* __restrict__ qb,
@@ -206,8 +218,9 @@ __device__ __forceinline__ void sweep(uint8_t* smem, const CUtensorMap* tma_b,
                                       float* __restrict__ part_v, int* __restrict__ part_i) {
   constexpr bool kInt8 = std::is_same<Acc, int>::value;
   static_assert(kInt8 || !NORMS, "norms in the sweep are the int8 two-pass epilogue's");
+  static_assert(T::kWgmma || (STREAM && !kInt8), "mma.sync runs bf16's streamed tile alone");
   constexpr int TM = T::TM, kMT = T::kMT, kNT = T::kNT, kNG = T::kNG;
-  constexpr int S = STREAM ? kStreamStages : kRingStages;
+  constexpr int S = ring_stages(STREAM);
   constexpr bool TMA = T::kWgmma;   // wgmma reads what TMA writes, no proxy fence
   // wgmma keeps one group in flight across the next barrier, so a slot is
   // refilled one step later (the ring runs S - 1 - kLag stages ahead)
@@ -218,7 +231,7 @@ __device__ __forceinline__ void sweep(uint8_t* smem, const CUtensorMap* tma_b,
   uint8_t* const ring = smem + (STREAM ? 0 : KT * TM * kBK);  // S x [(kTN, 64), (TM, 64)]
   float* const b2s = reinterpret_cast<float*>(ring + S * kStage);   // S x kTN
   int* const nrm = reinterpret_cast<int*>(b2s + S * kTN);
-  uint64_t* const full = reinterpret_cast<uint64_t*>(nrm + kTN);   // TMA: S barriers
+  uint64_t* const full = reinterpret_cast<uint64_t*>(nrm + kTN);   // TMA: S (+ 1) barriers
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = warp / T::kWarpsN, wn = warp % T::kWarpsN;
   const long long m0 = static_cast<long long>(blockIdx.x) * TM;
@@ -228,17 +241,20 @@ __device__ __forceinline__ void sweep(uint8_t* smem, const CUtensorMap* tma_b,
   const int t_end = min(t_begin + tiles_per_split, n_tiles);
   const int steps = (t_end - t_begin) * KT;   // (gallery tile, K slice) pairs
 
-  static_assert(!TMA || STREAM, "TMA feeds the streamed wgmma tile");
   if constexpr (TMA) {
     if (threadIdx.x == 0)
-      for (int i = 0; i < S; ++i) mbar_init(full + i, 1);
+      for (int i = 0; i < S + !STREAM; ++i) mbar_init(full + i, 1);
     fence_mbar_init();
     __syncthreads();
   }
-  // a resident probe tile is committed with stage 0
-  if constexpr (!STREAM)
-    for (int kt = 0; kt < KT; ++kt)
-      load_tile<LOAD, TM, kThreads>(As + kt * TM * kBK, qa, m0, M, Kb, kt * kBK);
+  // a resident probe tile: every K slice in one TMA transaction on barrier S
+  if constexpr (!STREAM) {
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(full + S, KT * TM * kBK);
+      for (int kt = 0; kt < KT; ++kt)
+        tma_load_2d(As + kt * TM * kBK, tma_a, kt * kBK, static_cast<int>(m0), full + S);
+    }
+  }
   // the next step to load: K slice lk of gallery tile t_begin + lt, into
   // ring slot ls (the tile's b2v rides with its last K slice, so the
   // epilogue reads it from shared memory; the slot is refilled only after
@@ -249,17 +265,18 @@ __device__ __forceinline__ void sweep(uint8_t* smem, const CUtensorMap* tma_b,
       uint8_t* const st = ring + ls * kStage;
       const long long row0 = static_cast<long long>(t_begin + lt) * kTN;
       if constexpr (TMA) {
-        // one thread: the 64-byte K slice (32 bf16 values) of 128 gallery
-        // rows and of the TM probes, swizzled as the tiles, zeros past N and D
+        // one thread: the 64-byte K slice of 128 gallery rows and, when
+        // streamed, of the TM probes, swizzled as the tiles, zeros past N
+        // and D
         if (threadIdx.x == 0) {
           mbar_expect_tx(full + ls, kStage);
-          tma_load_2d(st, tma_b, lk * (kBK / 2), static_cast<int>(row0), full + ls);
-          tma_load_2d(st + kTN * kBK, tma_a, lk * (kBK / 2), static_cast<int>(m0), full + ls);
+          tma_load_2d(st, tma_b, lk * kBK, static_cast<int>(row0), full + ls);
+          if constexpr (STREAM)
+            tma_load_2d(st + kTN * kBK, tma_a, lk * kBK, static_cast<int>(m0), full + ls);
         }
       } else {
-        load_tile<LOAD, kTN, kThreads>(st, qb, row0, N, Kb, lk * kBK);
-        if constexpr (STREAM)
-          load_tile<LOAD, TM, kThreads>(st + kTN * kBK, qa, m0, M, Kb, lk * kBK);
+        load_tile<kTN, kThreads>(st, qb, row0, N, Kb, lk * kBK);
+        load_tile<TM, kThreads>(st + kTN * kBK, qa, m0, M, Kb, lk * kBK);
       }
       if (!NORMS && lk == KT - 1 && threadIdx.x < kTN) {
         const long long n = row0 + threadIdx.x;
@@ -296,7 +313,7 @@ __device__ __forceinline__ void sweep(uint8_t* smem, const CUtensorMap* tma_b,
   }
 
   Acc acc[kMT][kNT][4];
-  int sq[2][4];                 // NORMS: the warp's n-tile pair, B·Bᵀ blocks
+  int sqw = 0;                  // NORMS: a half row's sum of squares
   // Running minimum of rows g and g + 8. A thread meets its candidates in
   // increasing index, so a strict v < bv keeps the lowest index of equal
   // values; starting from (+inf, the split's first row), which is the
@@ -312,6 +329,7 @@ __device__ __forceinline__ void sweep(uint8_t* smem, const CUtensorMap* tma_b,
       bi[i][h] = t_begin * kTN;
     }
 
+  if constexpr (TMA && !STREAM) mbar_wait(full + S, 0);
   int slot = 0, phase = 0;   // the ring slot of the step computed, its use's parity
   for (int tile = t_begin; tile < t_end; ++tile) {
     // the tile's K loop: nothing but its MMAs touches the accumulators, so
@@ -324,17 +342,38 @@ __device__ __forceinline__ void sweep(uint8_t* smem, const CUtensorMap* tma_b,
       const uint8_t* const Bs = ring + slot * kStage;
       const uint8_t* const At = STREAM ? Bs + kTN * kBK : As + kt * TM * kBK;
       if constexpr (T::kWgmma) {
-        // the warpgroup's 64 probes against the 128 gallery rows, k16 twice,
-        // the tile's first overwriting the accumulators; the step before is
-        // done when this one is issued (its slot is refilled after the next
-        // barrier)
+        // the warpgroup's 64 probes against the 128 gallery rows, two
+        // 32-byte K steps (k16 bf16, k32 s8), the tile's first overwriting
+        // the accumulators; the step before is done when this one is issued
+        // (its slot is refilled after the next barrier)
         const uint32_t a0 = smem_addr(At) + (warp >> 2) * 64 * kBK, b0 = smem_addr(Bs);
+        if constexpr (NORMS) {
+          // the gallery rows never reach registers here: thread i squares
+          // half of slice row i / 2 (32 bytes; the swizzle only permutes a
+          // row's chunks) with __dp4a, beside the wgmma that reads it too
+          const uint4* const h = reinterpret_cast<const uint4*>(
+              Bs + (threadIdx.x >> 1) * kBK + (threadIdx.x & 1) * 32);
+          if (kt == 0) sqw = 0;
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const uint4 v = h[c];
+            sqw = __dp4a(static_cast<int>(v.x), static_cast<int>(v.x), sqw);
+            sqw = __dp4a(static_cast<int>(v.y), static_cast<int>(v.y), sqw);
+            sqw = __dp4a(static_cast<int>(v.z), static_cast<int>(v.z), sqw);
+            sqw = __dp4a(static_cast<int>(v.w), static_cast<int>(v.w), sqw);
+          }
+        }
         wgmma_fence();
 #pragma unroll
         for (int ks = 0; ks < kBK / 32; ++ks)
-          if (kt * kBK + ks * 32 < Kb)
-            wgmma_m64n128k16_bf16(acc[0], wgmma_desc(a0 + ks * 32),
-                                  wgmma_desc(b0 + ks * 32), kt + ks > 0);
+          if (kt * kBK + ks * 32 < Kb) {
+            if constexpr (kInt8)
+              wgmma_s8<kTN>(acc[0], wgmma_desc(a0 + ks * 32), wgmma_desc(b0 + ks * 32),
+                            kt + ks > 0);
+            else
+              wgmma_m64n128k16_bf16(acc[0], wgmma_desc(a0 + ks * 32),
+                                    wgmma_desc(b0 + ks * 32), kt + ks > 0);
+          }
         wgmma_commit();
         wgmma_wait<kLag>();
       } else {
@@ -345,8 +384,6 @@ __device__ __forceinline__ void sweep(uint8_t* smem, const CUtensorMap* tma_b,
             for (int j = 0; j < kNT; ++j)
 #pragma unroll
               for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) sq[0][e] = sq[1][e] = 0;
         }
 #pragma unroll
         for (int ks = 0; ks < kBK / 32; ++ks) {
@@ -371,16 +408,6 @@ __device__ __forceinline__ void sweep(uint8_t* smem, const CUtensorMap* tma_b,
             for (int i = 0; i < kMT; ++i)
 #pragma unroll
               for (int j = 0; j < kNG; ++j) mma(acc[i][j0 + j], af[i], bfr[j]);
-            if constexpr (NORMS) {
-#pragma unroll
-              for (int j = 0; j < kNG; j += 2) {
-                if ((j0 + j) / 2 != wm) continue;      // warp-uniform
-                // rows 0-7 of this A: n-tile j, rows 8-15: n-tile j + 1
-                const uint32_t an[4] = {bfr[j][0], bfr[j + 1][0], bfr[j][1], bfr[j + 1][1]};
-                mma(sq[0], an, bfr[j]);
-                mma(sq[1], an, bfr[j + 1]);
-              }
-            }
           }
         }
       }
@@ -395,13 +422,8 @@ __device__ __forceinline__ void sweep(uint8_t* smem, const CUtensorMap* tma_b,
     const long long n_tile0 = static_cast<long long>(tile) * kTN;
     const float* const b2t = b2s + (slot == 0 ? S - 1 : slot - 1) * kTN;   // its last step's
     if constexpr (NORMS) {
-      // diagonal (g, g) of tile·tileᵀ: lane t == g / 2, element g % 2 (first
-      // n-tile, C rows 0-7) or 2 + g % 2 (second, C rows 8-15)
-      if (t == (g >> 1)) {
-        const int row = wn * T::WN + 16 * wm + g;
-        nrm[row] = (g & 1) ? sq[0][1] : sq[0][0];
-        nrm[row + 8] = (g & 1) ? sq[1][3] : sq[1][2];
-      }
+      const int both = sqw + __shfl_xor_sync(0xffffffffu, sqw, 1);
+      if ((threadIdx.x & 1) == 0) nrm[threadIdx.x >> 1] = both;
       __syncthreads();
     }
 #pragma unroll
@@ -470,25 +492,33 @@ __device__ __forceinline__ void sweep(uint8_t* smem, const CUtensorMap* tma_b,
   }
 }
 
-// qa (M, Dp) and qb (N, Dp) int8, Dp a multiple of 4 (of 16 for LOAD 16).
-template <class T, int LOAD, bool STREAM, bool NORMS>
+// The wgmma sweeps' shared memory starts on a 1024-byte boundary, so their
+// tiles start on the 512-byte ones wgmma's swizzle and TMA need: the launch
+// asks for kAlignPad bytes more and the base is rounded up here (an extern
+// shared array aligned past 128 bytes would pad every kernel of this file).
+__device__ __forceinline__ uint8_t* align_smem(uint8_t* smem) {
+  return smem + (kAlignPad - smem_addr(smem) % kAlignPad) % kAlignPad;
+}
+
+// The int8 sweep on wgmma (IGMMA): tma_a and tma_b map qa (M, Dp) and qb
+// (N, Dp) int8, Dp a multiple of 16; b2v (N,) from the host, or (NORMS)
+// formed in the sweep from c and valid_n; the probe tile resident (STREAM
+// false) or streamed.
+template <bool STREAM, bool NORMS>
 __global__ void __launch_bounds__(kThreads, 2)
-knn_int8_sweep_kernel(const int8_t* __restrict__ qa, const int8_t* __restrict__ qb,
-                      const float* __restrict__ b2v, const float* __restrict__ c,
-                      int valid_n, int M, int N, int Dp, unsigned mask,
-                      int tiles_per_split, float* __restrict__ part_v,
+knn_int8_wgmma_kernel(const __grid_constant__ CUtensorMap tma_b,
+                      const __grid_constant__ CUtensorMap tma_a, const float* __restrict__ b2v,
+                      const float* __restrict__ c, int valid_n, int M, int N, int Dp,
+                      unsigned mask, int tiles_per_split, float* __restrict__ part_v,
                       int* __restrict__ part_i) {
   extern __shared__ __align__(128) uint8_t smem[];
-  sweep<int, T, LOAD, STREAM, NORMS>(smem, nullptr, nullptr, qa, qb, nullptr, b2v, c, valid_n,
-                                     M, N, Dp, mask, tiles_per_split, part_v, part_i);
+  sweep<int, WgmmaTile, STREAM, NORMS>(align_smem(smem), &tma_b, &tma_a, nullptr, nullptr,
+                                       nullptr, b2v, c, valid_n, M, N, Dp, mask,
+                                       tiles_per_split, part_v, part_i);
 }
 
 // a (M, Dp) and b (N, Dp) bf16, Dp a multiple of 8, 16-byte aligned; the
-// probe tile streams at every width. The ring starts on a 1024-byte
-// boundary, so its tiles start on the 512-byte ones wgmma's swizzle and TMA
-// need: the launch asks for kAlignPad bytes more and the base is rounded up
-// here (an extern shared array aligned past 128 bytes would pad every
-// kernel of this file).
+// probe tile streams at every width.
 template <class T>
 __global__ void __launch_bounds__(kThreads, 2)
 knn_bf16_sweep_kernel(const __grid_constant__ CUtensorMap tma_b,
@@ -499,56 +529,10 @@ knn_bf16_sweep_kernel(const __grid_constant__ CUtensorMap tma_b,
                       int tiles_per_split, float* __restrict__ part_v,
                       int* __restrict__ part_i) {
   extern __shared__ __align__(128) uint8_t smem[];
-  sweep<float, T, 16, true, false>(smem + ((kAlignPad - smem_addr(smem) % kAlignPad) % kAlignPad),
-                                   &tma_b, &tma_a,
-                                          reinterpret_cast<const int8_t*>(a),
-                                          reinterpret_cast<const int8_t*>(b), a2, b2, nullptr, 0,
-                                          M, N, 2 * Dp, 0xffffffffu, tiles_per_split, part_v,
-                                          part_i);
-}
-
-// A 2-d tensor map of (rows, Dp) bf16 rows for TMA: boxes of 32 values (64
-// bytes) x box_rows rows, 64-byte swizzle (mma_s8.cuh's), zeros outside.
-// cuTensorMapEncodeTiled is looked up at run time, so the library links no
-// libcuda.
-cudaError_t bf16_tensor_map(CUtensorMap* map, const void* base, int rows, int Dp,
-                            int box_rows) {
-  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = [] {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    return cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
-                                   &found) == cudaSuccess &&
-                   found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<Encode>(fn)
-               : nullptr;
-  }();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(Dp), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(Dp) * 2};
-  const cuuint32_t box[2] = {kBK / 2, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-                 CUDA_SUCCESS
-             ? cudaSuccess
-             : cudaErrorInvalidValue;
-}
-
-using Int8Sweep = void (*)(const int8_t*, const int8_t*, const float*, const float*,
-                           int, int, int, int, unsigned, int, float*, int*);
-
-template <class T, bool STREAM>
-Int8Sweep int8_sweep(int load, bool norms) {
-  if (load == 16)
-    return norms ? &knn_int8_sweep_kernel<T, 16, STREAM, true>
-                 : &knn_int8_sweep_kernel<T, 16, STREAM, false>;
-  return norms ? &knn_int8_sweep_kernel<T, 4, STREAM, true>
-               : &knn_int8_sweep_kernel<T, 4, STREAM, false>;
+  sweep<float, T, true, false>(align_smem(smem), &tma_b, &tma_a,
+                               reinterpret_cast<const int8_t*>(a),
+                               reinterpret_cast<const int8_t*>(b), a2, b2, nullptr, 0, M, N,
+                               2 * Dp, 0xffffffffu, tiles_per_split, part_v, part_i);
 }
 
 struct Int8Tile {
@@ -556,13 +540,15 @@ struct Int8Tile {
   int per_sm;    // blocks an SM that shared memory admits, at most the 2 of
                  // __launch_bounds__
   bool stream;   // the probe tile streams through the ring
+  int smem;      // dynamic shared memory a block, the wgmma pad included
 };
 
-// The int8 block tile for M probes of Dp bytes on the current device: the
-// resident probe tile, TM = 16 at M <= 16 (one m16 tile), else 128, where it
-// fits a block's shared memory; else the streamed 128-probe tile, whose
-// shared memory does not depend on Dp.
-cudaError_t int8_tile(int M, int Dp, Int8Tile* tile) {
+// The int8 block tile for M probes of Dp bytes on the current device: 128
+// probes (two wgmma warpgroups) at every M, the probe tile resident where
+// it fits a block's shared memory, else streamed, whose shared memory does
+// not depend on Dp. stream: -1 picks so, 0 asks for the resident tile
+// (refused where it does not fit), 1 for the streamed one.
+cudaError_t int8_tile(int M, int Dp, int stream, Int8Tile* tile) {
   int dev, block_max, sm_max, reserved;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -572,13 +558,15 @@ cudaError_t int8_tile(int M, int Dp, Int8Tile* tile) {
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
   if (e != cudaSuccess) return e;
-  if (Dp < 4 || Dp % 4) return cudaErrorInvalidValue;
-  const int tm = M <= ServeTile::TM ? ServeTile::TM : BatchTile::TM;
-  const bool fits = Dp <= (1 << 16) && sweep_smem_bytes(tm, Dp, false) <= block_max;
-  *tile = {fits ? tm : BatchTile::TM, 0, !fits};
-  const int smem = sweep_smem_bytes(tile->tm, Dp, tile->stream);
-  if (smem > block_max) return cudaErrorInvalidValue;
-  const int fit = sm_max / (smem + reserved);
+  if (M < 1 || Dp < 16 || Dp % 16 || stream < -1 || stream > 1) return cudaErrorInvalidValue;
+  constexpr int tm = WgmmaTile::TM;
+  const bool fits = Dp <= (1 << 16) && sweep_smem_bytes(tm, Dp, false) + kAlignPad <= block_max;
+  if (stream == 0 && !fits) return cudaErrorInvalidValue;
+  const bool streamed = stream == -1 ? !fits : stream == 1;
+  *tile = {tm, 0, streamed, 0};
+  tile->smem = sweep_smem_bytes(tm, Dp, streamed) + kAlignPad;
+  if (tile->smem > block_max) return cudaErrorInvalidValue;
+  const int fit = sm_max / (tile->smem + reserved);
   tile->per_sm = fit < 2 ? fit : 2;
   return cudaSuccess;
 }
@@ -823,44 +811,50 @@ int set_smem(Kernel kernel, int smem) {
 extern "C" {
 
 // The int8 sweep's block tile for M probes of Dp bytes on the current
-// device: *tm probes a block, *per_sm blocks an SM. Returns
-// cudaErrorInvalidValue where Dp is not a whole number of 4-byte words.
-int knn_int8_tile(int M, int Dp, int* tm, int* per_sm) {
+// device, the probe tile picked (stream = -1), resident (0) or streamed
+// (1): *tm probes a block, *per_sm blocks an SM, *streamed. Returns
+// cudaErrorInvalidValue where Dp is not a whole number of 16-byte words or
+// the resident tile asked for does not fit.
+int knn_int8_tile(int M, int Dp, int stream, int* tm, int* per_sm, int* streamed) {
   Int8Tile tile{};
-  const cudaError_t e = int8_tile(M, Dp, &tile);
+  const cudaError_t e = int8_tile(M, Dp, stream, &tile);
   *tm = tile.tm;
   *per_sm = tile.per_sm;
+  *streamed = tile.stream;
   return static_cast<int>(e);
 }
 
-// int8 1-NN (K2b, K2c). qa (M, Dp) and qb (N, Dp) int8, Dp a multiple of 4
-// (of 16 with load = 16, which also needs 16-byte aligned bases; load = 4
-// needs 4-byte aligned ones), all contiguous on the current device. b2v (N,)
-// f32, or nullptr: then the kernel forms it from the rows' squares, the f32
-// scalar *c (on the device) and valid_n. mask: 0xffffffff (two-pass) or
-// 0xfffffc00 (packed). The block tile is knn_int8_tile's; the splits cover
-// the gallery in whole 128-row tiles, tiles_per_split each, none empty.
-// part_v / part_i: (M, splits) scratch; out_v / out_i (M,). Launches two
-// kernels on `stream`; returns cudaGetLastError().
+// int8 1-NN (K2b, K2c) on wgmma fed by TMA. qa (M, Dp) and qb (N, Dp)
+// int8, Dp a multiple of 16, 16-byte aligned bases, all contiguous on the
+// current device. b2v (N,) f32, or nullptr: then the kernel forms it from
+// the rows' squares, the f32 scalar *c (on the device) and valid_n. mask:
+// 0xffffffff (two-pass) or 0xfffffc00 (packed). probe_stream is
+// knn_int8_tile's `stream`, and the block tile is knn_int8_tile's; the
+// splits cover the gallery in whole 128-row tiles, tiles_per_split each,
+// none empty. part_v / part_i: (M, splits) scratch; out_v / out_i (M,).
+// Launches two kernels on `stream`; returns cudaGetLastError().
 int knn_int8(const void* qa, const void* qb, const float* b2v, const float* c,
-             int valid_n, int M, int N, int Dp, unsigned mask, int load, int splits,
+             int valid_n, int M, int N, int Dp, unsigned mask, int probe_stream, int splits,
              int tiles_per_split, float* part_v, int* part_i, float* out_v, int* out_i,
              void* stream) {
   Int8Tile tile{};
-  const cudaError_t e = int8_tile(M, Dp, &tile);
+  const cudaError_t e = int8_tile(M, Dp, probe_stream, &tile);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if ((load != 16 && load != 4) || Dp % load || (b2v == nullptr && c == nullptr) ||
-      bad_split(M, N, tile.tm, splits, tiles_per_split))
+  if ((b2v == nullptr && c == nullptr) || bad_split(M, N, tile.tm, splits, tiles_per_split))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Int8Sweep kernel = tile.stream ? int8_sweep<BatchTile, true>(load, !b2v)
-                           : tile.tm == ServeTile::TM ? int8_sweep<ServeTile, false>(load, !b2v)
-                                                      : int8_sweep<BatchTile, false>(load, !b2v);
-  const int smem = sweep_smem_bytes(tile.tm, Dp, tile.stream);
-  if (const int a = set_smem(kernel, smem)) return a;
+  CUtensorMap tma_b{}, tma_a{};
+  if (const cudaError_t m = byte_tensor_map(&tma_b, qb, N, Dp, kTN)) return static_cast<int>(m);
+  if (const cudaError_t m = byte_tensor_map(&tma_a, qa, M, Dp, tile.tm))
+    return static_cast<int>(m);
+  const bool norms = b2v == nullptr;
+  const auto kernel = tile.stream ? (norms ? &knn_int8_wgmma_kernel<true, true>
+                                           : &knn_int8_wgmma_kernel<true, false>)
+                                  : (norms ? &knn_int8_wgmma_kernel<false, true>
+                                           : &knn_int8_wgmma_kernel<false, false>);
+  if (const int a = set_smem(kernel, tile.smem)) return a;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  kernel<<<dim3((M + tile.tm - 1) / tile.tm, splits), kThreads, smem, s>>>(
-      static_cast<const int8_t*>(qa), static_cast<const int8_t*>(qb), b2v, c, valid_n, M, N,
-      Dp, mask, tiles_per_split, part_v, part_i);
+  kernel<<<dim3((M + tile.tm - 1) / tile.tm, splits), kThreads, tile.smem, s>>>(
+      tma_b, tma_a, b2v, c, valid_n, M, N, Dp, mask, tiles_per_split, part_v, part_i);
   const int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   return launch_reduce(part_v, part_i, M, splits, out_v, out_i, s);
@@ -873,7 +867,7 @@ int knn_int8(const void* qa, const void* qb, const float* b2v, const float* c,
 int knn_bf16(const void* a, const void* b, const float* a2, const float* b2, int M, int N,
              int Dp, int splits, int tiles_per_split, float* part_v, int* part_i,
              float* out_v, int* out_i, void* stream) {
-  const int tm = M <= ServeTile::TM ? ServeTile::TM : BatchTile::TM;
+  const int tm = M <= ServeTile::TM ? ServeTile::TM : WgmmaTile::TM;
   if (Dp < 8 || Dp % 8 || (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) % 16 ||
       bad_split(M, N, tm, splits, tiles_per_split))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -881,8 +875,10 @@ int knn_bf16(const void* a, const void* b, const float* a2, const float* b2, int
                                           : &knn_bf16_sweep_kernel<WgmmaTile>;
   CUtensorMap tma_b{}, tma_a{};
   if (tm == WgmmaTile::TM) {
-    if (const cudaError_t e = bf16_tensor_map(&tma_b, b, N, Dp, kTN)) return static_cast<int>(e);
-    if (const cudaError_t e = bf16_tensor_map(&tma_a, a, M, Dp, tm)) return static_cast<int>(e);
+    if (const cudaError_t e = byte_tensor_map(&tma_b, b, N, 2LL * Dp, kTN))
+      return static_cast<int>(e);
+    if (const cudaError_t e = byte_tensor_map(&tma_a, a, M, 2LL * Dp, tm))
+      return static_cast<int>(e);
   }
   const int smem = sweep_smem_bytes(tm, 2 * Dp, true) + kAlignPad;
   if (const int e = set_smem(kernel, smem)) return e;

@@ -20,42 +20,52 @@
 // layers move 4.92 GB (a and w read once, out written once) in 1.47 ms at
 // 3.35 TB/s and do 1.1 T int8 ops in 0.56 ms. pw1 (M = 12.85 M, K 32 -> N
 // 64) alone moves 1.23 GB, 0.37 ms; pw13 (50,176 x 1024 -> 1024, f32 out)
-// 0.26 GB, 0.077 ms. The first port ran __dp4a on the CUDA cores, about 50 T
-// MAC/s, so its big layers were bound by instructions (11.8 ms in all).
+// 0.26 GB, 0.077 ms. So the kernel must keep enough bytes in flight to
+// stream a and out at the memory's rate, and spend few instructions on
+// each output.
 //
 // Design. The TPU kernel reshapes NHWC to (M/p, p*C) and packs p copies of
 // the weight block-diagonally to fill 128 lanes; a contiguous channels-last
 // int8 tensor on the card already is the (M, K) row-major matrix, and w is
-// (N, K) row-major, which is the "col" operand of mma: neither needs a
-// transpose or a pack. Each block computes a BM x BN output tile:
-// - warps run mma.sync.m16n8k32 s8 x s8 -> s32 (IMMA), fragments loaded
-//   from shared memory by ldmatrix; tiles of 64 bytes of K lie in 64-byte
-//   rows whose 16-byte chunks are XOR-swizzled by (row / 2) % 4, so the
-//   8 rows an ldmatrix phase reads hit 8 distinct bank groups (the
-//   helpers, shared with the int8 1-NN sweep, are in mma_s8.cuh);
-// - a ring of 4 such K tiles is filled by cp.async (16-byte cg copies when
-//   K % 16 == 0 and the bases are 16-byte aligned, 4-byte copies when
-//   K % 4 == 0, plain byte loads otherwise), zero-filled past M, N and K
-//   (src-size 0), so the loads of tile k + 3 overlap the MMAs of tile k;
-// - 128 x 128 tiles with 8 warps of 64 x 32 where the grid still fills the
-//   132 SMs, 64 x 64 tiles with 4 warps of 32 x 32 where it would not or
-//   where N <= 64 (ops/kernels/pw_conv.py::tile_config); n-tiles vary
-//   fastest in the grid, so the blocks that share an A tile run together
-//   and A streams from device memory once;
-// - the epilogue maps the accumulator layout (row lane/4 + 8i, column
-//   2*(lane%4) + j of each 16 x 8 tile) to scale[n] and bias[n], applies
-//   fma/ReLU6/requant in registers, stages the tile in shared memory (the
-//   ring, drained) and writes whole rows of it as 16-byte stores.
-// Measured on an H100 (700 W, chip_smoke.py): 4.0-4.4 ms of device time
-// for the 13 layers at batch 1024, about 3x the bound. pw1 (one K tile a
-// block: load, one MMA step, epilogue, no overlap inside the block) and
-// pw7-pw13 (430-530 T int8 ops/s, 2 blocks of 119 registers an SM, a
-// barrier per K tile) hold it back. Persistent blocks whose ring runs on across tiles
-// were tried and were slower on the card (they spill at the 128 registers
-// two blocks an SM allow). wgmma with TMA loads is the next step.
+// (N, K) row-major: both are K-major, as wgmma takes int8 operands. Tiles
+// of 64 bytes of K lie in 64-byte rows whose 16-byte chunks are
+// XOR-swizzled by (row / 2) % 4 (mma_s8.cuh), the layout of TMA's and
+// wgmma's 64-byte swizzle. TMA copies rows of whole 16-byte words from
+// 16-byte aligned bases; every MobileNet layer has them, and the wrapper
+// (ops/kernels/pw_conv.py) zero-pads a ragged K and copies a base off 16
+// bytes (zero columns add exact zeros), so every shape takes this kernel:
+// - persistent blocks, one an SM, walk the output tiles of BM = 128 or 256
+//   rows x BN = 64 or 128 channels (pw_conv.py::tile_config, from a cost
+//   table an H100 measured; 256-row tiles halve the ring's round trips a
+//   byte, which bound the narrow layers). K 16 or 32 layers are packed
+//   into 64-byte rows as the TPU kernel packs them (pw_conv.py::pack_rows);
+// - one producer warpgroup, its registers given back with setmaxnreg (40),
+//   keeps a ring of up to 8 K-slice stages in flight with one thread's TMA
+//   copies, a full and an empty mbarrier a stage, across tiles, so a
+//   tile's epilogue overlaps the next tile's loads;
+// - two consumer warpgroups (232 registers each; 2 x 128 x 232 + 128 x 40
+//   registers fill the 65,536 of an SM, so a third would not fit) take 64
+//   or 128 rows each as one or two m64nBNk32 IGMMA atoms a K step, one
+//   wgmma group in flight, and release a stage when the group after it is
+//   issued;
+// - the epilogue works on the C fragments (row lane/4 + 8i, column
+//   2*(lane%4) + j of each 16 x 8 tile): fma/ReLU6/requant in registers,
+//   the tile's scale and bias read from shared memory (global loads a
+//   column pair at a time held the epilogue up); int8 out is staged in the
+//   warpgroup's own buffer and written as 16-byte stores between named
+//   barriers of the warpgroup alone, f32 out straight from the fragments (a
+//   row's 4 lanes write whole 32-byte sectors). No register spills at 232
+//   (ptxas -v).
+// On an H100 (700 W; chip_smoke.py times every layer and, at batch 1024,
+// each tile) pw1 stays near 2x its bound, held by the ring's round trips
+// (its K = 32 makes each stage one tile). The ring holds up to 8 stages;
+// the 256 x 128 tile every layer takes at batch 1024 fits 7 beside its
+// staged int8 output.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <type_traits>
 
@@ -65,214 +75,274 @@ namespace {
 
 using namespace mma_s8;
 
-constexpr int kStages = 4;
 // float32(127 / 6) == float32(1 / (6 / 127)): the reference's 1 / ACT_SCALE
 constexpr float kInvActScale = 21.166666f;
 
-// A BM x BN block tile of warps of WM x WN outputs.
-template <int BM_, int BN_, int WM_, int WN_>
-struct Tile {
-  static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_;
-  static constexpr int kWarpsN = BN / WN;
-  static constexpr int kThreads = 32 * (BM / WM) * kWarpsN;
-  static constexpr int kMT = WM / 16, kNT = WN / 8;   // mma tiles of a warp
-  static constexpr int kRingBytes = kStages * (BM + BN) * kBK;
+constexpr int kAlignPad = 1024;         // the ring's base, rounded up to this
+constexpr int kSmemMax = 232448;        // a block's opt-in shared memory on sm_90
+constexpr int kMaxStages = 8;           // the narrower tiles' ring
+constexpr int kProducerRegs = 40;       // setmaxnreg: the producer gives these back,
+constexpr int kConsumerRegs = 232;      // and the consumers take them
+constexpr int kConsumerGroups = 2;
+// setmaxnreg.inc waits for registers that no warp frees past the file:
+// the warpgroups' budgets must fit an SM's 65,536 registers
+static_assert(128 * (kProducerRegs + kConsumerGroups * kConsumerRegs) <= 65536,
+              "the warpgroups' registers fit the register file");
+
+// The block: two consumer warpgroups of MT m64 atoms each (BM
+// = 128 MT rows) and one producer warpgroup, BN output channels a tile; a
+// consumer thread holds MT x BN / 2 accumulators. Its shared memory: a ring
+// of K slices ((BM + BN) rows of 64 bytes a stage), for int8 out each
+// consumer's staged output tile (64 MT rows, padded to whole 16-byte rows),
+// a full and an empty barrier a stage, and each consumer's copy of the
+// tile's scale and bias.
+template <int MT, int BN, bool REQUANT>
+struct WgTile {
+  using OutT = typename std::conditional<REQUANT, int8_t, float>::type;
+  static constexpr int BM = 128 * MT;
+  static constexpr int kThreads = 128 * (kConsumerGroups + 1);
+  static constexpr int kStageBytes = (BM + BN) * kBK;
+  static constexpr int kLd = BN + 16;   // staged int8 row, bytes
+  static constexpr int kStagedBytes = REQUANT ? BM * kLd : 0;
+  static constexpr int kScaleBytes = 2 * 2 * BN * 4;
+  static constexpr int kFit =
+      (kSmemMax - kAlignPad - kStagedBytes - kScaleBytes - 16 * kMaxStages) / kStageBytes;
+  static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
+  static constexpr int kSmem =
+      kAlignPad + kStages * kStageBytes + kStagedBytes + 16 * kStages + kScaleBytes;
+  static_assert(kStages >= 3, "a ring of at least three stages");
+  static_assert(MT * BN <= 256, "the accumulators fit the consumers' registers");
 };
-using BigTile = Tile<128, 128, 64, 32>;     // 8 warps
-using SmallTile = Tile<64, 64, 32, 32>;     // 4 warps
 
-template <class T, int LOAD, bool REQUANT>
-__global__ void __launch_bounds__(T::kThreads)
-pw_conv_int8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
-                    const float* __restrict__ scale, const float* __restrict__ bias,
-                    int M, int N, int K, void* __restrict__ out) {
-  extern __shared__ __align__(128) uint8_t smem[];
-  constexpr int BM = T::BM, BN = T::BN, kMT = T::kMT, kNT = T::kNT;
-  constexpr int kStageBytes = (BM + BN) * kBK;
+// K4 on wgmma (IGMMA) fed by TMA, persistent: block b computes the output
+// tiles b, b + gridDim.x, ... of BM rows x BN channels (channel tiles vary
+// fastest, so the blocks at work share A rows). Warpgroup 2 is the
+// producer: one thread keeps the ring's TMA copies in flight across tiles
+// (the A box (BM rows, 64 bytes) and the W box (BN rows, 64 bytes) of
+// each K slice, zeros past M, N and K), so the next tile's slices land
+// while the consumers run this tile's epilogue. Warpgroups 0 and 1 each
+// take 64 MT rows: a K slice is 2 MT m64nBNk32 wgmma on the slot's
+// descriptors, one group kept in flight (a slot is released when the group
+// after it has been issued and the one on it has completed); after the
+// tile's K loop, the epilogue on the C fragments, int8 staged in the
+// warpgroup's own buffer and written as 16-byte stores, f32 written from
+// the fragments, synced by named barriers of the warpgroup alone.
+template <int MT, int BN, bool REQUANT>
+__global__ void __launch_bounds__(WgTile<MT, BN, REQUANT>::kThreads, 1)
+pw_conv_int8_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
+                          const __grid_constant__ CUtensorMap tma_w,
+                          const float* __restrict__ scale, const float* __restrict__ bias,
+                          int M, int N, int K, void* __restrict__ out) {
+  using C = WgTile<MT, BN, REQUANT>;
+  using OutT = typename C::OutT;
+  constexpr int S = C::kStages, kLd = C::kLd, BM = C::BM;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  uint8_t* const ring = smem_raw + (kAlignPad - smem_addr(smem_raw) % kAlignPad) % kAlignPad;
+  OutT* const staged = reinterpret_cast<OutT*>(ring + S * C::kStageBytes);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(ring + S * C::kStageBytes + C::kStagedBytes);
+  uint64_t* const empty = full + S;
+  float* const scale_bias = reinterpret_cast<float*>(empty + S);   // 2 x [scale, bias]
   const int tiles_n = (N + BN - 1) / BN;
-  const long long m0 = static_cast<long long>(blockIdx.x / tiles_n) * BM;
-  const int n0 = static_cast<int>(blockIdx.x % tiles_n) * BN;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = (warp / T::kWarpsN) * T::WM, wn = (warp % T::kWarpsN) * T::WN;
-  // a warp whose outputs all lie past M or N skips its MMAs
-  const bool live = m0 + wm < M && n0 + wn < N;
-
-  int acc[kMT][kNT][4];
-#pragma unroll
-  for (int i = 0; i < kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  auto load_stage = [&](int stage, int kt) {
-    uint8_t* base = smem + stage * kStageBytes;
-    load_tile<LOAD, BM, T::kThreads>(base, a, m0, M, K, kt * kBK);
-    load_tile<LOAD, BN, T::kThreads>(base + BM * kBK, w, n0, N, K, kt * kBK);
-  };
-
+  const int tiles = (M + BM - 1) / BM * tiles_n;
   const int KT = (K + kBK - 1) / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < KT) load_stage(s, s);
-    cp_async_commit();
-  }
-  // ldmatrix row addresses of this lane: for A, matrix q = lane / 8 holds
-  // rows (q % 2) * 8 + lane % 8 at k chunk q / 2; for a pair of B n-tiles,
-  // rows (q / 2) * 8 + lane % 8 at k chunk q % 2
-  const int q = lane >> 3, r8 = lane & 7;
-  const int a_row = wm + (q & 1) * 8 + r8, a_chunk = q >> 1;
-  const int b_row = wn + (q >> 1) * 8 + r8, b_chunk = q & 1;
-
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int next = kt + kStages - 1;
-    if (next < KT) load_stage(next % kStages, next);
-    cp_async_commit();
-    const uint8_t* As = smem + (kt % kStages) * kStageBytes;
-    const uint8_t* Bs = As + BM * kBK;
-#pragma unroll
-    for (int ks = 0; ks < kBK / 32; ++ks) {
-      if (!live || kt * kBK + ks * 32 >= K) break;
-      uint32_t af[kMT][4], bfr[kNT][2];
-#pragma unroll
-      for (int i = 0; i < kMT; ++i)
-        ldmatrix_x4(smem_addr(As + swizzle(a_row + i * 16, ks * 2 + a_chunk)), af[i]);
-#pragma unroll
-      for (int j = 0; j < kNT; j += 2) {
-        uint32_t r[4];
-        ldmatrix_x4(smem_addr(Bs + swizzle(b_row + j * 8, ks * 2 + b_chunk)), r);
-        bfr[j][0] = r[0];
-        bfr[j][1] = r[1];
-        bfr[j + 1][0] = r[2];
-        bfr[j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < kMT; ++i)
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) mma(acc[i][j], af[i], bfr[j]);
+  const int wg = threadIdx.x >> 7;
+  if (threadIdx.x == 0)
+    for (int i = 0; i < S; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 8);   // lane 0 of each consumer warp
     }
-  }
-  cp_async_wait<0>();
+  fence_mbar_init();
   __syncthreads();
 
-  // epilogue: registers -> staged tile in the drained ring -> 16-byte stores
-  using OutT = typename std::conditional<REQUANT, int8_t, float>::type;
-  constexpr int kLd = BN + (REQUANT ? 16 : 8);   // padded row, 16-byte multiple
-  OutT* so = reinterpret_cast<OutT*>(smem);
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < kNT; ++j) {
-    const int col = wn + j * 8 + 2 * t;
-    float sc[2], bi[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int n = n0 + col + e;
-      sc[e] = n < N ? __ldg(scale + n) : 0.0f;
-      bi[e] = n < N ? __ldg(bias + n) : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < kMT; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = wm + i * 16 + g + 8 * h;
-        float y[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          y[e] = fminf(fmaxf(__fmaf_rn(__int2float_rn(acc[i][j][2 * h + e]), sc[e],
-                                       bi[e]), 0.0f), 6.0f);
-        OutT* dst = so + row * kLd + col;
-        if constexpr (REQUANT) {
-          *reinterpret_cast<char2*>(dst) = make_char2(
-              static_cast<signed char>(__float2int_rn(__fmul_rn(y[0], kInvActScale))),
-              static_cast<signed char>(__float2int_rn(__fmul_rn(y[1], kInvActScale))));
-        } else {
-          *reinterpret_cast<float2*>(dst) = make_float2(y[0], y[1]);
+  if (wg == kConsumerGroups) {
+    // producer: its registers go to the consumers
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumerGroups * 128) {
+      int stage = 0, phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
+        for (int kt = 0; kt < KT; ++kt) {
+          mbar_wait(empty + stage, phase ^ 1);   // the first round passes at once
+          uint8_t* const st = ring + stage * C::kStageBytes;
+          mbar_expect_tx(full + stage, C::kStageBytes);
+          tma_load_2d(st, &tma_a, kt * kBK, m0, full + stage);
+          tma_load_2d(st + BM * kBK, &tma_w, kt * kBK, n0, full + stage);
+          if (++stage == S) stage = 0, phase ^= 1;
         }
       }
-  }
-  __syncthreads();
-  constexpr int kVec = 16 / sizeof(OutT);          // elements per 16 bytes
-  OutT* o = static_cast<OutT*>(out);
-  if (N % kVec == 0) {   // every 16-byte chunk of a row lies inside or past N
-    constexpr int kRowChunks = BN / kVec;
-    for (int i = threadIdx.x; i < BM * kRowChunks; i += T::kThreads) {
-      const int r = i / kRowChunks, c = (i % kRowChunks) * kVec;
-      const long long m = m0 + r;
-      if (m < M && n0 + c < N)
-        *reinterpret_cast<uint4*>(o + m * N + n0 + c) =
-            *reinterpret_cast<const uint4*>(so + r * kLd + c);
     }
   } else {
-    for (int i = threadIdx.x; i < BM * BN; i += T::kThreads) {
-      const int r = i / BN, c = i % BN;
-      const long long m = m0 + r;
-      if (m < M && n0 + c < N) o[m * N + n0 + c] = so[r * kLd + c];
+    setmaxnreg_inc<kConsumerRegs>();
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2, t = lane & 3, tid = threadIdx.x & 127;
+    OutT* const so = staged + wg * 64 * MT * kLd;
+    float* const sb = scale_bias + wg * 2 * BN;
+    OutT* const o = static_cast<OutT*>(out);
+    constexpr int kSbPer = (BN + 127) / 128;   // scale and bias values a thread copies
+    int acc[MT][BN / 8][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0;
+    int stage = 0, phase = 0, prev = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const long long m0 = static_cast<long long>(tile / tiles_n) * BM + wg * 64 * MT;
+      const int n0 = tile % tiles_n * BN;
+      // the tile's scale and bias, read here and stored after the K loop
+      // (zeros past N): the epilogue reads them from shared memory, two
+      // 8-byte words a column pair, where loads from global memory a pair
+      // at a time held the epilogue up
+      float ls[kSbPer], lb[kSbPer];
+#pragma unroll
+      for (int i = 0; i < kSbPer; ++i) {
+        const int c = tid + 128 * i, n = n0 + c;
+        const bool ok = c < BN && n < N;
+        ls[i] = ok ? __ldg(scale + n) : 0.0f;
+        lb[i] = ok ? __ldg(bias + n) : 0.0f;
+      }
+      // the tile's K loop: nothing but its MMAs touches the accumulators, so
+      // a wgmma group stays in flight across its steps
+      for (int kt = 0; kt < KT; ++kt) {
+        mbar_wait(full + stage, phase);
+        const uint32_t a0 = smem_addr(ring + stage * C::kStageBytes) + wg * 64 * MT * kBK;
+        const uint32_t b0 = smem_addr(ring + stage * C::kStageBytes + BM * kBK);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < kBK / 32; ++ks)
+          if (kt * kBK + ks * 32 < K)
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              wgmma_s8<BN>(acc[mt], wgmma_desc(a0 + mt * 64 * kBK + ks * 32),
+                           wgmma_desc(b0 + ks * 32), kt + ks > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (kt > 0 && lane == 0) mbar_arrive(empty + prev);
+        prev = stage;
+        if (++stage == S) stage = 0, phase ^= 1;
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) wgmma_fence_operands(acc[mt]);
+      if (lane == 0) mbar_arrive(empty + prev);
+#pragma unroll
+      for (int i = 0; i < kSbPer; ++i) {
+        const int c = tid + 128 * i;
+        if (c < BN) {
+          sb[c] = ls[i];
+          sb[BN + c] = lb[i];
+        }
+      }
+      named_barrier(1 + wg, 128);
+
+      // epilogue: C fragments (rows 64 mt + 16 warp + g, + 8; columns 8j +
+      // 2t, + 1) -> fma/ReLU6/requant -> the staged tile -> 16-byte stores
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int col = j * 8 + 2 * t;
+        const float2 sc = *reinterpret_cast<const float2*>(sb + col);
+        const float2 bi = *reinterpret_cast<const float2*>(sb + BN + col);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int* const a = acc[mt][j] + 2 * h;
+          const float y[2] = {
+              fminf(fmaxf(__fmaf_rn(__int2float_rn(a[0]), sc.x, bi.x), 0.0f), 6.0f),
+              fminf(fmaxf(__fmaf_rn(__int2float_rn(a[1]), sc.y, bi.y), 0.0f), 6.0f)};
+          const int row = 64 * mt + 16 * warp + g + 8 * h;
+          if constexpr (REQUANT) {
+            *reinterpret_cast<char2*>(so + row * kLd + col) = make_char2(
+                static_cast<signed char>(__float2int_rn(__fmul_rn(y[0], kInvActScale))),
+                static_cast<signed char>(__float2int_rn(__fmul_rn(y[1], kInvActScale))));
+          } else if (m0 + row < M) {
+            // f32 straight from the fragments: the 4 lanes of a row write
+            // 32 contiguous bytes, whole sectors, with no staging
+            float* const dst = o + (m0 + row) * N + n0 + col;
+            if (N % 2 == 0 && n0 + col + 1 < N) {
+              *reinterpret_cast<float2*>(dst) = make_float2(y[0], y[1]);
+            } else {
+              if (n0 + col < N) dst[0] = y[0];
+              if (n0 + col + 1 < N) dst[1] = y[1];
+            }
+          }
+        }
+      }
+      // int8: the staged tile is whole; both: this tile's scale and bias
+      // are read before the next tile's are stored
+      named_barrier(1 + wg, 128);
+      if constexpr (REQUANT) {
+        if (N % 16 == 0) {   // every 16-byte chunk of a row lies inside or past N
+          constexpr int kRowChunks = BN / 16;
+          for (int i = tid; i < 64 * MT * kRowChunks; i += 128) {
+            const int r = i / kRowChunks, c = (i % kRowChunks) * 16;
+            const long long m = m0 + r;
+            if (m < M && n0 + c < N)
+              *reinterpret_cast<uint4*>(o + m * N + n0 + c) =
+                  *reinterpret_cast<const uint4*>(so + r * kLd + c);
+          }
+        } else {
+          for (int i = tid; i < 64 * MT * BN; i += 128) {
+            const int r = i / BN, c = i % BN;
+            const long long m = m0 + r;
+            if (m < M && n0 + c < N) o[m * N + n0 + c] = so[r * kLd + c];
+          }
+        }
+        named_barrier(1 + wg, 128);   // the staged tile is read before the next one is written
+      }
     }
   }
 }
 
-template <class T, int LOAD, bool REQUANT>
-int launch(const int8_t* a, const int8_t* w, const float* scale, const float* bias,
-           int M, int N, int K, void* out, cudaStream_t s) {
-  constexpr int kStageOut = T::BM * (T::BN + (REQUANT ? 16 : 8)) * (REQUANT ? 1 : 4);
-  constexpr int kSmem = T::kRingBytes > kStageOut ? T::kRingBytes : kStageOut;
-  auto kernel = pw_conv_int8_kernel<T, LOAD, REQUANT>;
-  if (kSmem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const long long blocks = (static_cast<long long>(M) + T::BM - 1) / T::BM *
-                           ((N + T::BN - 1) / T::BN);
-  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<static_cast<unsigned>(blocks), T::kThreads, kSmem, s>>>(
-      a, w, scale, bias, M, N, K, out);
+template <int MT, int BN, bool REQUANT>
+int launch_wgmma(const void* a, const void* w_map, const float* scale, const float* bias,
+                 int M, int N, int K, int grid, void* out, cudaStream_t s) {
+  using C = WgTile<MT, BN, REQUANT>;
+  CUtensorMap ma, mw;
+  if (const cudaError_t e = byte_tensor_map(&ma, a, M, K, C::BM)) return static_cast<int>(e);
+  memcpy(&mw, w_map, sizeof mw);
+  auto kernel = pw_conv_int8_wgmma_kernel<MT, BN, REQUANT>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, C::kThreads, C::kSmem, s>>>(ma, mw, scale, bias, M, N, K, out);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <class T, int LOAD>
-int launch_out(const int8_t* a, const int8_t* w, const float* scale,
-               const float* bias, int M, int N, int K, bool requant, void* out,
-               cudaStream_t s) {
-  return requant ? launch<T, LOAD, true>(a, w, scale, bias, M, N, K, out, s)
-                 : launch<T, LOAD, false>(a, w, scale, bias, M, N, K, out, s);
-}
-
-template <class T>
-int launch_tile(const int8_t* a, const int8_t* w, const float* scale,
-                const float* bias, int M, int N, int K, bool requant, int load,
-                void* out, cudaStream_t s) {
-  switch (load) {
-    case 16: return launch_out<T, 16>(a, w, scale, bias, M, N, K, requant, out, s);
-    case 4: return launch_out<T, 4>(a, w, scale, bias, M, N, K, requant, out, s);
-    case 1: return launch_out<T, 1>(a, w, scale, bias, M, N, K, requant, out, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// K4. a (M, K) int8, w (N, K) int8, scale and bias (N,) f32, all contiguous
-// on the current device; out (M, N) int8 (requant = 1) or f32 (requant = 0),
-// 16-byte aligned. load (16, 4 or 1) is the copy width the operands allow
-// (ops/kernels/pw_conv.py::load_width); bm (128 or 64) the block tile
-// (pw_conv.py::tile_config). Launches on `stream`; returns
-// cudaGetLastError().
-int pw_conv_int8(const void* a, const void* w, const float* scale,
-                 const float* bias, int M, int N, int K, int requant, int load,
-                 int bm, void* out, void* stream) {
-  if (M < 1 || N < 1 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
+// The TMA map of the weight w (N, K) int8, K a multiple of 16,
+// w 16-byte aligned, in boxes of bn rows: written to map_out (128 bytes) by
+// the host, which keeps it as long as the weight (pw_conv.py caches it by
+// address and shape: a map holds no data, only them).
+int pw_conv_weight_map(const void* w, int N, int K, int bn, void* map_out) {
+  CUtensorMap map;
+  const cudaError_t e = byte_tensor_map(&map, w, N, K, bn);
+  if (e == cudaSuccess) memcpy(map_out, &map, sizeof map);
+  return static_cast<int>(e);
+}
+
+// K4. a (M, K) int8, K a multiple of 16, a 16-byte aligned; w_map:
+// pw_conv_weight_map's for this bn; scale and bias (N,) f32; out (M, N)
+// int8 (requant = 1) or f32 (0), 16-byte aligned. The tile, bm x bn (128 x
+// 64, 128 x 128 or 256 x 128: one or two m64 atoms a consumer warpgroup),
+// and grid (persistent blocks, at most one an SM) are pw_conv.py::plan's.
+// The activation's map is encoded here, per call.
+int pw_conv_int8_wgmma(const void* a, const void* w_map, const float* scale,
+                       const float* bias, int M, int N, int K, int requant, int bm, int bn,
+                       int grid, void* out, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || K % 16 || grid < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int8_t* pa = static_cast<const int8_t*>(a);
-  const int8_t* pw = static_cast<const int8_t*>(w);
-  if (bm == BigTile::BM)
-    return launch_tile<BigTile>(pa, pw, scale, bias, M, N, K, requant != 0, load, out, s);
-  if (bm == SmallTile::BM)
-    return launch_tile<SmallTile>(pa, pw, scale, bias, M, N, K, requant != 0, load, out, s);
+#define PW_WGMMA(MT, BN, RQ)                                                                  \
+  if (bm == 128 * MT && bn == BN && (requant != 0) == RQ)                                     \
+    return launch_wgmma<MT, BN, RQ>(a, w_map, scale, bias, M, N, K, grid, out, s);
+  PW_WGMMA(1, 64, true) PW_WGMMA(1, 128, true) PW_WGMMA(2, 128, true)
+  PW_WGMMA(1, 64, false) PW_WGMMA(1, 128, false) PW_WGMMA(2, 128, false)
+#undef PW_WGMMA
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -18,9 +18,14 @@ running (value, index) per probe instead, so memory traffic is O(M·D + N·D).
   reference's packed epilogue: the value ranked and reported is the
   distance key with its low 10 mantissa bits cleared.
 - ``nearest_neighbor_int8p`` (K2c): the same sweep against
-  ``pack_quantized_gallery``, whose row norms were computed once. K2b's
-  two-pass sweep on CUDA sums the rows' squares itself, in the sweep,
-  while the probes make at most ``NORMS_MAX_M_TILES`` block tiles.
+  ``pack_quantized_gallery``, whose row norms were computed once.
+
+The int8 sweep runs on ``wgmma`` fed by TMA at every shape: TMA copies
+rows of whole 16-byte words from 16-byte aligned bases, so the gallery's
+rows are zero-padded to whole words (``_pad_dim``, once at enrollment for
+K2c) and an operand whose base is off 16 bytes is copied (``_aligned``);
+zero columns change no dot. K2b's two-pass sweep sums the gallery rows'
+squares itself, in the sweep.
 
 Each wrapper routes by the device its tensors lie on: CPU tensors take the
 plain twin, CUDA tensors launch the kernel or raise. ``<wrapper>.launches``
@@ -29,7 +34,7 @@ server's threads rank at once. ``sweep_config`` picks the gallery splits here,
 where the CPU tests reach it; the int8 block tile, which follows from the
 kernel's shared memory, comes from ``knn.cu`` (``int8_tile``): the probe
 tile resident in shared memory where it fits, else streamed through the
-gallery's ring beside it (past 1536 bytes a row, e.g. the 4096-d
+gallery's ring beside it (past 1408 bytes a row, e.g. the 4096-d
 ``vggface_vgg16`` embeddings). The
 host-side arithmetic around the int8 kernels
 (scales, norms, the packed offset) is computed as the jitted reference
@@ -60,10 +65,7 @@ SERVE_TM, BATCH_TM = 16, 128    # probes a block of the tensor-core sweeps
 BF16_PER_SM = 2             # the bf16 sweep's streamed tile, 2 blocks an SM
 MAX_SPLITS = 65535          # the grid's y extent
 CUDA_ERROR_INVALID_VALUE = 1
-# K2b forms the gallery norms in the sweep while the probes make at most
-# this many tiles; each tile sums the squares again, and past it one host
-# pass costs less (an H100 timed both level at 32 tiles of 128 probes)
-NORMS_MAX_M_TILES = 32
+ROW_WORD = 16               # TMA copies int8 rows of whole 16-byte words
 
 
 # -- quantization --------------------------------------------------------
@@ -98,9 +100,9 @@ def _sumsq(q):
 
 
 def _pad_dim(q):
-    """Zero-pad the last axis to a multiple of 4 (whole 32-bit words for
-    ``__dp4a``); zero columns change no dot."""
-    pad = (-q.shape[1]) % 4
+    """Zero-pad the last axis to whole 16-byte words (``ROW_WORD``), the
+    rows TMA copies; zero columns change no dot or norm."""
+    pad = (-q.shape[1]) % ROW_WORD
     if pad:
         q = torch.nn.functional.pad(q, (0, pad))
     return q.contiguous()
@@ -118,7 +120,7 @@ def _pad_to(qa, width: int):
 
 
 class PackedGallery(NamedTuple):
-    q: torch.Tensor          # (N, Dp) int8, Dp a multiple of 4
+    q: torch.Tensor          # (N, Dp) int8, Dp a multiple of ROW_WORD
     b2i: torch.Tensor        # (N,) f32: sum of q² per row
     scale: torch.Tensor      # f32 0-dim
 
@@ -236,8 +238,9 @@ def _kernels():
                      ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                      ctypes.c_int, ctypes.c_uint, ctypes.c_int, *tail]
     int8.restype = ctypes.c_int
-    lib.knn_int8_tile.argtypes = [ctypes.c_int, ctypes.c_int,
-                                  ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.knn_int8_tile.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                  ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+                                  ctypes.POINTER(ctypes.c_int)]
     lib.knn_int8_tile.restype = ctypes.c_int
     f32 = lib.knn_f32
     f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -280,22 +283,34 @@ def sweep_config(m: int, n: int, sms: int, tm: int, per_sm: int) -> SweepConfig:
     return SweepConfig(tm, best[1], best[2])
 
 
+class Int8Tile(NamedTuple):
+    tm: int                  # probes a block
+    per_sm: int              # blocks an SM
+    streamed: bool           # the probe tile streams beside the gallery
+
+
 @functools.lru_cache(maxsize=1024)
-def int8_tile(m: int, dp: int, device_index: int):
-    """(probes a block, blocks an SM) of the int8 sweep for m probes of
-    ``dp`` bytes on a CUDA device, from ``knn.cu``'s ``knn_int8_tile``: the
-    resident probe tile, 16 probes at m <= 16 (one m16 MMA tile), else 128,
-    where it fits a block's shared memory; else the streamed 128-probe
-    tile, which fits at every width. Raises where ``dp`` is not whole
-    4-byte words."""
+def int8_tile(m: int, dp: int, device_index: int, stream: int = -1) -> Int8Tile:
+    """(probes a block, blocks an SM, streamed) of the int8 sweep for m
+    probes of ``dp`` bytes on a CUDA device, from ``knn.cu``'s
+    ``knn_int8_tile``: 128 probes (two ``wgmma`` warpgroups) at every m,
+    the probe tile resident where it fits a block's shared memory, else
+    streamed, which fits at every width. The serving query takes the
+    128-probe tile too: an H100 swept 16 probes x 1M rows faster on it than
+    on the earlier ``mma.sync`` design's 16-probe one (0.216 against
+    0.274-0.278 ms of device time at D 512, 1.77-1.78 against 2.16-2.20 ms
+    a call at D 4096), the gallery's bytes bounding both. ``stream`` 0 or 1 asks for the resident or the streamed tile
+    (-1: the rule). Raises where ``dp`` is not whole 16-byte words or the
+    resident tile asked for does not fit."""
     lib = _kernels()[0]
-    tm, per_sm = ctypes.c_int(), ctypes.c_int()
+    tm, per_sm, streamed = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(device_index):
-        code = lib.knn_int8_tile(m, dp, ctypes.byref(tm), ctypes.byref(per_sm))
+        code = lib.knn_int8_tile(m, dp, stream, ctypes.byref(tm), ctypes.byref(per_sm),
+                                 ctypes.byref(streamed))
     if code == CUDA_ERROR_INVALID_VALUE:
-        raise ValueError(f"int8 1-NN: a {dp}-byte row is not whole 4-byte words")
+        raise ValueError(f"int8 1-NN: no tile for {dp}-byte rows (stream={stream})")
     build.check(lib, code, "knn_int8_tile")
-    return tm.value, per_sm.value
+    return Int8Tile(tm.value, per_sm.value, bool(streamed.value))
 
 
 def bf16_tile(m: int) -> int:
@@ -336,26 +351,26 @@ def _aligned(t, align: int):
     return t if t.data_ptr() % align == 0 else t.clone()
 
 
-def _rank_int8_cuda(qa, qb, b2v, pack_idx: bool, c=None, valid_n: int = 0):
-    """Launch the int8 sweep; qb must already be padded to whole words.
-    ``b2v=None``: the kernel forms the two-pass b2v itself from the rows'
-    squares, the device scalar ``c`` and ``valid_n``."""
+def _rank_int8_cuda(qa, qb, b2v, pack_idx: bool, c=None, valid_n: int = 0,
+                    stream: int = -1):
+    """Launch the int8 sweep, its rows zero-padded to whole 16-byte words
+    and its bases on 16 bytes first where they are not. ``b2v=None``: the
+    kernel forms the two-pass b2v itself from the rows' squares, the device
+    scalar ``c`` and ``valid_n``. ``stream`` (the probe tile,
+    ``int8_tile``'s) is for measuring one against another."""
     dev = _check_cuda("int8 1-NN", qa, qb, b2v if b2v is not None else c)
-    qa = _pad_to(qa, qb.shape[1]).contiguous()
+    qb = _aligned(_pad_dim(qb), ROW_WORD)
+    qa = _aligned(_pad_to(qa, qb.shape[1]).contiguous(), ROW_WORD)
     m, dp = qa.shape
     n = qb.shape[0]
-    if dp % 4 or not qb.is_contiguous():
-        raise ValueError(f"gallery must be contiguous int8 rows of whole "
-                         f"words, got {tuple(qb.shape)}")
-    qa, qb = _aligned(qa, 4), _aligned(qb, 4)
-    load = 16 if dp % 16 == 0 and qa.data_ptr() % 16 == 0 and qb.data_ptr() % 16 == 0 else 4
-    cfg = sweep_config(m, n, _sms(dev), *int8_tile(m, dp, dev.index))
+    tile = int8_tile(m, dp, dev.index, stream)
+    cfg = sweep_config(m, n, _sms(dev), tile.tm, tile.per_sm)
     lib, fn = _kernels()[:2]
     mask = (PACK_MASK if pack_idx else -1) & 0xFFFFFFFF
     return _launch("knn_int8", fn, lib, m, cfg, dev,
                    (qa.data_ptr(), qb.data_ptr(),
                     None if b2v is None else b2v.data_ptr(),
-                    None if c is None else c.data_ptr(), valid_n, m, n, dp, mask, load))
+                    None if c is None else c.data_ptr(), valid_n, m, n, dp, mask, stream))
 
 
 def _check_int8_args(probes, q_gallery):
@@ -443,22 +458,15 @@ def nearest_neighbor_int8q(probes, q_gallery, g_scale, valid_n=None,
     port runs. On CUDA the two-pass sweep sums the gallery rows' squares
     itself, so a call makes no pass over the gallery but the kernel's; the
     packed epilogue needs the largest norm first, so it (and the CPU's
-    plain twin) takes ``pack_quantized_gallery`` and then K2c's sweep.
-    Every probe tile sums the squares again, so past
-    ``NORMS_MAX_M_TILES`` tiles the two-pass sweep takes that host pass
-    too."""
+    plain twin) takes ``pack_quantized_gallery`` and then K2c's sweep."""
     _check_int8_args(probes, q_gallery)
     if not (pack_idx or _on_cpu(probes, q_gallery)):
-        dev = _check_cuda("nearest_neighbor_int8q", probes, q_gallery)
-        m, dp = probes.shape[0], -(-q_gallery.shape[1] // 4) * 4
-        tm, _ = int8_tile(m, dp, dev.index)
-        if -(-m // tm) <= NORMS_MAX_M_TILES:
-            ops = _int8_operands(probes, None, g_scale, valid_n, False)
-            emin, idx = _rank_int8_cuda(ops.qa, _pad_dim(q_gallery), None, False,
-                                        c=ops.c,
-                                        valid_n=_valid_rows(q_gallery.shape[0], valid_n))
-            build.count_launch(nearest_neighbor_int8q)
-            return _int8_distances(ops, emin, False), idx
+        _check_cuda("nearest_neighbor_int8q", probes, q_gallery)
+        ops = _int8_operands(probes, None, g_scale, valid_n, False)
+        emin, idx = _rank_int8_cuda(ops.qa, q_gallery, None, False, c=ops.c,
+                                    valid_n=_valid_rows(q_gallery.shape[0], valid_n))
+        build.count_launch(nearest_neighbor_int8q)
+        return _int8_distances(ops, emin, False), idx
     return _nn_int8(probes, pack_quantized_gallery(q_gallery, g_scale), valid_n,
                     pack_idx, nearest_neighbor_int8q)
 

@@ -227,6 +227,34 @@ def test_pw_conv_plain_matches_jax_and_pallas(m, c, cout):
     assert tpw.pw_conv_int8.launches == before
 
 
+# (M, K, N) at the CUDA kernel's edges, on small M: pw1 (K 32 -> N 64,
+# packed two pixels a 64-byte TMA row) and pw13 (K 1024 -> N 1024, f32
+# out); K 8 and K 36, off whole 16-byte words, which the launch zero-pads
+# (the Pallas kernel packs 128 / K pixels a row, so M is a multiple of that)
+@pytest.mark.parametrize("m,c,cout", [(16, 32, 64), (13, 1024, 1024), (32, 8, 64),
+                                      (21, 36, 64)])
+def test_pw_conv_plain_matches_pallas_at_route_edges(m, c, cout):
+    """The plain version bit-equal to the interpret-mode Pallas kernel, int8
+    and f32 out, where the kernel packs the layer; K 36 it does not pack
+    (``pack_pw_weights`` gives None and the JAX package takes its jitted
+    XLA form), so there the plain version meets that form."""
+    rng = np.random.RandomState(7 * m + c + cout)
+    a = rng.randint(0, 128, (1, 1, m, c)).astype(np.int8)
+    q, scale, bias = _random_layer(rng, c, cout)
+    args = (_t(a.reshape(m, c)), _t(q.T), _t(scale), _t(bias))
+    packed = pack_pw_weights(q, scale, bias)
+    assert (packed is None) == (c == 36)
+    for requant in (True, False):
+        got = tpw.pw_conv_int8_plain(*args, requant=requant).numpy()
+        if packed is None:
+            want = (_jax_pw_requant if requant else _jax_pw)(a, q, scale, bias)
+        else:
+            wp, sp, bp, p = packed
+            want = pw_conv_int8_pallas(jnp.asarray(a), wp, sp, bp, p, requant=requant,
+                                       interpret=True)
+        np.testing.assert_array_equal(got, np.asarray(want).reshape(m, cout))
+
+
 def test_pw_conv_accumulator_is_exact():
     """The dot at the int8 extremes, K = 1024: equal to numpy's int64."""
     rng = np.random.RandomState(5)

@@ -242,10 +242,10 @@ def test_knn_wrappers_reject_other_devices():
 
 
 # (M, N, D): ragged and tiny, tile edges, the serving shapes; then D off
-# whole 32- and 64-byte K steps (30, 100, 1000: 4-byte copies where D % 16
-# != 0) and M at the probe tiles' edges (16 and 128 probes a block); then
-# widths past the resident 128-probe tile, where it streams (1700: 4-byte
-# copies; 4096: vggface_vgg16's), and the 16-probe tile at 4096
+# whole 32- and 64-byte K steps (30, 100, 1000: rows zero-padded to whole
+# 16-byte words) and M at the edges of 16 probes (the serving size) and of
+# the 128-probe tile; then widths past the resident probe tile, where it
+# streams (1700, padded; 4096: vggface_vgg16's), and a serving query at 4096
 KNN_CARD_SHAPES = [(1, 5, 30), (7, 129, 64), (37, 1000, 30), (1, 100_000, 512),
                    (16, 100_000, 512), (300, 20_000, 512), (1, 300, 1000),
                    (16, 777, 100), (17, 5000, 100), (128, 3000, 1000),
@@ -296,47 +296,107 @@ def test_knn_int8_kernel_ties_and_valid_n_on_card(cuda, pack_idx):
 
 @pytest.mark.cuda
 def test_knn_int8_tile_on_card(cuda):
-    """The int8 block tile from the kernel's shared memory: 16 probes at M
-    <= 16; 128 and two blocks an SM at D = 512; 128 and one at D = 1024
-    (the 128 KB probe tile, within 227 KB); at D = 4096 the streamed
-    128-probe tile, two blocks an SM (99.5 KB each)."""
+    """The int8 block tile from the kernel's shared memory: 128 probes (two
+    wgmma warpgroups) at every M, resident and two blocks an SM at D = 512
+    (a 5-stage ring), resident and one at D = 1024 and 1408, streamed past
+    it (two blocks an SM at D = 4096); either tile on request where it
+    fits; rows of part 16-byte words refused (the wrapper pads them)."""
     idx = torch.cuda.current_device()
-    assert knn.int8_tile(16, 512, idx) == (16, 2)
-    assert knn.int8_tile(8192, 512, idx) == (128, 2)
-    assert knn.int8_tile(2048, 1024, idx) == (128, 1)
-    assert knn.int8_tile(8192, 4096, idx) == (128, 2)
+    assert knn.int8_tile(1, 64, idx) == (128, 2, False)
+    assert knn.int8_tile(16, 512, idx) == (128, 2, False)
+    assert knn.int8_tile(8192, 512, idx) == (128, 2, False)
+    assert knn.int8_tile(8192, 512, idx, 1) == (128, 2, True)
+    assert knn.int8_tile(2048, 1024, idx) == (128, 1, False)
+    assert knn.int8_tile(2048, 1408, idx) == (128, 1, False)
+    assert knn.int8_tile(2048, 1424, idx) == (128, 2, True)
+    assert knn.int8_tile(8192, 4096, idx) == (128, 2, True)
+    with pytest.raises(ValueError):
+        knn.int8_tile(8192, 4096, idx, 0)      # 512 KB: no resident tile
+    with pytest.raises(ValueError):
+        knn.int8_tile(8192, 1000, idx)         # part 16-byte words
 
 
 @pytest.mark.cuda
 def test_knn_sweep_config_falls_back_to_the_small_tile(cuda):
-    """The small tile is a fallback no more. Past D = 1536 the resident
-    128-probe tile no longer fits and the probe tile streams: 128 probes,
-    two blocks an SM, at every width. The 16-probe tile keeps M <= 16 while
-    its resident tile fits (D = 4096: 64 KB; D = 8192: 128 KB, one block an
-    SM) and gives way to the streamed 128 past it. No width is too wide;
-    only a row of part words is refused."""
+    """The small tile is a fallback no more, nor a tile at all: serving
+    queries take the 128-probe tile too, and past D = 1408 the resident
+    probe tile no longer fits and streams, 128 probes and two blocks an SM
+    at every width. No width is too wide; only a row of part 16-byte words
+    is refused."""
     idx = torch.cuda.current_device()
-    assert knn.int8_tile(4096, 2048, idx) == (128, 2)
-    assert knn.int8_tile(4096, 16384, idx) == (128, 2)
-    assert knn.int8_tile(16, 4096, idx) == (16, 2)
-    assert knn.int8_tile(16, 8192, idx) == (16, 1)
-    assert knn.int8_tile(16, 16384, idx) == (128, 2)
+    assert knn.int8_tile(4096, 2048, idx) == (128, 2, True)
+    assert knn.int8_tile(4096, 16384, idx) == (128, 2, True)
+    assert knn.int8_tile(4096, 1008, idx) == (128, 1, False)
+    assert knn.int8_tile(16, 4096, idx) == (128, 2, True)
+    assert knn.int8_tile(16, 16384, idx) == (128, 2, True)
+    sms = knn._sms(cuda)
+    assert knn.sweep_config(16, 1 << 20, sms, 128, 2).splits >= 2 * sms
     with pytest.raises(ValueError):
         knn.int8_tile(4096, 6, idx)
 
 
+# (M, D) of the int8 sweep: past the 16-probe serving size, ragged against
+# the 128-probe tile; narrow, the design point's width (resident probe
+# tile) and vggface_vgg16's (streamed); then serving queries of 1 and 16
+# probes
+KNN_WGMMA_SHAPES = [(m, d) for m in (17, 300, 1000) for d in (64, 512, 4096)] + [
+    (1, 512), (16, 4096)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("in_sweep", [True, False])
+@pytest.mark.parametrize("pack_idx", [False, True])
+@pytest.mark.parametrize("m,d", KNN_WGMMA_SHAPES)
+def test_knn_int8_wgmma_route_equals_plain_on_card(cuda, m, d, pack_idx):
+    """K2b/K2c on wgmma fed by TMA, bit-equal to the twin: ties, valid_n
+    inside and at the 128-row tile edges, both epilogues; the resident and
+    the streamed probe tile where both fit; a gallery whose base is off 16
+    bytes (the wrapper copies it) and one of rows 4 bytes short of whole
+    16-byte words (the wrapper pads them)."""
+    rng = np.random.RandomState(m * 7 + d)
+    n = 3001
+    g = _unit_rows(rng, n, d)
+    g[n // 2:n // 2 + 3] = g[1:4]              # exact ties with lower rows
+    p = _t(_unit_rows(rng, m, d)).to(cuda)
+    qb, sb = knn.quantize_embeddings(_t(g).to(cuda))
+    packed = knn.pack_quantized_gallery(qb, sb)
+    assert packed.q.shape[1] == d and packed.q.data_ptr() % 16 == 0
+    for valid_n in (None, 2000, 129, 128):
+        want = knn.nearest_neighbor_int8_plain(p, qb, sb, valid_n=valid_n, pack_idx=pack_idx)
+        got = knn.nearest_neighbor_int8q(p, qb, sb, valid_n=valid_n, pack_idx=pack_idx)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].cpu().numpy())
+        np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].cpu().numpy())
+    want = knn.nearest_neighbor_int8_plain(p, qb, sb, pack_idx=pack_idx)
+    ops = knn._int8_operands(p, packed.b2i, sb, None, pack_idx)
+    tiles = [-1] + ([0, 1] if d <= 1408 else [])
+    for stream in tiles:
+        emin, idx = knn._rank_int8_cuda(ops.qa, packed.q, ops.b2v, pack_idx,
+                                        stream=stream)
+        got = knn._int8_distances(ops, emin, pack_idx)
+        np.testing.assert_array_equal(idx.cpu().numpy(), want[1].cpu().numpy())
+        np.testing.assert_array_equal(got.cpu().numpy(), want[0].cpu().numpy())
+    off = torch.empty(n * d + 4, dtype=torch.int8, device=cuda)[4:].view(n, d)
+    off.copy_(qb)
+    got = knn.nearest_neighbor_int8q(p, off, sb, pack_idx=pack_idx)
+    np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].cpu().numpy())
+    np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].cpu().numpy())
+    short = d - 4
+    want = knn.nearest_neighbor_int8_plain(p[:, :short], qb[:, :short].contiguous(), sb,
+                                           pack_idx=pack_idx)
+    got = knn.nearest_neighbor_int8q(p[:, :short], qb[:, :short].contiguous(), sb,
+                                     pack_idx=pack_idx)
+    np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].cpu().numpy())
+    np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].cpu().numpy())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m,n,d", [(5, 5000, 100), (129, 3001, 1000),
                                    (129, 3001, 2000)])
-def test_knn_int8q_norms_in_sweep_under_valid_n_on_card(cuda, monkeypatch, m, n, d,
-                                                        in_sweep):
-    """K2b's two-pass sweep forms b2v from the rows' squares itself, or past
-    ``NORMS_MAX_M_TILES`` probe tiles takes it from one host pass: one
-    launch, bit-equal to the twin with valid_n inside, at and past the
-    128-row tile edges."""
-    if not in_sweep:
-        monkeypatch.setattr(knn, "NORMS_MAX_M_TILES", 0)
+def test_knn_int8q_norms_in_sweep_under_valid_n_on_card(cuda, m, n, d):
+    """K2b's two-pass sweep forms b2v from the rows' squares itself (rows
+    padded to whole 16-byte words at D 100 and 1000, the probe tile
+    streamed at 2000): one launch, bit-equal to the twin with valid_n
+    inside, at and past the 128-row tile edges."""
     rng = np.random.RandomState(n + d)
     g = _t(_unit_rows(rng, n, d)).to(cuda)
     p = _t(_unit_rows(rng, m, d)).to(cuda)
@@ -436,12 +496,22 @@ def test_pw_conv_wrapper_rejects_other_devices(rng):
 
 
 # (M, K, N): pw1 at one 112² image; pw13 at a 7² image ragged against the
-# 64-row tile, f32 out; K and N off whole words (the byte-wise load path);
-# then M from one row to a 128 x 128-tile grid, K on each copy width (30:
-# bytes, 52: 4-byte, 1024: 16-byte) and N off and on whole 16-byte stores
+# 128-row tile, f32 out; K and N off whole words; then M from one row to
+# many tiles a block, K off whole 16-byte words (30, 52: zero-padded to 32
+# and 64) and on them (1024), and N off and on whole 16-byte stores
 PW_CARD_SHAPES = [(12544, 32, 64), (49, 1024, 1024), (1000, 30, 50)] + [
     (m, k, n) for m in (1, 17, 784, 200704) for k in (30, 52, 1024)
     for n in (50, 64, 1024)]
+# the 13 pointwise layers of MobileNet-V1 at 224², (M at a head batch of
+# 16 faces, K, N); then ragged M and N (K % 16 == 0):
+# one row, M off the 128-row tile, N off the 64-channel tile and off whole
+# 16-byte stores, N above 256 off every tile width; K 16 and 32 packed 4
+# and 2 pixels a row, and K 32 at an odd M (not packed)
+PW_LAYER_SHAPES = [(12544 * 16, 32, 64), (3136 * 16, 64, 128), (3136 * 16, 128, 128),
+                   (784 * 16, 128, 256), (784 * 16, 256, 256), (196 * 16, 256, 512),
+                   (196 * 16, 512, 512), (49 * 16, 512, 1024), (49 * 16, 1024, 1024)]
+PW_WGMMA_RAGGED = [(1, 64, 64), (1000, 64, 50), (129, 512, 1000), (777, 96, 200),
+                   (300, 1024, 72), (5000, 16, 8), (777, 32, 64), (1002, 32, 50)]
 
 
 @pytest.mark.cuda
@@ -457,6 +527,49 @@ def test_pw_conv_kernel_equals_plain_on_card(cuda, m, k, n, requant):
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
     if requant:
         assert 0 < int(got.to(torch.int32).sum()) and int(got.max()) <= 127
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("requant", [True, False])
+@pytest.mark.parametrize("m,k,n", PW_LAYER_SHAPES + PW_WGMMA_RAGGED)
+def test_pw_conv_wgmma_route_equals_plain_on_card(cuda, m, k, n, requant):
+    """K4 on wgmma fed by TMA (persistent blocks, every tile the plan gives
+    these shapes), bit-equal to the plain version, int8 and f32 out. An
+    activation or a weight off 16 bytes is copied first and equal too."""
+    ops = _pw_operands(np.random.RandomState(m + 3 * k + n), m, k, n, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert pw_conv.plan(m, n, k, sms).grid <= sms
+    before = pw_conv.pw_conv_int8.launches
+    got = pw_conv.pw_conv_int8(*ops, requant=requant)
+    want = pw_conv.pw_conv_int8_plain(*ops, requant=requant)
+    torch.cuda.synchronize()
+    assert pw_conv.pw_conv_int8.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    if m > 1:
+        # the same product from an activation 8 bytes off 16, then a weight 4 off
+        a_off = torch.empty(m * k + 8, dtype=torch.int8, device=cuda)[8:].view(m, k)
+        a_off.copy_(ops[0])
+        got = pw_conv.pw_conv_int8(a_off, *ops[1:], requant=requant)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+        w_off = torch.empty(n * k + 4, dtype=torch.int8, device=cuda)[4:].view(n, k)
+        w_off.copy_(ops[1])
+        got = pw_conv.pw_conv_int8(ops[0], w_off, *ops[2:], requant=requant)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("requant", [True, False])
+@pytest.mark.parametrize("tile", sorted(pw_conv.TILES))
+@pytest.mark.parametrize("m,k,n", [(777, 96, 200), (3000, 1024, 300)])
+def test_pw_conv_wgmma_every_tile_on_card(cuda, m, k, n, tile, requant):
+    """Each tile K4 has (128 x 64, 128 x 128, 256 x 128), forced,
+    bit-equal to the plain version at ragged M and N, int8 and f32 out: the
+    persistent blocks walk several tiles each."""
+    ops = _pw_operands(np.random.RandomState(m + k + n + tile[1]), m, k, n, cuda)
+    got = pw_conv.launch(*ops, requant=requant, tile=tile)
+    want = pw_conv.pw_conv_int8_plain(*ops, requant=requant)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
 @pytest.mark.cuda

@@ -73,7 +73,7 @@ def test_quantize_embeddings_three_call_paths(path):
 
 @pytest.mark.parametrize("pack_idx", [False, True])
 @pytest.mark.parametrize("m,n,d", [(1, 5, 16), (13, 300, 30), (37, 700, 64),
-                                   (9, 300, 4096)])
+                                   (9, 300, 4096), (23, 400, 100)])
 def test_int8q_twin_matches_interpret_kernel(m, n, d, pack_idx):
     rng = np.random.RandomState(m * 1000 + n)
     p, g = _unit_rows(rng, m, d), _unit_rows(rng, n, d)
@@ -85,7 +85,7 @@ def test_int8q_twin_matches_interpret_kernel(m, n, d, pack_idx):
 
 
 @pytest.mark.parametrize("pack_idx", [False, True])
-@pytest.mark.parametrize("m,n,d", [(21, 333, 30), (9, 300, 4096)])
+@pytest.mark.parametrize("m,n,d", [(21, 333, 30), (9, 300, 4096), (21, 333, 100)])
 def test_int8p_twin_matches_interpret_kernel(pack_idx, m, n, d):
     rng = np.random.RandomState(11)
     p, g = _unit_rows(rng, m, d), _unit_rows(rng, n, d)
@@ -94,7 +94,7 @@ def test_int8p_twin_matches_interpret_kernel(pack_idx, m, n, d):
     want = jk.nearest_neighbor_tpu_int8p(jnp.asarray(p), *packed, interpret=True,
                                          pack_idx=pack_idx, **_TILES)
     mine = tk.pack_quantized_gallery(_t(qb), _t(sb))
-    assert mine.q.shape == (n, -(-d // 4) * 4) and mine.b2i.shape == (n,)
+    assert mine.q.shape == (n, -(-d // 16) * 16) and mine.b2i.shape == (n,)
     got = tk.nearest_neighbor_int8p(_t(p), *mine, pack_idx=pack_idx)
     _assert_bit_equal(got, want)
     # K2c and K2b agree on the same gallery
