@@ -137,13 +137,29 @@ kernels are built for sm_90a). It:
    the CPU tests' bounds; then ``dryrun_multichip(4)``. Virtual shards
    measure the mesh's bookkeeping and extra launches, not scaling over
    cards;
-11. runs the port's benchmark, ``python -m hse_facerec_torch.bench --quick``
+11. phase ``tiers``, in a child process started without
+   ``set_parity_numerics`` (torch's own flags: TF32 in cuDNN convs): the
+   ``fp32_precision`` flags govern cuDNN convs and cuBLAS matmuls on the
+   card (a conv and a matmul at each tier against float64); the default
+   ``FacialAnalyzer`` (``analyze`` and ``analyze_batch``) and
+   ``build_extractor("vgg2_mobilenet")`` give answers bit-equal to the
+   same runs after ``set_parity_numerics``; the drift of the "high" and
+   "default" tiers and of bf16 ``compute_dtype`` against "highest", and the
+   median of 7 times by CUDA events, for ``analyze``, ``analyze_batch`` at
+   8 and the two-model ``analyze`` (each launching K1, counted from 0),
+   each f32 zoo embed at batch 64 and a face-ID training forward at 256;
+   two threads, one running ``analyze``
+   at "highest" and one a zoo embed at "default", 20 rounds, the
+   "highest" answers bit-equal to a solo run;
+12. runs the port's benchmark, ``python -m hse_facerec_torch.bench --quick``
    (the JAX bench's paths at its configurations, each timed once) in a
    child process: every key of the JAX bench's ``extra`` present, finite
    and positive, K1, K2a (bf16), K2c, K3 and K4 launched, the compact line
    printed.
 The K1 checks and the K4 checks at batch 1024 and at 192² run in child
 processes too: profiler sessions late in one process lose kernel records.
+The parent and the other children call ``set_parity_numerics`` first, as
+they did before each forward held its own tier; no answer depends on it.
 Each path runs with the launch counters set to 0 just before it and read
 just after, and fails if it did not launch its kernels.
 Weights are the shipped ones when present, seeded random ones otherwise.
@@ -419,6 +435,19 @@ MESH_EMBED = 1024
 MESH_TRAIN_SHAPE = (2, 2)
 MESH_STEPS, MESH_PAIRS = 3, 3
 MESH_TOL = {"distance": 1e-4, "embed": 1e-4, "age": 1e-3, "identity": 1e-3, "loss": 1e-4}
+# phase tiers: the precision tiers (numerics.py) against "highest", and bf16
+# compute_dtype at "highest"; every f32 zoo entry at ZOO_BATCH; a face-ID
+# training forward at TRAIN_BATCH x TRAIN_SIZE² (width 1.0, TRAIN_CLASSES)
+TIERS = ("highest", "high", "default")
+TIER_VARIANTS = (("highest", torch.float32), ("high", torch.float32),
+                 ("default", torch.float32), ("bf16", torch.bfloat16))
+TIER_REPEATS = 7
+TIER_ZOO = ("agegender_identity", "vgg2_mobilenet", "vgg2_resnet", "insightface_arcface",
+            "vggface_vgg16", "vggface_resnet50")
+TIER_THREAD_ROUNDS = 20
+# a TF32 conv or matmul of O(1) operands is off float64 by ~1e-4 relative,
+# an IEEE one by ~1e-7: each TF32 tier must be this many times further off
+TIER_TF32_FACTOR = 10.0
 
 T_START = time.perf_counter()
 
@@ -599,16 +628,18 @@ def check_crop_kernel(rng):
         results[name] = check_crop_site(name, images, boxes, 224, 1, "clamp", lanes)
     return results
 
-def apart(call: str, what: str):
+def apart(call: str, what: str, parity: bool = True):
     """``call`` (a Python expression over ``cs``, this module) in a child
     process, the child's lines printed here, its last line's JSON
     returned. Profiler sessions late in one process lose kernel records
     (K3's one-call check after the K1 checks saw no kernel; K4's layers at
     batch 1024 after the album kept 4 or 5 of 10, and one layer none; H100
-    runs), where the same sessions in a fresh process keep them."""
+    runs), where the same sessions in a fresh process keep them. With
+    ``parity`` the child calls ``set_parity_numerics`` first; without, it
+    starts from torch's own flags."""
     code = ("import json, numpy as np, torch, chip_smoke as cs\n"
-            "cs.set_parity_numerics()\n"
-            f"print(json.dumps({call}))\n")
+            + ("cs.set_parity_numerics()\n" if parity else "")
+            + f"print(json.dumps({call}))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=os.path.dirname(os.path.abspath(__file__)), timeout=900)
     lines = out.stdout.strip().splitlines()
@@ -3770,6 +3801,331 @@ def multichip_path(mtcnn_params, mh_params):
     return path_launches, numbers
 
 
+def fp32_flags() -> dict:
+    """torch's global flags, as the tiers set them."""
+    return {"matmul": torch.backends.cuda.matmul.fp32_precision,
+            "cudnn_conv": torch.backends.cudnn.conv.fp32_precision}
+
+
+def event_median_ms(fn, repeats: int = TIER_REPEATS) -> float:
+    """Median of ``repeats`` calls of ``fn`` timed by CUDA events (after one
+    untimed call), host gaps inside a call included."""
+    fn()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def tier_flag_check() -> dict:
+    """The ``fp32_precision`` flags govern the card: a conv (cuDNN) and a
+    matmul (cuBLAS) of O(1) operands at each tier against float64. Each
+    TF32 tier must be ``TIER_TF32_FACTOR`` times further off than
+    "highest". Returns the relative errors."""
+    from hse_facerec_torch.numerics import precision_scope
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 131)
+    x = torch.randn(16, 64, 56, 56, device="cuda", generator=gen)
+    w = torch.randn(128, 64, 3, 3, device="cuda", generator=gen) / 24.0
+    a = torch.randn(1024, 1024, device="cuda", generator=gen)
+    b = torch.randn(1024, 1024, device="cuda", generator=gen) / 32.0
+    refs = {"conv": F.conv2d(x.double(), w.double(), padding=1), "matmul": a.double() @ b.double()}
+    errs = {}
+    for tier in TIERS:
+        with precision_scope(tier):
+            got = {"conv": F.conv2d(x, w, padding=1), "matmul": a @ b}
+        errs[tier] = {k: float((got[k].double() - refs[k]).norm() / refs[k].norm())
+                      for k in refs}
+    for tier in ("high", "default"):
+        for k in refs:
+            if not errs[tier][k] > TIER_TF32_FACTOR * errs["highest"][k]:
+                raise AssertionError(f"tiers: {k} at {tier!r} is not TF32 on the card: {errs}")
+    print("tiers: the fp32_precision flags govern the card (relative error against "
+          "float64): " + json.dumps(errs))
+    return errs
+
+
+def faces_bits(faces_lists) -> list:
+    """Every number of per-image FaceResult lists, for bit comparison."""
+    return [[(f.bbox, f.raw_bbox, f.score, f.age, f.gender_prob,
+              f.identity.tobytes(), np.asarray(f.landmarks).tobytes()) for f in faces]
+            for faces in faces_lists]
+
+
+def tier_fault_check(mtcnn_params, mh_params, images, batch, ex, embed_imgs) -> dict:
+    """The default analyzer (``analyze`` on each photo, ``analyze_batch`` on
+    a batch of 8) and ``build_extractor("vgg2_mobilenet")`` from torch's own
+    flags, then after ``set_parity_numerics``: every answer bit-equal. The
+    flags are put back after."""
+    an = FacialAnalyzer(mtcnn_params, mh_params, device="cuda")
+
+    def run():
+        return (faces_bits([an.analyze(img) for img in images]),
+                faces_bits(an.analyze_batch(batch)), ex.extract_batch(embed_imgs))
+
+    start = fp32_flags()
+    own = run()
+    set_parity_numerics()
+    parity = run()
+    torch.backends.cuda.matmul.fp32_precision = start["matmul"]
+    torch.backends.cudnn.conv.fp32_precision = start["cudnn_conv"]
+    same = {"analyze": own[0] == parity[0], "analyze_batch": own[1] == parity[1],
+            "vgg2_mobilenet": bool(np.array_equal(own[2], parity[2]))}
+    faces = sum(len(f) for f in own[0]) + sum(len(f) for f in own[1])
+    print(f"tiers: torch's own flags {json.dumps(start)}; the default analyzer "
+          f"({len(images)} photos and a batch of {len(batch)}, {faces} faces) and "
+          f"build_extractor('vgg2_mobilenet') at batch {len(embed_imgs)} bit-equal "
+          f"with and without set_parity_numerics: {json.dumps(same)}")
+    if not all(same.values()):
+        raise AssertionError(f"tiers: an answer depends on the global flags: {same}")
+    return {"flags": start, "faces": faces, **same}
+
+
+def bf16_heads(params, device):
+    """The multi-head heads with the backbone at bf16 ``compute_dtype``
+    (the bench's bf16 inference tier), for the drift table."""
+    from hse_facerec_torch.pipelines.heads import MultiheadHeads
+
+    heads = MultiheadHeads(params, device)
+    heads.forward = lambda p, x: multihead_apply(p, x, torch.bfloat16)
+    return heads
+
+
+def faces_drift(got, want) -> dict:
+    """Per-image face lists against the "highest" ones: whether the counts
+    are equal, and over the images whose counts are, the worst box (px),
+    age and P(male) differences and the least identity cosine."""
+    counts = [len(g) == len(w) for g, w in zip(got, want)]
+    pairs = [(a, b) for g, w, ok in zip(got, want, counts) if ok for a, b in zip(g, w)]
+    out = {"counts_equal": all(counts), "faces": sum(len(w) for w in want),
+           "box_px": 0.0, "age": 0.0, "gender": 0.0, "min_cos": 1.0}
+    for a, b in pairs:
+        out["box_px"] = max(out["box_px"], float(np.abs(np.subtract(a.raw_bbox,
+                                                                     b.raw_bbox)).max()))
+        out["age"] = max(out["age"], abs(a.age - b.age))
+        out["gender"] = max(out["gender"], abs(a.gender_prob - b.gender_prob))
+        if a.identity.size:
+            out["min_cos"] = min(out["min_cos"], float(cosine(a.identity, b.identity)))
+    return out
+
+
+def rows_drift(got, want) -> dict:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return {"max_abs": float(np.abs(got - want).max()),
+            "min_cos": float(np.min(cosine(got.reshape(len(got), -1),
+                                           want.reshape(len(want), -1))))}
+
+
+def tier_row(path: str, label: str, ms: float, drift: dict, unit: str) -> dict:
+    print(f"tiers {path} | {label} | {ms:.3f} {unit} | " + json.dumps(drift))
+    return {"ms": ms, **drift}
+
+
+def tier_analyze_rows(mtcnn_params, mh_params, images, batch, pbs) -> dict:
+    """analyze (ms per photo), analyze_batch at 8 (ms per batch) and the
+    two-model analyze at each variant against "highest"; the launch
+    counts set to 0 just before each path's first call and read just
+    after: K1 must have run."""
+    from hse_facerec_torch.pipelines.heads import MultiheadHeads, TwoModelHeads
+
+    rows = {"analyze": {}, f"analyze_batch_{len(batch)}": {}, "two_model_analyze": {}}
+    base = {}
+    for label, dtype in TIER_VARIANTS:
+        tier = "highest" if label == "bf16" else label
+        heads = (bf16_heads(mh_params, "cuda") if label == "bf16"
+                 else MultiheadHeads(mh_params, "cuda", precision=tier))
+        an = FacialAnalyzer(mtcnn_params, device="cuda", precision=tier, heads=heads,
+                            batch_head_total=ROOMY_SLOTS)
+        runs = {"analyze": (lambda: [an.analyze(img) for img in images], len(images),
+                            "ms/photo"),
+                f"analyze_batch_{len(batch)}": (lambda: an.analyze_batch(batch), 1,
+                                                "ms/batch")}
+        if label != "bf16":           # the graph compiler has no compute_dtype
+            two = FacialAnalyzer(mtcnn_params, device="cuda", precision=tier,
+                                 heads=TwoModelHeads(pbs["age"], pbs["gender"], "cuda",
+                                                     precision=tier))
+            runs["two_model_analyze"] = (lambda: [two.analyze(img) for img in images],
+                                         len(images), "ms/photo")
+        for path, (call, per, unit) in runs.items():
+            reset_launches()
+            out = call()
+            k1 = kernel_launches()["crop_resize"]
+            if k1 <= 0:
+                raise AssertionError(f"tiers: {path} at {label} launched no crop_resize")
+            base.setdefault(path, out)
+            ms = event_median_ms(call) / per
+            rows[path][label] = tier_row(path, label, ms, {
+                "k1_launches": k1, **faces_drift(out, base[path])}, unit)
+    return rows
+
+
+def tier_zoo_params():
+    """Seeded params of every f32 zoo entry (as the zoo and new zoo phases
+    seed them), and the forward of each at bf16 ``compute_dtype`` (None
+    where the model has none)."""
+    from hse_facerec_torch.models.arcface import init_iresnet_params, iresnet_embed
+    from hse_facerec_torch.models.mobilenet import mobilenet_embed
+    from hse_facerec_torch.models.resnet import resnet50_embed
+    from hse_facerec_torch.models.vgg16 import init_vgg16_params
+    from hse_facerec_torch.testing import random_mobilenet_params, random_resnet50_params
+
+    resnet = random_resnet50_params(np.random.RandomState(SEED + 53))
+    params = {"agegender_identity": random_multihead_params(np.random.RandomState(SEED + 100)),
+              "vgg2_mobilenet": random_mobilenet_params(np.random.RandomState(SEED + 51)),
+              "vgg2_resnet": resnet, "vggface_resnet50": resnet,
+              "insightface_arcface": init_iresnet_params(
+                  torch.Generator().manual_seed(SEED + 71), depth=100),
+              "vggface_vgg16": init_vgg16_params(torch.Generator().manual_seed(SEED + 73))}
+    bf16 = torch.bfloat16
+    forwards = {"agegender_identity": lambda p, x: multihead_apply(p, x, bf16).identity,
+                "vgg2_mobilenet": lambda p, x: mobilenet_embed(p, x, compute_dtype=bf16),
+                "vgg2_resnet": lambda p, x: resnet50_embed(p, x, compute_dtype=bf16),
+                "vggface_resnet50": lambda p, x: resnet50_embed(p, x, compute_dtype=bf16),
+                "insightface_arcface": lambda p, x: iresnet_embed(p, x, compute_dtype=bf16),
+                "vggface_vgg16": None}
+    return params, forwards
+
+
+def tier_zoo_rows(rng, params, bf16_forwards) -> dict:
+    """Each f32 zoo entry at ``ZOO_BATCH`` through ``build_extractor(name,
+    precision=...)``, and at bf16 where the model has a ``compute_dtype``:
+    ms per batch, the embeddings' drift against "highest"."""
+    from hse_facerec_torch.pipelines.embedder import EmbeddingExtractor
+
+    rows = {}
+    for name in TIER_ZOO:
+        spec, rows[name], base = zoo.MODEL_ZOO[name], {}, None
+        imgs = np.stack(smooth_images(rng, ZOO_BATCH, spec.input_size))
+        for label, _ in TIER_VARIANTS:
+            if label == "bf16":
+                if bf16_forwards[name] is None:
+                    continue
+                ex = EmbeddingExtractor(bf16_forwards[name], params[name], spec.input_size,
+                                        normalization=spec.normalization,
+                                        resize_method=spec.resize_method,
+                                        batch_size=ZOO_BATCH, device="cuda",
+                                        **spec.extractor_kwargs)
+            else:
+                ex = zoo.build_extractor(name, batch_size=ZOO_BATCH, device="cuda",
+                                         params=params[name], precision=label)
+            out = ex.extract_batch(imgs)
+            base = out if base is None else base
+            ms = event_median_ms(lambda: ex.extract_batch(imgs))
+            rows[name][label] = tier_row(f"zoo {name}", label, ms, rows_drift(out, base),
+                                         f"ms/batch of {ZOO_BATCH}")
+            del ex
+        torch.cuda.empty_cache()
+    return rows
+
+
+def tier_face_id_rows(rng) -> dict:
+    """The face-ID training forward (``forward_train``, batch-moment BN) at
+    ``TRAIN_BATCH`` x ``TRAIN_SIZE``², width 1.0, ``TRAIN_CLASSES``:
+    float32 at each tier and bf16 at "highest"; the logits' drift."""
+    params = init_mobilenet_params(torch.Generator().manual_seed(SEED + 137),
+                                   n_classes=TRAIN_CLASSES, device="cuda")
+    x = torch.from_numpy(rng.randn(TRAIN_BATCH, TRAIN_SIZE, TRAIN_SIZE, 3)
+                         .astype(np.float32)).cuda()
+    rows, base = {}, None
+    for label, dtype in TIER_VARIANTS:
+        tier = "highest" if label == "bf16" else label
+
+        @torch.no_grad()
+        def call():
+            return face_id.forward_train(params, x, precision=tier, compute_dtype=dtype)[0]
+
+        out = call().cpu().numpy()
+        base = out if base is None else base
+        rows[label] = tier_row(f"face_id forward_train {TRAIN_BATCH}", label,
+                               event_median_ms(call), rows_drift(out, base), "ms/batch")
+    return rows
+
+
+def tier_threads(mtcnn_params, mh_params, images, ex, embed_imgs) -> dict:
+    """One thread runs ``analyze`` on the photos at "highest" (the default
+    analyzer), another ``ex`` (a zoo embed at "default"),
+    ``TIER_THREAD_ROUNDS`` rounds each, started together each round: every
+    "highest" answer bit-equal to a solo run's."""
+    import threading
+
+    an = FacialAnalyzer(mtcnn_params, mh_params, device="cuda")
+    solo = faces_bits([an.analyze(img) for img in images])
+    barrier = threading.Barrier(2)
+    answers, errors = [], []
+
+    def run(call, out=None):
+        try:
+            for _ in range(TIER_THREAD_ROUNDS):
+                barrier.wait(timeout=120)
+                r = call()
+                if out is not None:
+                    out.append(r)
+        except Exception as e:          # raised below, in the main thread
+            errors.append(e)
+            barrier.abort()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(
+                   lambda: faces_bits([an.analyze(img) for img in images]), answers)),
+               threading.Thread(target=run, args=(lambda: ex.extract_batch(embed_imgs),))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise AssertionError(f"tiers: a thread failed: {errors!r}")
+    equal = sum(a == solo for a in answers)
+    print(f"tiers: two threads, analyze at 'highest' on {len(images)} photos and a "
+          f"zoo embed at '{ex.model_fn.keywords['precision']}' on "
+          f"{len(embed_imgs)} images, {TIER_THREAD_ROUNDS} rounds in "
+          f"{time.perf_counter() - t0:.2f} s: {equal} of {len(answers)} 'highest' "
+          "answers bit-equal to the solo run")
+    if equal != TIER_THREAD_ROUNDS:
+        raise AssertionError("tiers: a 'highest' answer changed beside a 'default' thread")
+    return {"rounds": TIER_THREAD_ROUNDS, "bit_equal": equal}
+
+
+def tiers_path() -> dict:
+    """Phase ``tiers`` (run by ``apart(..., parity=False)``: torch's own
+    flags at the start). See the module docstring, item 11."""
+    from hse_facerec_torch.core.graphdef_export import export_age_pb, export_gender_pb
+    from hse_facerec_torch.testing import random_mobilenet_params
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED + 127)
+    mtcnn_params, mh_params = load_params()
+    images = load_images(rng)
+    batch = np.stack(smooth_images(rng, BATCH))
+    api = tier_flag_check()
+    embed_params = random_mobilenet_params(np.random.RandomState(SEED + 51))
+    ex = zoo.build_extractor("vgg2_mobilenet", batch_size=ZOO_BATCH, device="cuda",
+                             params=embed_params)
+    embed_imgs = np.stack(smooth_images(rng, ZOO_BATCH, ex.input_size))
+    fault = tier_fault_check(mtcnn_params, mh_params, images, batch, ex, embed_imgs)
+    with tempfile.TemporaryDirectory() as tmp:
+        pbs = {"age": os.path.join(tmp, "age.pb"), "gender": os.path.join(tmp, "gender.pb")}
+        export_age_pb(mh_params, pbs["age"], input_size=AGE_HW)
+        export_gender_pb(mh_params, pbs["gender"], input_size=GENDER_HW)
+        rows = tier_analyze_rows(mtcnn_params, mh_params, images, batch, pbs)
+    params, bf16_forwards = tier_zoo_params()
+    rows["zoo"] = tier_zoo_rows(rng, params, bf16_forwards)
+    del params
+    torch.cuda.empty_cache()
+    rows["face_id_forward_train"] = tier_face_id_rows(rng)
+    torch.cuda.empty_cache()
+    default_ex = zoo.build_extractor("vgg2_mobilenet", batch_size=ZOO_BATCH, device="cuda",
+                                     params=embed_params, precision="default")
+    threads = tier_threads(mtcnn_params, mh_params, images, default_ex, embed_imgs)
+    print(f"tiers: {time.perf_counter() - t0:.1f} s in the child")
+    return {"api": api, "fault": fault, "threads": threads, "rows": rows}
+
+
 def bench_path():
     """The port's benchmark as a user runs it, ``python -m
     hse_facerec_torch.bench --quick`` (every chain and iters 1, warmup 1,
@@ -3854,6 +4210,10 @@ def main() -> None:
     cpu = FacialAnalyzer(mtcnn_params, mh_params, device="cpu")
     compare_analyzers(gpu, cpu, images[0])
     phase_done("analyze")
+
+    tiers = apart("cs.tiers_path()", "phase tiers", parity=False)
+    torch.cuda.empty_cache()
+    phase_done("tiers")
 
     batch_launches, batch_numbers = analyze_batch_path(
         mtcnn_params, mh_params, np.random.RandomState(SEED + 7))
@@ -4033,6 +4393,7 @@ def main() -> None:
     print("cascade: " + json.dumps(cascade))
     print("multichip: " + json.dumps(mesh_numbers))
     print("bench (quick): " + json.dumps(bench_line))
+    print("tiers: " + json.dumps(tiers))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

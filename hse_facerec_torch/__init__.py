@@ -7,11 +7,14 @@ are built with ``nvcc`` at first use (``ops/kernels/build.py``).
 
 Quick start::
 
-    from hse_facerec_torch import FacialAnalyzer, set_parity_numerics, zoo
-    set_parity_numerics()
+    from hse_facerec_torch import FacialAnalyzer, zoo
     analyzer = FacialAnalyzer.from_reference_models(
         zoo.MTCNN_PB, zoo.AGEGENDER_PB, device="cuda")
     faces = analyzer.analyze(rgb_image)           # detect + age/gender/identity
+
+Every forward takes the reference's ``precision`` tier ("highest", IEEE
+fp32, by default; "high" and "default" run TF32) and holds it itself
+(``numerics.precision_scope``): no global setting changes an answer.
 """
 
 __version__ = "0.1.0"

@@ -57,7 +57,6 @@ the tests can drive them on the CPU at small sizes.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import math
 import os
@@ -129,10 +128,11 @@ def _nbytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def build_forward(compute_dtype, params, device="cuda") -> Callable:
+def build_forward(compute_dtype, params, device="cuda",
+                  precision="highest") -> Callable:
     """The embed path of ``bench.py``: RGB float images (N, H, W, 3) on
     ``device`` -> BGR, minus ``IMAGENET_MEANS_BGR``, ->
-    ``multihead_apply(..., compute_dtype).identity``."""
+    ``multihead_apply(..., compute_dtype, precision=precision).identity``."""
     from .models.multihead import multihead_apply
     from .ops.preprocess import IMAGENET_MEANS_BGR
     from .params import to_torch
@@ -143,7 +143,8 @@ def build_forward(compute_dtype, params, device="cuda") -> Callable:
     @torch.no_grad()
     def forward(images):
         x = images.to(torch.float32).flip(-1) - means
-        return multihead_apply(tp, x, compute_dtype=compute_dtype).identity
+        return multihead_apply(tp, x, compute_dtype=compute_dtype,
+                               precision=precision).identity
 
     return forward
 
@@ -677,27 +678,15 @@ def bench_serve(n_clients: int = 12, requests_per_client: int = 16, size: int = 
             "roofline": {}, "samples": {"serve_latency": a.tolist()}}
 
 
-@contextlib.contextmanager
-def _tf32(on: bool):
-    """TF32 in cuBLAS and cuDNN set to ``on`` inside the block, the flags
-    restored after."""
-    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = on
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
-
-
 def bench_pb_extractor(chain: int = 10, warmup: int = 1, iters: int = 4, batch: int = 64,
                        size: int = 224, params=None, device="cuda") -> Dict:
     """The generic frozen-pb path (``bench.py:700-788``): the multi-head
     exported as a frozen pb (``export_multihead_pb``), compiled through
     ``zoo.graph_extractor(pb, "input_1:0", "global_pooling/Mean:0", ...)``
-    and run at ``batch``, TF32 off (``highest``, the parity mode) and on
-    (``high``, the counterpart of ``Precision.HIGH``), the TF32 row's max
-    abs difference from the ``highest`` output recorded; then the native
-    forward at the same batch with TF32 on."""
+    and run at ``batch`` at ``precision="highest"`` (IEEE fp32, the parity
+    tier) and ``"high"`` (TF32, the counterpart of ``Precision.HIGH``), the
+    TF32 row's max abs difference from the ``highest`` output recorded;
+    then the native forward at the same batch at ``"high"``."""
     from .core.graphdef_export import export_multihead_pb
     from .models import zoo
 
@@ -707,33 +696,33 @@ def bench_pb_extractor(chain: int = 10, warmup: int = 1, iters: int = 4, batch: 
     with tempfile.TemporaryDirectory() as tmp:
         pb = os.path.join(tmp, "multihead.pb")
         export_multihead_pb(mh_params, pb, input_size=size)
-        ex = zoo.graph_extractor(pb, "input_1:0", "global_pooling/Mean:0", (size, size),
-                                 normalization="caffe", device=device)
-
-    @torch.no_grad()
-    def fwd():
-        return ex.model_fn(ex.params, x)
+        extractors = {label: zoo.graph_extractor(
+            pb, "input_1:0", "global_pooling/Mean:0", (size, size),
+            normalization="caffe", device=device, precision=label)
+            for label in ("highest", "high")}
 
     outputs = {}
-    for label in ("highest", "high"):
-        with _tf32(label == "high"):
-            call = chained(fwd, chain)
-            ips, ms = time_calls(call, batch * chain, warmup, iters, device)
-            outputs[label] = fwd()
-            if label == "high":
-                prof = profile_fusions(call, "pb_extractor_high", batch * chain, chain,
-                                       device=device)
+    for label, ex in extractors.items():
+        @torch.no_grad()
+        def fwd(ex=ex):
+            return ex.model_fn(ex.params, x)
+
+        call = chained(fwd, chain)
+        ips, ms = time_calls(call, batch * chain, warmup, iters, device)
+        outputs[label] = fwd()
+        if label == "high":
+            prof = profile_fusions(call, "pb_extractor_high", batch * chain, chain,
+                                   device=device)
         out[f"pb_extractor_{label}_ips"] = ips
         samples[f"pb_extractor_{label}"] = ms
     out["pb_extractor_high_max_abs_diff"] = float(
         (outputs["high"] - outputs["highest"]).abs().max())
-    forward = build_forward(torch.float32, mh_params, device)
-    with _tf32(True):
-        call = chained(lambda: forward(x), chain)
-        out["native_high_b64_ips"], samples["native_high_b64"] = time_calls(
-            call, batch * chain, warmup, iters, device)
-        prof_n = profile_fusions(call, "native_high_b64", batch * chain, chain, top=4,
-                                device=device)
+    forward = build_forward(torch.float32, mh_params, device, precision="high")
+    call = chained(lambda: forward(x), chain)
+    out["native_high_b64_ips"], samples["native_high_b64"] = time_calls(
+        call, batch * chain, warmup, iters, device)
+    prof_n = profile_fusions(call, "native_high_b64", batch * chain, chain, top=4,
+                            device=device)
     # None without a card: the profiler times no device there
     out["native_high_b64_device_ips_busy"] = (
         None if prof_n is None else prof_n["device_units_per_s_busy"])
@@ -766,13 +755,11 @@ def main(quick: bool = False) -> Dict:
         raise SystemExit("hse_facerec_torch.bench: no CUDA device "
                          "(torch.cuda.is_available() is False); the benchmark "
                          "measures the card and prints nothing on the CPU")
-    from .numerics import set_parity_numerics
     from .ops.kernels import build, kernel_launches, reset_launches
 
     device = "cuda"
     card = gpu_name_and_power_limit()
     print(card)
-    set_parity_numerics()
     t0 = time.perf_counter()
     build.load_library()
     print(f"kernel build+load: {time.perf_counter() - t0:.2f} s")

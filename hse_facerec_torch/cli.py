@@ -127,13 +127,11 @@ def cmd_analyze(args):
     import cv2
     import numpy as np
 
-    from .numerics import set_parity_numerics
     from .utils.draw import draw_faces
     from .utils.image_io import imread_rgb
 
     if not os.path.exists(args.image):
         sys.exit(f"error: image not found: {args.image}")
-    set_parity_numerics()
     analyzer = _build_analyzer(args)
     img = imread_rgb(args.image)
     faces, rotation = analyzer.analyze_with_rotations(img)
@@ -165,10 +163,8 @@ def cmd_analyze(args):
 def cmd_images(args):
     import cv2
 
-    from .numerics import set_parity_numerics
     from .pipelines.video import process_image_dir
 
-    set_parity_numerics()
     analyzer = _build_analyzer(args)
     os.makedirs(args.out_dir, exist_ok=True)
     for name, annotated, faces in process_image_dir(
@@ -182,12 +178,10 @@ def cmd_images(args):
 def cmd_video(args):
     import cv2
 
-    from .numerics import set_parity_numerics
     from .pipelines.video import annotated_video_frames
 
     if args.frame_skip < 1:
         sys.exit("error: --frame-skip must be >= 1")
-    set_parity_numerics()
     analyzer = _build_analyzer(args)
     writer = None
     n = 0
@@ -218,10 +212,8 @@ def cmd_webcam(args):
     607-617): annotate camera frames in a window; ESC quits."""
     import cv2
 
-    from .numerics import set_parity_numerics
     from .pipelines.video import annotated_camera_frames
 
-    set_parity_numerics()
     analyzer = _build_analyzer(args)
     try:
         for annotated, _ in annotated_camera_frames(
@@ -236,7 +228,6 @@ def cmd_webcam(args):
 
 def cmd_album(args):
     from .config import AlbumConfig
-    from .numerics import set_parity_numerics
     from .pipelines.album import AlbumOrganizer
 
     if args.age_pb or args.gender_pb:
@@ -265,7 +256,6 @@ def cmd_album(args):
         # AlbumConfig.minsize is authoritative inside AlbumOrganizer:
         # carry an explicit --minsize into the config so the override holds
         cfg.minsize = args.minsize
-    set_parity_numerics()
     analyzer = _build_analyzer(args)
     gallery = _load_gallery(args.gallery, args.device) if args.gallery else None
     organizer = AlbumOrganizer(analyzer, cfg, analyze_batch=args.batch_size,
@@ -278,10 +268,8 @@ def cmd_album(args):
 def cmd_identify(args):
     from .eval import lfw
     from .models.zoo import build_extractor, weights_origin
-    from .numerics import set_parity_numerics
     from .pipelines.identification import gallery_probe_eval, gallery_probe_suite
 
-    set_parity_numerics()
     extractor = build_extractor(args.model, batch_size=args.batch_size,
                                 device=args.device)
     g_feats, g_labels, names = lfw.extract_dataset_features(
@@ -371,7 +359,6 @@ def cmd_enroll(args):
     photos); mode=image embeds whole frames (pre-cropped faces)."""
     import numpy as np
 
-    from .numerics import set_parity_numerics
     from .pipelines.gallery import EnrollmentGallery
     from .utils.image_io import get_files
 
@@ -381,7 +368,6 @@ def cmd_enroll(args):
     if not pairs:
         sys.exit(f"error: no images under {args.people_dir} (expected "
                  "<person name>/*.jpg subdirectories)")
-    set_parity_numerics()
     gallery = EnrollmentGallery(path=args.gallery_file, device=args.device,
                                 quantized=False if args.exact else None)
     skipped: list = []
@@ -432,11 +418,9 @@ def cmd_cluster(args):
     from .eval import lfw
     from .eval.clustering_metrics import clustering_statistics
     from .models.zoo import build_extractor, weights_origin
-    from .numerics import set_parity_numerics
     from .ops.distance import pairwise_euclidean
     from .pipelines.clustering import clusters_to_labels, get_facial_clusters
 
-    set_parity_numerics()
     extractor = build_extractor(args.model, batch_size=args.batch_size,
                                 device=args.device)
     datasets = []
@@ -583,7 +567,6 @@ _UTKFACE_INPUT_SIZE = {"ours": 224, "facenet": 160, "agendernet": 96, "ssrnet": 
 
 def cmd_utkface(args):
     from .eval.utkface import evaluate_age_gender, read_csv_split
-    from .numerics import set_parity_numerics
 
     host_resize_to = None
     if args.host_resize:
@@ -605,7 +588,6 @@ def cmd_utkface(args):
                      f"{args.backend} backend's input size {want} — the "
                      "image would be resampled twice with different kernels")
         host_resize_to = (args.host_resize, args.host_resize)
-    set_parity_numerics()
     predict = _utkface_predict(args)
     if args.csv_split:
         paths = [os.path.join(args.dataset_dir, f)

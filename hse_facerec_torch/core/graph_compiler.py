@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.layers import conv2d
-from ..numerics import div_const
+from ..numerics import div_const, fp32_precision, precision_scope
 from .graphdef import DT_BOOL, NodeDef, TFGraph, extract_constants
 
 
@@ -66,7 +66,9 @@ class CompiledGraph:
       params: dict name -> np.ndarray of the (dequantize-folded) constants
         the program reads; ``torch_params(device)`` moves them to a device.
       fn: ``fn(params, feeds: dict) -> tuple`` evaluating ``outputs`` on
-        NHWC tensors; ``params`` as ``torch_params`` returns them.
+        NHWC tensors; ``params`` as ``torch_params`` returns them. Its
+        convolutions and matmuls run at ``precision``'s tier
+        (``numerics``; "highest" by default, as in the reference).
     """
 
     # Input positions that must be constants (shapes, axes, pads).
@@ -82,9 +84,12 @@ class CompiledGraph:
     }
 
     def __init__(self, graph: TFGraph, outputs: Sequence[str],
-                 consts: Dict[str, np.ndarray], learning_phase: bool = False,
+                 consts: Dict[str, np.ndarray], precision="highest",
+                 learning_phase: bool = False,
                  const_feeds: Optional[Dict[str, object]] = None):
+        fp32_precision(precision)                 # refuse an unknown tier now
         self.graph = graph
+        self.precision = precision
         self.output_names = [_tname(o) for o in outputs]
         self._consts = consts
         self.learning_phase = bool(learning_phase)
@@ -247,8 +252,13 @@ class CompiledGraph:
         nodes = self._needed
         output_names = self.output_names
         const_feeds = self.const_feeds
+        precision = self.precision
 
         def fn(params: Dict[str, torch.Tensor], feeds: Dict[str, torch.Tensor]):
+            with precision_scope(precision):
+                return run(params, feeds)
+
+        def run(params, feeds):
             if const_feeds:
                 device = next(iter(feeds.values())).device if feeds else "cpu"
                 feeds = {**{k: _as_tensor(v, device)
@@ -505,17 +515,18 @@ def _eval_node(node: NodeDef, get, params, feeds, static, learning_phase=False):
     raise NotImplementedError(f"TF op not supported by graph_compiler: {op} (node {node.name})")
 
 
-def compile_graph(graph: TFGraph, outputs: Sequence[str],
+def compile_graph(graph: TFGraph, outputs: Sequence[str], precision="highest",
                   learning_phase: bool = False,
                   const_feeds: Optional[Dict[str, object]] = None) -> CompiledGraph:
     consts = extract_constants(graph)
-    return CompiledGraph(graph, outputs, consts, learning_phase=learning_phase,
-                         const_feeds=const_feeds)
+    return CompiledGraph(graph, outputs, consts, precision=precision,
+                         learning_phase=learning_phase, const_feeds=const_feeds)
 
 
-def compile_pb(path: str, outputs: Sequence[str], learning_phase: bool = False,
+def compile_pb(path: str, outputs: Sequence[str], precision="highest",
+               learning_phase: bool = False,
                const_feeds: Optional[Dict[str, object]] = None) -> CompiledGraph:
     from .graphdef import load_graphdef
 
-    return compile_graph(load_graphdef(path), outputs,
+    return compile_graph(load_graphdef(path), outputs, precision=precision,
                          learning_phase=learning_phase, const_feeds=const_feeds)

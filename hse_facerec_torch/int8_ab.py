@@ -186,7 +186,7 @@ def main():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("int8_ab needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.fp32_precision = "ieee"      # IEEE fp32 matmuls
     from hse_facerec_torch.ops.kernels import knn, pw_conv
 
     h = hashlib.sha256()

@@ -13,7 +13,9 @@ Numerics of the MXNet graphs: BN eps 2e-5 written ``(x − mean)·(γ·rsqrt(var
 + eps)) + β``, PReLU as ``where(x ≥ 0, x, α·x)``, 3×3 convs padded 1 on every
 side even at stride 2 (not TF SAME), input scaled ``(x − 127.5) / 127.5``
 with the float32 reciprocal, as the jitted reference computes it. The
-forward runs in float32 (parity mode: ``set_parity_numerics``).
+forward takes the reference's ``precision`` tier and ``compute_dtype``:
+each conv casts its input and weight to ``compute_dtype`` and its output
+back to float32; BN, PReLU and ``pre_fc1`` stay float32.
 
 ``iresnet_params_from_npz`` reads the flat MXNet param naming
 (``stage{s}_unit{u}_bn1_gamma``, ``conv0_weight``, ``pre_fc1_weight``, …)
@@ -31,7 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..numerics import div_const
+from ..numerics import div_const, precision_scope
 from ..params import normal
 
 # stage unit counts per depth (insightface fresnet configs)
@@ -55,19 +57,20 @@ def _prelu(x, alpha):
     return torch.where(x >= 0, x, x * alpha.reshape(1, -1, 1, 1))
 
 
-def _conv(x, w, stride: int = 1):
+def _conv(x, w, stride: int = 1, dt=torch.float32):
     # mxnet pads 3×3 convs symmetrically (pad=1) even at stride 2
-    return F.conv2d(x, w, stride=stride, padding=1 if w.shape[-1] == 3 else 0)
+    return F.conv2d(x.to(dt), w.to(dt), stride=stride,
+                    padding=1 if w.shape[-1] == 3 else 0).to(torch.float32)
 
 
-def _unit(x, p, stride: int):
+def _unit(x, p, stride: int, dt):
     """IResNet unit_v3: bn1 → conv1(3×3 s1) → bn2 → prelu → conv2(3×3 s) →
     bn3, plus shortcut (identity, or conv1sc+sc BN when the shape changes)."""
     h = _bn(x, p["bn1"])
-    h = _conv(h, p["conv1"], 1)
+    h = _conv(h, p["conv1"], 1, dt)
     h = _prelu(_bn(h, p["bn2"]), p["relu1_alpha"])
-    h = _bn(_conv(h, p["conv2"], stride), p["bn3"])
-    sc = _bn(_conv(x, p["conv1sc"], stride), p["sc"]) if "conv1sc" in p else x
+    h = _bn(_conv(h, p["conv2"], stride, dt), p["bn3"])
+    sc = _bn(_conv(x, p["conv1sc"], stride, dt), p["sc"]) if "conv1sc" in p else x
     return h + sc
 
 
@@ -82,20 +85,23 @@ def iresnet_units(params: Dict) -> Tuple[int, ...]:
     return tuple(counts)
 
 
-def iresnet_embed(params: Dict, x) -> torch.Tensor:
+def iresnet_embed(params: Dict, x, *, precision="highest",
+                  compute_dtype=torch.float32) -> torch.Tensor:
     """(N, 112, 112, 3) RGB 0-255 → (N, emb_dim) fc1 output (pre-normalize):
     the reference tap ``fc1_output`` (insightface_face_embedding.py:33),
     with the final fc1 BatchNorm1d."""
-    x = div_const(x.to(torch.float32) - 127.5, 127.5).permute(0, 3, 1, 2)
-    h = _conv(x, params["conv0"])
-    h = _prelu(_bn(h, params["bn0"]), params["relu0_alpha"])
-    for s, n_units in enumerate(iresnet_units(params), start=1):
-        for u in range(1, n_units + 1):
-            h = _unit(h, params[f"stage{s}_unit{u}"], 2 if u == 1 else 1)
-    h = _bn(h, params["bn1"])
-    # NHWC flatten; pre_fc1's kernel is stored in the matching order
-    h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
-    h = F.linear(h, params["pre_fc1"]["kernel"], params["pre_fc1"]["bias"])
+    dt = compute_dtype
+    with precision_scope(precision):
+        x = div_const(x.to(torch.float32) - 127.5, 127.5).permute(0, 3, 1, 2)
+        h = _conv(x, params["conv0"], 1, dt)
+        h = _prelu(_bn(h, params["bn0"]), params["relu0_alpha"])
+        for s, n_units in enumerate(iresnet_units(params), start=1):
+            for u in range(1, n_units + 1):
+                h = _unit(h, params[f"stage{s}_unit{u}"], 2 if u == 1 else 1, dt)
+        h = _bn(h, params["bn1"])
+        # NHWC flatten; pre_fc1's kernel is stored in the matching order
+        h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+        h = F.linear(h, params["pre_fc1"]["kernel"], params["pre_fc1"]["bias"])
     return _bn(h, params["fc1"])
 
 

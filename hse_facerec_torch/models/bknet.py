@@ -18,6 +18,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..numerics import precision_scope
 from ..ops.resize import resize_linear_u8
 from ..params import normal
 from .layers import conv2d, dense
@@ -30,20 +31,22 @@ _GRAY_SHIFT = 15
 _R2Y, _G2Y, _B2Y = 9798, 19235, 3735
 
 
-def bknet_apply(params: Dict, x) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def bknet_apply(params: Dict, x, *, precision="highest"
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(N, 48, 48, 1) normalized grayscale → (smile (N, 2), gender (N, 2),
-    age (N, 101)) logits."""
-    h = x.to(torch.float32).permute(0, 3, 1, 2)
-    for bi, _ in enumerate(BKNET_BLOCKS, start=1):
-        for ci in (1, 2):
-            p = params[f"conv{bi}_{ci}"]
-            h = torch.relu(conv2d(h, p["kernel"], p["bias"]))
-        h = torch.nn.functional.max_pool2d(h, 2, 2)
-    h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)   # NHWC flatten
-    fc = params["fc"]
-    h = torch.relu(dense(h, fc["kernel"], fc["bias"]))
-    return tuple(dense(h, params[name]["kernel"], params[name]["bias"])
-                 for name in ("smile", "gender", "age"))
+    age (N, 101)) logits, at ``precision``'s tier."""
+    with precision_scope(precision):
+        h = x.to(torch.float32).permute(0, 3, 1, 2)
+        for bi, _ in enumerate(BKNET_BLOCKS, start=1):
+            for ci in (1, 2):
+                p = params[f"conv{bi}_{ci}"]
+                h = torch.relu(conv2d(h, p["kernel"], p["bias"]))
+            h = torch.nn.functional.max_pool2d(h, 2, 2)
+        h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)   # NHWC flatten
+        fc = params["fc"]
+        h = torch.relu(dense(h, fc["kernel"], fc["bias"]))
+        return tuple(dense(h, params[name]["kernel"], params[name]["bias"])
+                     for name in ("smile", "gender", "age"))
 
 
 def _rgb_to_gray_u8(img: np.ndarray) -> np.ndarray:

@@ -10,6 +10,9 @@ TF does (the odd pixel at the end); BN eps 1e-3.
 
 Params are numpy pytrees in the reference's layouts; the forward takes them
 as tensors (``params.tree_to_torch``). Input keeps the reference's NHWC.
+The forwards take the reference's ``precision`` tier; the embedding also
+its ``compute_dtype``, to which the input and every param are cast (the
+pooled embedding returns to float32 for the bottleneck).
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..params import normal
+from ..numerics import precision_scope
+from ..params import cast_tree, normal
 from .layers import batch_norm, conv2d, dense
 
 
@@ -50,10 +54,16 @@ def _block(x, p, scale: float, relu: bool = True):
     return torch.relu(x) if relu else x
 
 
-def inception_resnet_v1(params: Dict, x) -> torch.Tensor:
+def inception_resnet_v1(params: Dict, x, *, precision="highest",
+                        compute_dtype=torch.float32) -> torch.Tensor:
     """(N, H, W, 3) -> (N, 128) bottleneck embedding (H=W=160 canonically)."""
-    p = params
-    x = x.to(torch.float32).permute(0, 3, 1, 2)
+    with precision_scope(precision):
+        return _inception_resnet_v1(cast_tree(params, compute_dtype),
+                                    x.to(compute_dtype))
+
+
+def _inception_resnet_v1(p: Dict, x) -> torch.Tensor:
+    x = x.permute(0, 3, 1, 2)
     x = _conv_bn(x, p["conv1a"], stride=2, padding="VALID")
     x = _conv_bn(x, p["conv2a"], padding="VALID")
     x = _conv_bn(x, p["conv2b"])
@@ -83,15 +93,18 @@ def inception_resnet_v1(params: Dict, x) -> torch.Tensor:
         x = _block(x, p[f"block8_{i}"], 0.20)
     x = _block(x, p["block8_final"], 1.0, relu=False)
 
-    emb = torch.mean(x, dim=(2, 3))
-    return dense(emb, p["bottleneck"]["kernel"], p["bottleneck"]["bias"])
+    emb = torch.mean(x, dim=(2, 3)).to(torch.float32)
+    bottleneck = cast_tree(p["bottleneck"], torch.float32)
+    return dense(emb, bottleneck["kernel"], bottleneck["bias"])
 
 
-def inception_resnet_v1_age_gender(params: Dict, x) -> Tuple[torch.Tensor, torch.Tensor]:
+def inception_resnet_v1_age_gender(params: Dict, x, *, precision="highest"
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Multi-head variant: (age_logits (N, 101), gender_logits (N, 2))."""
-    emb = inception_resnet_v1(params, x)
-    age = dense(emb, params["age"]["kernel"], params["age"]["bias"])
-    gender = dense(emb, params["gender"]["kernel"], params["gender"]["bias"])
+    with precision_scope(precision):
+        emb = inception_resnet_v1(params, x, precision=precision)
+        age = dense(emb, params["age"]["kernel"], params["age"]["bias"])
+        gender = dense(emb, params["gender"]["kernel"], params["gender"]["bias"])
     return age, gender
 
 

@@ -31,6 +31,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..numerics import precision_scope
 from ..ops.kernels.pw_conv import pw_conv_int8, requant_int8
 from .layers import conv2d, dense, depthwise_conv2d
 from .mobilenet import MOBILENET_V1_BLOCKS
@@ -167,10 +168,13 @@ def mobilenet_backbone_int8(qparams: Dict, x):
     """(N, H, W, 3) f32 preprocessed -> (N, H/32, W/32, 1024) f32 features.
 
     ``qparams`` from ``params.to_torch`` (float kernels already
-    bf16-rounded): ``stem_int8``, then the 13 blocks on int8 activations."""
-    a = stem_int8(qparams, x)
-    for i in range(1, len(MOBILENET_V1_BLOCKS) + 1):
-        a = block_int8(qparams, i, a)
+    bf16-rounded): ``stem_int8``, then the 13 blocks on int8 activations.
+    The precision dial does not apply to the int8 path (as in the
+    reference): its float convs always run "highest"."""
+    with precision_scope("highest"):
+        a = stem_int8(qparams, x)
+        for i in range(1, len(MOBILENET_V1_BLOCKS) + 1):
+            a = block_int8(qparams, i, a)
     return a.permute(0, 2, 3, 1)
 
 
@@ -180,10 +184,11 @@ def multihead_apply_int8(qparams: Dict, x) -> MultiHeadOutput:
     x: (N, H, W, 3) preprocessed f32 (BGR, ImageNet means subtracted)."""
     h = mobilenet_backbone_int8(qparams["backbone"], x)
     identity = torch.mean(h, dim=(1, 2))        # == global_pooling/Mean
-    f = torch.relu(dense(identity, qparams["feats"]["kernel"],
-                         qparams["feats"]["bias"]))
-    age_logits = dense(f, qparams["age"]["kernel"], qparams["age"]["bias"])
-    gender_logit = dense(f, qparams["gender"]["kernel"], qparams["gender"]["bias"])
+    with precision_scope("highest"):
+        f = torch.relu(dense(identity, qparams["feats"]["kernel"],
+                             qparams["feats"]["bias"]))
+        age_logits = dense(f, qparams["age"]["kernel"], qparams["age"]["bias"])
+        gender_logit = dense(f, qparams["gender"]["kernel"], qparams["gender"]["bias"])
     return MultiHeadOutput(
         age_probs=torch.softmax(age_logits, dim=-1),
         gender_prob=torch.sigmoid(gender_logit)[:, 0],

@@ -5,6 +5,11 @@ PyTorch layouts (``params.py``). TF's SAME padding puts the odd extra pixel
 bottom/right and MaxPool pads with -inf; both are explicit ``F.pad`` calls
 here, since ``padding='same'`` and symmetric padding do not match TF (an
 even split is passed to the conv as its own padding).
+
+``conv2d``, ``depthwise_conv2d`` and ``dense`` take the reference's
+``precision``; their default, None, dispatches under the enclosing
+forward's tier (``numerics.precision_scope(None)``: "highest" where no
+forward runs).
 """
 
 from __future__ import annotations
@@ -13,6 +18,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ..numerics import precision_scope
 
 
 def _same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
@@ -30,7 +37,7 @@ def _pad_same(x, kh: int, kw: int, stride: int, value: float = 0.0):
 
 
 def conv2d(x, weight, bias=None, *, stride: int = 1, padding: str = "SAME",
-           groups: int = 1):
+           precision=None, groups: int = 1):
     """NCHW conv with an OIHW weight, TF-compatible SAME padding. Symmetric
     pads go to the conv itself, so only an odd edge (stride 2 on an even
     size) pays an ``F.pad`` copy."""
@@ -42,19 +49,21 @@ def conv2d(x, weight, bias=None, *, stride: int = 1, padding: str = "SAME",
             pads = (top, left)
         else:
             x = F.pad(x, (left, right, top, bottom))
-    return F.conv2d(x, weight, bias, stride=stride, padding=pads, groups=groups)
+    with precision_scope(precision):
+        return F.conv2d(x, weight, bias, stride=stride, padding=pads, groups=groups)
 
 
 def depthwise_conv2d(x, weight, bias=None, *, stride: int = 1,
-                     padding: str = "SAME"):
+                     padding: str = "SAME", precision=None):
     """Depthwise conv; ``weight`` is (C·mult, 1, H, W)."""
     return conv2d(x, weight, bias, stride=stride, padding=padding,
-                  groups=x.shape[1])
+                  precision=precision, groups=x.shape[1])
 
 
-def dense(x, weight, bias=None):
+def dense(x, weight, bias=None, *, precision=None):
     """``x @ kernel + bias`` with ``weight`` in (out, in) layout."""
-    return F.linear(x, weight, bias)
+    with precision_scope(precision):
+        return F.linear(x, weight, bias)
 
 
 def prelu(x, alpha):

@@ -12,6 +12,10 @@ moments, mean and biased variance over N, H and W, written out as the
 reference writes them (``layers.batch_norm``), not through
 ``F.batch_norm``: its running variance is unbiased, its momentum is
 ``1 - 0.99``, and its backward rounds otherwise.
+
+Each forward takes the reference's ``precision`` tier (``numerics``) and
+``compute_dtype``; the backbone also takes ``bf16_blocks_below``, the
+reference's mixed-precision serving dial.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..numerics import precision_scope
+from ..params import cast_tree
 from .layers import (batch_norm, conv2d, dense, depthwise_conv2d, relu6,
                      relu6_train)
 
@@ -32,11 +38,6 @@ MOBILENET_V1_BLOCKS: List[Tuple[int, int]] = [
     (1, 512), (1, 512), (1, 512), (1, 512), (1, 512), (2, 1024), (1, 1024),
 ]
 BN_EPS = 1e-3
-
-
-def _cast(p: Dict, dtype) -> Dict:
-    return {k: _cast(v, dtype) if isinstance(v, dict) else v.to(dtype)
-            for k, v in p.items()}
 
 
 def _conv_bn_relu6(x, p, conv, stride: int, train: bool):
@@ -54,24 +55,39 @@ def _conv_bn_relu6(x, p, conv, stride: int, train: bool):
             (mean.detach(), var.detach()))
 
 
-def mobilenet_v1_backbone(params: Dict, x, *, compute_dtype=torch.float32,
-                          train: bool = False, stats_out: Optional[Dict] = None,
-                          remat: bool = False):
+def mobilenet_v1_backbone(params: Dict, x, *, precision="highest",
+                          compute_dtype=torch.float32, train: bool = False,
+                          stats_out: Optional[Dict] = None,
+                          bf16_blocks_below: int = 0, remat: bool = False):
     """(N, H, W, 3) -> (N, H/32, W/32, 1024) feature map.
 
-    The input and every layer's params are cast to ``compute_dtype``. With
-    ``train=True`` BN layers use batch moments; pass ``stats_out={}`` to
-    collect them (per layer {"mean", "var"}) for ``update_bn_stats``.
+    The input and every layer's params are cast to ``compute_dtype``, and
+    the layers run at ``precision``'s tier. ``bf16_blocks_below``: blocks
+    with an index below it (conv1 = 0) run in bf16 (the reference's
+    mixed-precision serving dial; its bf16 blocks run at DEFAULT, which is
+    what a bf16 op is at every tier here), the rest in ``compute_dtype``.
+    With ``train=True`` BN layers use batch moments; pass ``stats_out={}``
+    to collect them (per layer {"mean", "var"}) for ``update_bn_stats``.
     ``remat`` recomputes each block's internals in the backward pass
     (``torch.utils.checkpoint``): peak memory is the blocks' inputs plus
     one block's activations."""
-    dt = compute_dtype
-    x = x.permute(0, 3, 1, 2).to(dt)
+    def dtype(i):
+        return torch.bfloat16 if i < bf16_blocks_below else compute_dtype
+
+    with precision_scope(precision):
+        return _backbone(params, x, dtype, train, stats_out, remat)
+
+
+def _backbone(params: Dict, x, dtype, train: bool, stats_out: Optional[Dict],
+              remat: bool):
+    x = x.permute(0, 3, 1, 2).to(dtype(0))
     stats: Dict[str, Tuple] = {}
-    x, s = _conv_bn_relu6(x, _cast(params["conv1"], dt), conv2d, 2, train)
+    x, s = _conv_bn_relu6(x, cast_tree(params["conv1"], dtype(0)), conv2d, 2, train)
     stats["conv1"] = s
     for i, (stride, _) in enumerate(MOBILENET_V1_BLOCKS, start=1):
-        pdw, ppw = _cast(params[f"dw{i}"], dt), _cast(params[f"pw{i}"], dt)
+        dt = dtype(i)
+        x = x.to(dt)
+        pdw, ppw = cast_tree(params[f"dw{i}"], dt), cast_tree(params[f"pw{i}"], dt)
 
         def block(x, pdw=pdw, ppw=ppw, stride=stride):
             y, s_dw = _conv_bn_relu6(x, pdw, depthwise_conv2d, stride, train)
@@ -100,18 +116,24 @@ def update_bn_stats(params: Dict, stats: Dict, momentum: float = 0.99) -> Dict:
     return params
 
 
-def mobilenet_embed(params: Dict, x, *, compute_dtype=torch.float32):
+def mobilenet_embed(params: Dict, x, *, precision="highest",
+                    compute_dtype=torch.float32):
     """Face embedding: backbone + GAP -> (N, 1024) f32 (the reference's
     ``reshape_1/Reshape:0`` tap without the vestigial reshape)."""
-    h = mobilenet_v1_backbone(params, x, compute_dtype=compute_dtype)
+    h = mobilenet_v1_backbone(params, x, precision=precision,
+                              compute_dtype=compute_dtype)
     return torch.mean(h, dim=(1, 2)).to(torch.float32)
 
 
-def mobilenet_classify(params: Dict, x, *, compute_dtype=torch.float32):
+def mobilenet_classify(params: Dict, x, *, precision="highest",
+                       compute_dtype=torch.float32):
     """Training-time logits head: embedding -> (N, n_classes) (reference
     ``facerec_keras_train.py:46-57``)."""
-    emb = mobilenet_embed(params, x, compute_dtype=compute_dtype)
-    return dense(emb, params["classifier"]["kernel"], params["classifier"]["bias"])
+    with precision_scope(precision):
+        emb = mobilenet_embed(params, x, precision=precision,
+                              compute_dtype=compute_dtype)
+        return dense(emb, params["classifier"]["kernel"],
+                     params["classifier"]["bias"])
 
 
 def init_mobilenet_params(generator: torch.Generator, n_classes: Optional[int] = None,

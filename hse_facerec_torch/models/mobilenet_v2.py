@@ -10,7 +10,9 @@ Keras layer naming.
 
 Params are numpy pytrees in the reference's layouts; the forward takes them
 as tensors (``params.tree_to_torch``; a block's ``dw`` kernel is
-depthwise). Input keeps the reference's NHWC.
+depthwise). Input keeps the reference's NHWC. The forwards take the
+reference's ``precision`` tier; the backbone also its ``compute_dtype``
+(input and params cast to it, the pooled features float32).
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import numpy as np
 import torch
 
 from ..ops.preprocess import normalize_tf
-from ..params import normal
+from ..numerics import precision_scope
+from ..params import cast_tree, normal
 from .layers import batch_norm, conv2d, dense, depthwise_conv2d, relu6
 
 # (expansion t, out channels c, repeats n, first stride s) — MobileNetV2 paper
@@ -46,31 +49,38 @@ def _inverted_residual(x, p, stride: int):
     return h
 
 
-def mobilenet_v2_backbone(params: Dict, x) -> torch.Tensor:
+def mobilenet_v2_backbone(params: Dict, x, *, precision="highest",
+                          compute_dtype=torch.float32) -> torch.Tensor:
     """(N, H, W, 3) preprocessed (x/127.5 − 1) → (N, 1280) pooled features."""
-    x = x.to(torch.float32).permute(0, 3, 1, 2)
-    x = relu6(_bn(conv2d(x, params["conv1"]["kernel"], stride=2), params["conv1"]["bn"]))
-    i = 0
-    for _, _, n, s in MOBILENET_V2_BLOCKS:
-        for r in range(n):
-            x = _inverted_residual(x, params[f"block{i}"], s if r == 0 else 1)
-            i += 1
-    last = params["conv_last"]
-    x = relu6(_bn(conv2d(x, last["kernel"]), last["bn"]))
-    return torch.mean(x, dim=(2, 3))
+    dt = compute_dtype
+    with precision_scope(precision):
+        x = x.to(dt).permute(0, 3, 1, 2)
+        conv1 = cast_tree(params["conv1"], dt)
+        x = relu6(_bn(conv2d(x, conv1["kernel"], stride=2), conv1["bn"]))
+        i = 0
+        for _, _, n, s in MOBILENET_V2_BLOCKS:
+            for r in range(n):
+                x = _inverted_residual(x, cast_tree(params[f"block{i}"], dt),
+                                       s if r == 0 else 1)
+                i += 1
+        last = cast_tree(params["conv_last"], dt)
+        x = relu6(_bn(conv2d(x, last["kernel"]), last["bn"]))
+    return torch.mean(x, dim=(2, 3)).to(torch.float32)
 
 
-def agendernet_apply(params: Dict, x) -> Tuple[torch.Tensor, torch.Tensor]:
+def agendernet_apply(params: Dict, x, *, precision="highest"
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(N, 96, 96, 3) RGB 0-255 → (gender_probs (N, 2), age_probs (N, 101)),
     with the Keras mobilenet_v2 preprocessing inside (the reference's
     ``model.prep_image``): inside ``jax.jit`` ``x / 127.5 - 1`` is one FMA
     with the float32 reciprocal of 127.5 (``ops.preprocess.normalize_tf``)."""
     x = normalize_tf(x)
-    feat = mobilenet_v2_backbone(params, x)
-    gender = torch.softmax(dense(feat, params["gender"]["kernel"],
-                                 params["gender"]["bias"]), dim=-1)
-    age = torch.softmax(dense(feat, params["age"]["kernel"],
-                              params["age"]["bias"]), dim=-1)
+    with precision_scope(precision):
+        feat = mobilenet_v2_backbone(params, x, precision=precision)
+        gender = torch.softmax(dense(feat, params["gender"]["kernel"],
+                                     params["gender"]["bias"]), dim=-1)
+        age = torch.softmax(dense(feat, params["age"]["kernel"],
+                                  params["age"]["bias"]), dim=-1)
     return gender, age
 
 

@@ -6,6 +6,9 @@ the function boundary; the nets run NCHW inside. The R-Net and O-Net FC
 kernels expect the feature map flattened in NHWC order, so the map is
 permuted back before ``flatten`` (an NCHW flatten gives wrong outputs with
 no error). Params are ``params.to_torch`` of ``import_mtcnn_params``.
+Each net takes the reference's ``precision`` tier (``numerics``) and runs
+its convs and FC layers under it. The reference's ``im2col`` form is a TPU
+layout workaround and is not here.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from ..core.graphdef import extract_constants, load_graphdef
+from ..numerics import precision_scope
 from .layers import conv2d, dense, max_pool, prelu
 
 
@@ -27,50 +31,53 @@ def _flatten_nhwc(x):
     return x.permute(0, 2, 3, 1).flatten(1)
 
 
-def pnet(params: Dict, x):
+def pnet(params: Dict, x, *, precision="highest"):
     """x: (N, H, W, 3) normalized (x-127.5)/128, transposed-feed convention.
     Returns (reg (N, h, w, 4), prob (N, h, w, 2))."""
-    x = x.permute(0, 3, 1, 2)
-    x = prelu(_conv(x, params["conv1"]), params["prelu1"]["alpha"])
-    x = max_pool(x, 2, 2, "SAME")
-    x = prelu(_conv(x, params["conv2"]), params["prelu2"]["alpha"])
-    x = prelu(_conv(x, params["conv3"]), params["prelu3"]["alpha"])
-    cls = _conv(x, params["cls"], "SAME")
-    reg = _conv(x, params["reg"], "SAME")
+    with precision_scope(precision):
+        x = x.permute(0, 3, 1, 2)
+        x = prelu(_conv(x, params["conv1"]), params["prelu1"]["alpha"])
+        x = max_pool(x, 2, 2, "SAME")
+        x = prelu(_conv(x, params["conv2"]), params["prelu2"]["alpha"])
+        x = prelu(_conv(x, params["conv3"]), params["prelu3"]["alpha"])
+        cls = _conv(x, params["cls"], "SAME")
+        reg = _conv(x, params["reg"], "SAME")
     return (reg.permute(0, 2, 3, 1),
             torch.softmax(cls, dim=1).permute(0, 2, 3, 1))
 
 
-def rnet(params: Dict, x):
+def rnet(params: Dict, x, *, precision="highest"):
     """x: (N, 24, 24, 3). Returns (reg (N, 4), prob (N, 2))."""
-    x = x.permute(0, 3, 1, 2)
-    x = prelu(_conv(x, params["conv1"]), params["prelu1"]["alpha"])
-    x = max_pool(x, 3, 2, "SAME")
-    x = prelu(_conv(x, params["conv2"]), params["prelu2"]["alpha"])
-    x = max_pool(x, 3, 2, "VALID")
-    x = prelu(_conv(x, params["conv3"]), params["prelu3"]["alpha"])
-    x = dense(_flatten_nhwc(x), params["fc"]["kernel"], params["fc"]["bias"])
-    x = prelu(x, params["prelu4"]["alpha"])
-    cls = dense(x, params["cls"]["kernel"], params["cls"]["bias"])
-    reg = dense(x, params["reg"]["kernel"], params["reg"]["bias"])
+    with precision_scope(precision):
+        x = x.permute(0, 3, 1, 2)
+        x = prelu(_conv(x, params["conv1"]), params["prelu1"]["alpha"])
+        x = max_pool(x, 3, 2, "SAME")
+        x = prelu(_conv(x, params["conv2"]), params["prelu2"]["alpha"])
+        x = max_pool(x, 3, 2, "VALID")
+        x = prelu(_conv(x, params["conv3"]), params["prelu3"]["alpha"])
+        x = dense(_flatten_nhwc(x), params["fc"]["kernel"], params["fc"]["bias"])
+        x = prelu(x, params["prelu4"]["alpha"])
+        cls = dense(x, params["cls"]["kernel"], params["cls"]["bias"])
+        reg = dense(x, params["reg"]["kernel"], params["reg"]["bias"])
     return reg, torch.softmax(cls, dim=-1)
 
 
-def onet(params: Dict, x):
+def onet(params: Dict, x, *, precision="highest"):
     """x: (N, 48, 48, 3). Returns (reg (N, 4), landmarks (N, 10), prob (N, 2))."""
-    x = x.permute(0, 3, 1, 2)
-    x = prelu(_conv(x, params["conv1"]), params["prelu1"]["alpha"])
-    x = max_pool(x, 3, 2, "SAME")
-    x = prelu(_conv(x, params["conv2"]), params["prelu2"]["alpha"])
-    x = max_pool(x, 3, 2, "VALID")
-    x = prelu(_conv(x, params["conv3"]), params["prelu3"]["alpha"])
-    x = max_pool(x, 2, 2, "SAME")
-    x = prelu(_conv(x, params["conv4"]), params["prelu4"]["alpha"])
-    x = dense(_flatten_nhwc(x), params["fc"]["kernel"], params["fc"]["bias"])
-    x = prelu(x, params["prelu5"]["alpha"])
-    cls = dense(x, params["cls"]["kernel"], params["cls"]["bias"])
-    reg = dense(x, params["reg"]["kernel"], params["reg"]["bias"])
-    lmk = dense(x, params["lmk"]["kernel"], params["lmk"]["bias"])
+    with precision_scope(precision):
+        x = x.permute(0, 3, 1, 2)
+        x = prelu(_conv(x, params["conv1"]), params["prelu1"]["alpha"])
+        x = max_pool(x, 3, 2, "SAME")
+        x = prelu(_conv(x, params["conv2"]), params["prelu2"]["alpha"])
+        x = max_pool(x, 3, 2, "VALID")
+        x = prelu(_conv(x, params["conv3"]), params["prelu3"]["alpha"])
+        x = max_pool(x, 2, 2, "SAME")
+        x = prelu(_conv(x, params["conv4"]), params["prelu4"]["alpha"])
+        x = dense(_flatten_nhwc(x), params["fc"]["kernel"], params["fc"]["bias"])
+        x = prelu(x, params["prelu5"]["alpha"])
+        cls = dense(x, params["cls"]["kernel"], params["cls"]["bias"])
+        reg = dense(x, params["reg"]["kernel"], params["reg"]["bias"])
+        lmk = dense(x, params["lmk"]["kernel"], params["lmk"]["bias"])
     return reg, lmk, torch.softmax(cls, dim=-1)
 
 

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from ..core.graphdef import extract_constants, load_graphdef
-from ..numerics import top_k
+from ..numerics import precision_scope, top_k
 from .layers import dense, global_avg_pool
 from .mobilenet import MOBILENET_V1_BLOCKS, mobilenet_v1_backbone
 
@@ -25,19 +25,25 @@ class MultiHeadOutput(NamedTuple):
     feats: torch.Tensor          # (N, 256) shared head representation
 
 
-def multihead_apply(params: Dict, x, compute_dtype=torch.float32) -> MultiHeadOutput:
+def multihead_apply(params: Dict, x, compute_dtype=torch.float32, *,
+                    precision="highest", bf16_blocks_below: int = 0) -> MultiHeadOutput:
     """x: (N, H, W, 3) preprocessed (BGR, ImageNet means subtracted).
 
     The backbone runs in ``compute_dtype`` (``torch.bfloat16``: the bf16
-    inference tier of the reference's ``compute_dtype``); the pooled
-    identity is cast to float32 and the heads run in float32."""
-    h = mobilenet_v1_backbone(params["backbone"], x, compute_dtype=compute_dtype)
-    # == global_pooling/Mean
-    identity = global_avg_pool(h.permute(0, 3, 1, 2)).to(torch.float32)
-    f = torch.relu(dense(identity, params["feats"]["kernel"],
-                         params["feats"]["bias"]))
-    age_logits = dense(f, params["age"]["kernel"], params["age"]["bias"])
-    gender_logit = dense(f, params["gender"]["kernel"], params["gender"]["bias"])
+    inference tier of the reference's ``compute_dtype``), its blocks below
+    ``bf16_blocks_below`` in bf16 (``mobilenet_v1_backbone``); the pooled
+    identity is cast to float32 and the heads run in float32. Every layer
+    runs at ``precision``'s tier."""
+    with precision_scope(precision):
+        h = mobilenet_v1_backbone(params["backbone"], x, precision=precision,
+                                  compute_dtype=compute_dtype,
+                                  bf16_blocks_below=bf16_blocks_below)
+        # == global_pooling/Mean
+        identity = global_avg_pool(h.permute(0, 3, 1, 2)).to(torch.float32)
+        f = torch.relu(dense(identity, params["feats"]["kernel"],
+                             params["feats"]["bias"]))
+        age_logits = dense(f, params["age"]["kernel"], params["age"]["bias"])
+        gender_logit = dense(f, params["gender"]["kernel"], params["gender"]["bias"])
     return MultiHeadOutput(
         age_probs=torch.softmax(age_logits, dim=-1),
         gender_prob=torch.sigmoid(gender_logit)[:, 0],

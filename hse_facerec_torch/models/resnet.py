@@ -23,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..numerics import precision_scope
+from ..params import cast_tree
 from .layers import batch_norm, conv2d, dense, global_avg_pool
 
 STAGES = (3, 4, 6, 3)
@@ -55,34 +57,37 @@ def _bottleneck(x, p, *, stride: int):
     return torch.relu(y + shortcut)
 
 
-def _cast(p: Dict, dtype) -> Dict:
-    return {k: _cast(v, dtype) if isinstance(v, dict) else v.to(dtype)
-            for k, v in p.items()}
-
-
-def resnet50_backbone(params: Dict, x, *, compute_dtype=torch.float32):
+def resnet50_backbone(params: Dict, x, *, precision="highest",
+                      compute_dtype=torch.float32):
     """(N, H, W, 3) -> (N, H/32, W/32, 2048): stem, 3×3/2 VALID max-pool
-    (Keras ``MaxPooling2D`` default), the bottleneck stages."""
-    x = x.permute(0, 3, 1, 2).to(compute_dtype)
-    x = _conv_bn(x, _cast(params["stem"], compute_dtype), stride=2, stem=True)
-    x = F.max_pool2d(x, 3, 2)
-    for si, n_blocks in enumerate(STAGES):
-        for bi in range(n_blocks):
-            stride = 2 if (bi == 0 and si > 0) else 1
-            x = _bottleneck(x, _cast(params[f"stage{si + 1}_block{bi + 1}"],
-                                     compute_dtype), stride=stride)
+    (Keras ``MaxPooling2D`` default), the bottleneck stages, at
+    ``precision``'s tier."""
+    with precision_scope(precision):
+        x = x.permute(0, 3, 1, 2).to(compute_dtype)
+        x = _conv_bn(x, cast_tree(params["stem"], compute_dtype), stride=2, stem=True)
+        x = F.max_pool2d(x, 3, 2)
+        for si, n_blocks in enumerate(STAGES):
+            for bi in range(n_blocks):
+                stride = 2 if (bi == 0 and si > 0) else 1
+                x = _bottleneck(x, cast_tree(params[f"stage{si + 1}_block{bi + 1}"],
+                                             compute_dtype), stride=stride)
     return x.permute(0, 2, 3, 1)
 
 
-def resnet50_embed(params: Dict, x, *, compute_dtype=torch.float32):
+def resnet50_embed(params: Dict, x, *, precision="highest",
+                   compute_dtype=torch.float32):
     """Face embedding (== the frozen graph's ``pool5_7x7_s1`` tap): (N, 2048)."""
-    h = resnet50_backbone(params, x, compute_dtype=compute_dtype)
+    h = resnet50_backbone(params, x, precision=precision, compute_dtype=compute_dtype)
     return global_avg_pool(h.permute(0, 3, 1, 2)).to(torch.float32)
 
 
-def resnet50_classify(params: Dict, x, *, compute_dtype=torch.float32):
-    emb = resnet50_embed(params, x, compute_dtype=compute_dtype)
-    return dense(emb, params["classifier"]["kernel"], params["classifier"]["bias"])
+def resnet50_classify(params: Dict, x, *, precision="highest",
+                      compute_dtype=torch.float32):
+    with precision_scope(precision):
+        emb = resnet50_embed(params, x, precision=precision,
+                             compute_dtype=compute_dtype)
+        return dense(emb, params["classifier"]["kernel"],
+                     params["classifier"]["bias"])
 
 
 def init_resnet50_params(generator: torch.Generator, n_classes: Optional[int] = None,

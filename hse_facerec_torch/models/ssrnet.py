@@ -23,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..numerics import precision_scope
 from ..params import normal
 from .layers import batch_norm, dense
 
@@ -100,9 +101,15 @@ def ssr_merge(preds, deltas, locals_, stage_num=STAGE_NUM,
 
 
 def ssrnet_apply(params: Dict, x, *, V: float = 101.0,
-                 lambda_local: float = 1.0, lambda_d: float = 1.0):
+                 lambda_local: float = 1.0, lambda_d: float = 1.0,
+                 precision="highest"):
     """(N, 64, 64, 3) float 0-255 → (N,) regression output (age, or 0-1 for
-    the general/gender variant with V=1)."""
+    the general/gender variant with V=1), at ``precision``'s tier."""
+    with precision_scope(precision):
+        return _ssrnet(params, x, V, lambda_local, lambda_d)
+
+
+def _ssrnet(params: Dict, x, V: float, lambda_local: float, lambda_d: float):
     x = x.to(torch.float32).permute(0, 3, 1, 2)
     x2, x3, x4 = _trunk(params, x, "x", torch.relu, "avg")
     s2, s3, s4 = _trunk(params, x, "s", torch.tanh, "max")

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..numerics import precision_scope
 from ..params import normal
 from .layers import conv2d, dense
 
@@ -27,20 +28,22 @@ from .layers import conv2d, dense
 VGG16_BLOCKS = ((1, 2, 64), (2, 2, 128), (3, 3, 256), (4, 3, 512), (5, 3, 512))
 
 
-def vgg16_embed(params: Dict, x) -> torch.Tensor:
+def vgg16_embed(params: Dict, x, *, precision="highest") -> torch.Tensor:
     """(N, 224, 224, 3) preprocessed (BGR, mean-subtracted) -> (N, 4096)
-    fc7/relu activations (the reference's embedding tap)."""
-    x = x.to(torch.float32).permute(0, 3, 1, 2)
-    for block, n_convs, _ in VGG16_BLOCKS:
-        for i in range(1, n_convs + 1):
-            layer = params[f"conv{block}_{i}"]
-            x = torch.relu(conv2d(x, layer["kernel"], layer["bias"]))
-        x = F.max_pool2d(x, 2, 2)
-    # Keras Flatten on NHWC: (7, 7, 512) in (h, w, c) order, the published
-    # fc6 kernel's
-    x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
-    x = torch.relu(dense(x, params["fc6"]["kernel"], params["fc6"]["bias"]))
-    return torch.relu(dense(x, params["fc7"]["kernel"], params["fc7"]["bias"]))
+    fc7/relu activations (the reference's embedding tap), at
+    ``precision``'s tier."""
+    with precision_scope(precision):
+        x = x.to(torch.float32).permute(0, 3, 1, 2)
+        for block, n_convs, _ in VGG16_BLOCKS:
+            for i in range(1, n_convs + 1):
+                layer = params[f"conv{block}_{i}"]
+                x = torch.relu(conv2d(x, layer["kernel"], layer["bias"]))
+            x = F.max_pool2d(x, 2, 2)
+        # Keras Flatten on NHWC: (7, 7, 512) in (h, w, c) order, the
+        # published fc6 kernel's
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        x = torch.relu(dense(x, params["fc6"]["kernel"], params["fc6"]["bias"]))
+        return torch.relu(dense(x, params["fc7"]["kernel"], params["fc7"]["bias"]))
 
 
 def init_vgg16_params(generator: torch.Generator) -> Dict:

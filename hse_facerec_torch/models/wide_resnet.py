@@ -9,6 +9,8 @@ flatten of a 64² input (``utkface_test.py:290-314``).
 
 Params are numpy pytrees in the reference's layouts; the forward takes them
 as tensors (``params.tree_to_torch``). Input keeps the reference's NHWC.
+The forward takes the reference's ``precision`` tier and ``compute_dtype``
+(input and trunk params cast to it; the flatten and the heads float32).
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..params import normal
+from ..numerics import precision_scope
+from ..params import cast_tree, normal
 from .layers import _same_pads, batch_norm, conv2d, dense
 
 
@@ -67,22 +70,26 @@ def _avg_pool_same(x, k: int):
     left, right = _same_pads(w, k, 1)
     summed = F.avg_pool2d(F.pad(x, (left, right, top, bottom)), k, 1,
                           divisor_override=1)
-    return summed * torch.from_numpy(_same_recips(h, w, k)).to(x.device)
+    return summed * torch.from_numpy(_same_recips(h, w, k)).to(x.device, x.dtype)
 
 
-def wide_resnet_16_8(params: Dict, x) -> Tuple[torch.Tensor, torch.Tensor]:
+def wide_resnet_16_8(params: Dict, x, *, precision="highest",
+                     compute_dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
     """(N, 64, 64, 3) -> (gender_probs (N, 2), age_probs (N, 101)): the
     reference head (``wide_resnet.py:133-138``), AveragePooling2D(8×8,
     strides=1, 'same') → NHWC Flatten → two bias-free softmax heads."""
-    x = x.to(torch.float32).permute(0, 3, 1, 2)
-    x = conv2d(x, params["conv1"]["kernel"])
-    for g, stride in (("g1", 1), ("g2", 2), ("g3", 2)):
-        for b in range(2):
-            x = _wide_basic(x, params[f"{g}_b{b}"], stride if b == 0 else 1)
-    x = _avg_pool_same(_bn_relu(x, params["bn_final"]), 8)
-    flat = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
-    gender = torch.softmax(dense(flat, params["gender"]["kernel"]), dim=-1)
-    age = torch.softmax(dense(flat, params["age"]["kernel"]), dim=-1)
+    dt = compute_dtype
+    with precision_scope(precision):
+        x = x.to(dt).permute(0, 3, 1, 2)
+        x = conv2d(x, params["conv1"]["kernel"].to(dt))
+        for g, stride in (("g1", 1), ("g2", 2), ("g3", 2)):
+            for b in range(2):
+                x = _wide_basic(x, cast_tree(params[f"{g}_b{b}"], dt),
+                                stride if b == 0 else 1)
+        x = _avg_pool_same(_bn_relu(x, cast_tree(params["bn_final"], dt)), 8)
+        flat = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1).to(torch.float32)
+        gender = torch.softmax(dense(flat, params["gender"]["kernel"]), dim=-1)
+        age = torch.softmax(dense(flat, params["age"]["kernel"]), dim=-1)
     return gender, age
 
 

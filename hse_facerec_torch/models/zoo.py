@@ -7,12 +7,15 @@ per-model settings), resolved into an ``EmbeddingExtractor``. An entry
 whose trained weights are absent builds from seeded random ones, with a
 ``RuntimeWarning``, as the reference does; ``weights_origin`` says which.
 ``graph_extractor`` wraps any frozen pb. Every entry of the JAX package's
-zoo is here.
+zoo is here. ``ModelSpec.model_fn(precision)``, ``build_extractor`` and
+``graph_extractor`` take the reference's ``precision`` tier
+(``numerics``); the int8 entries ignore it, as there.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import warnings
 from typing import Callable, Dict, Optional, Tuple
@@ -49,16 +52,31 @@ class ModelSpec:
     resize_method: str
     embedding_dim: int
     build_params: Callable[[], Dict]   # numpy params in the reference's layouts
-    model_fn: Callable                 # f(torch params, x NHWC) -> (N, D)
+    model_fn_factory: Callable         # precision -> f(torch params, x NHWC) -> (N, D)
     # extra EmbeddingExtractor options (flip_tta, l2_normalize_output,
     # convert for a pytree that is not of layer dicts, ...)
     extractor_kwargs: Dict = dataclasses.field(default_factory=dict)
 
+    def model_fn(self, precision="highest") -> Callable:
+        """The entry's forward ``f(params, x)`` at ``precision``'s tier."""
+        return self.model_fn_factory(precision)
 
-def _multihead_identity(params, x):
+
+def _at(forward):
+    """The factory of ``forward(params, x, precision=...)`` at a tier."""
+    return lambda precision="highest": functools.partial(forward, precision=precision)
+
+
+def _untiered(forward):
+    """A factory whose forward ignores the tier (the int8 entries: the
+    dial does not apply to the int8 path)."""
+    return lambda precision="highest": forward
+
+
+def _multihead_identity(params, x, precision="highest"):
     from .multihead import multihead_apply
 
-    return multihead_apply(params, x).identity
+    return multihead_apply(params, x, precision=precision).identity
 
 
 def _multihead_identity_int8(params, x):
@@ -79,10 +97,10 @@ def _agegender_int8_params():
     return quantize_multihead_int8(_agegender_params())
 
 
-def _mobilenet_embed(params, x):
+def _mobilenet_embed(params, x, precision="highest"):
     from .mobilenet import mobilenet_embed
 
-    return mobilenet_embed(params, x)
+    return mobilenet_embed(params, x, precision=precision)
 
 
 def _mobilenet_embed_int8(params, x):
@@ -91,22 +109,22 @@ def _mobilenet_embed_int8(params, x):
     return mobilenet_embed_int8(params, x)
 
 
-def _arcface_embed(params, x):
+def _arcface_embed(params, x, precision="highest"):
     from .arcface import iresnet_embed
 
-    return iresnet_embed(params, x)
+    return iresnet_embed(params, x, precision=precision)
 
 
-def _vgg16_embed(params, x):
+def _vgg16_embed(params, x, precision="highest"):
     from .vgg16 import vgg16_embed
 
-    return vgg16_embed(params, x)
+    return vgg16_embed(params, x, precision=precision)
 
 
-def _resnet_embed(params, x):
+def _resnet_embed(params, x, precision="highest"):
     from .resnet import resnet50_embed
 
-    return resnet50_embed(params, x)
+    return resnet50_embed(params, x, precision=precision)
 
 
 def _warn_random_init(name: str, missing_path: str) -> None:
@@ -208,44 +226,44 @@ MODEL_ZOO: Dict[str, ModelSpec] = {
     # (facial_analysis.py:29-33, facerec_test.py:210 commented variant)
     "agegender_identity": ModelSpec(
         "agegender_identity", (224, 224), "caffe", "cv2_linear", 1024,
-        _agegender_params, _multihead_identity),
+        _agegender_params, _at(_multihead_identity)),
     # MobileNet-192 VGGFace2 embedder (facerec_test.py:212: convert2BGR=True,
     # imageNetUtilsMean=True)
     "vgg2_mobilenet": ModelSpec(
         "vgg2_mobilenet", (192, 192), "caffe", "pil_bilinear", 1024,
-        _vgg2_mobilenet_params, _mobilenet_embed),
+        _vgg2_mobilenet_params, _at(_mobilenet_embed)),
     # ResNet-50 VGGFace2 embedder (facerec_test.py:213: VGGFace2 means)
     "vgg2_resnet": ModelSpec(
         "vgg2_resnet", (224, 224), "vggface2", "pil_bilinear", 2048,
-        _vgg2_resnet_params, _resnet_embed),
+        _vgg2_resnet_params, _at(_resnet_embed)),
     # InsightFace ArcFace-r100 112² embedder (insightface_face_embedding.py:
     # 20-63): raw 0-255 RGB in (the model scales internally), L2-normalized
     # output; flip-TTA off (reference self.flip=0, :23)
     "insightface_arcface": ModelSpec(
         "insightface_arcface", (112, 112), "none", "cv2_linear", 512,
-        _arcface_params, _arcface_embed,
+        _arcface_params, _at(_arcface_embed),
         extractor_kwargs={"l2_normalize_output": True, "convert": _tree_to_torch}),
     # the int8 serving variants (models/int8_infer.py, pointwise layers on
     # K4); same preprocessing and protocols as their f32 bases
     "agegender_identity_int8": ModelSpec(
         "agegender_identity_int8", (224, 224), "caffe", "cv2_linear", 1024,
-        _agegender_int8_params, _multihead_identity_int8),
+        _agegender_int8_params, _untiered(_multihead_identity_int8)),
     "vgg2_mobilenet_int8": ModelSpec(
         "vgg2_mobilenet_int8", (192, 192), "caffe", "pil_bilinear", 1024,
-        _vgg2_mobilenet_int8_params, _mobilenet_embed_int8),
+        _vgg2_mobilenet_int8_params, _untiered(_mobilenet_embed_int8)),
     # keras_vggface VGG16, fc7/relu tap (facerec_test.py:344-349,
     # facial_clustering_test.py:295-300): Keras load_img resizes with PIL
     # NEAREST (its default interpolation), preprocess_input v1 means
     "vggface_vgg16": ModelSpec(
         "vggface_vgg16", (224, 224), "vggface1", "pil_nearest", 4096,
-        _vgg16_params, _vgg16_embed),
+        _vgg16_params, _at(_vgg16_embed)),
     # keras_vggface ResNet-50, avg_pool tap (facial_clustering_test.py:
     # 296-300: layers={'resnet50': 'avg_pool'}): Keras load_img resizes with
     # PIL NEAREST (its default interpolation), preprocess_input with its
     # default version=1 means (the reference passes no version arg)
     "vggface_resnet50": ModelSpec(
         "vggface_resnet50", (224, 224), "vggface1", "pil_nearest", 2048,
-        _vggface_resnet50_params, _resnet_embed),
+        _vggface_resnet50_params, _at(_resnet_embed)),
 }
 
 
@@ -273,16 +291,17 @@ def weights_origin(name: str) -> str:
 
 
 def build_extractor(name: str, batch_size: int = 64, device="cuda",
-                    params: Optional[Dict] = None, mesh=None):
+                    params: Optional[Dict] = None, mesh=None, precision="highest"):
     """The zoo entry as an ``EmbeddingExtractor`` on ``device``, or over
-    ``mesh`` (params replicated, batches split). ``params``
+    ``mesh`` (params replicated, batches split), its forward at
+    ``precision``'s tier. ``params``
     (numpy, the layouts ``build_params`` returns: quantized for the int8
     entries) replaces the entry's weights, e.g. with seeded random weights
     where the file is absent."""
     from ..pipelines.embedder import EmbeddingExtractor
 
     spec = MODEL_ZOO[name]
-    return EmbeddingExtractor(spec.model_fn,
+    return EmbeddingExtractor(spec.model_fn(precision),
                               spec.build_params() if params is None else params,
                               spec.input_size,
                               normalization=spec.normalization,
@@ -295,13 +314,14 @@ def graph_extractor(pb_path: str, input_tensor: str, output_tensor: str,
                     input_size, normalization: str = "caffe",
                     resize_method: str = "pil_bilinear", batch_size: int = 64,
                     device="cuda", extra_feeds: Optional[Dict[str, object]] = None,
-                    mesh=None):
+                    mesh=None, precision="highest"):
     """Generic frozen-pb embedder: ANY TF frozen graph as an
     ``EmbeddingExtractor`` on ``device`` (or over ``mesh``), the general form of the
     reference's ``TensorFlowInference`` model rows (``facerec_test.py:
     209-218``: FaceNet, InsightFace, custom pbs, each selected by a (pb,
     input, output, preprocessing) tuple). The graph runs through
-    ``core/graph_compiler.py``; its constants move to the device once.
+    ``core/graph_compiler.py`` at ``precision``'s tier; its constants move
+    to the device once.
 
     extra_feeds: {tensor: value} pinned when the graph is compiled — the
     reference's ``learning_phase_tensor``/``additional_input_value``
@@ -311,7 +331,8 @@ def graph_extractor(pb_path: str, input_tensor: str, output_tensor: str,
     from ..core.graph_compiler import compile_pb
     from ..pipelines.embedder import EmbeddingExtractor
 
-    cg = compile_pb(pb_path, [output_tensor], const_feeds=extra_feeds)
+    cg = compile_pb(pb_path, [output_tensor], precision=precision,
+                    const_feeds=extra_feeds)
     in_name = input_tensor.split(":")[0]
 
     def model_fn(graph_params, x):

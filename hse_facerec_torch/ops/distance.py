@@ -7,37 +7,44 @@ matrix-free 1-NN kernels are in ``ops/kernels/knn.py``.
 
 Ties: ``torch.argmin`` returns the first occurrence, as ``jnp.argmin``
 does; ``top_k_neighbors`` goes through ``numerics.top_k`` (a stable sort),
-because ``lax.top_k`` breaks ties by the lowest index.
+because ``lax.top_k`` breaks ties by the lowest index. The matmul forms
+take the reference's ``precision`` tier (``numerics``), "highest" by
+default, as there.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..numerics import top_k
+from ..numerics import precision_scope, top_k
 
 
-def l2_normalize(x, dim: int = -1, eps: float = 1e-10):
-    """Row-normalize feature vectors (reference ``facerec_test.py:401-405``,
-    sklearn ``preprocessing.normalize`` semantics)."""
-    n = torch.linalg.vector_norm(x, dim=dim, keepdim=True)
+def l2_normalize(x, axis: int = -1, eps: float = 1e-10):
+    """Row-normalize feature vectors along ``axis`` (reference
+    ``facerec_test.py:401-405``, sklearn ``preprocessing.normalize``
+    semantics)."""
+    n = torch.linalg.vector_norm(x, dim=axis, keepdim=True)
     return x / torch.clamp(n, min=eps)
 
 
-def pairwise_sqeuclidean(a, b):
+def pairwise_sqeuclidean(a, b, precision="highest"):
     """(N, D) x (M, D) -> (N, M) squared-L2 distances via one matmul."""
     a2 = torch.sum(a * a, dim=-1, keepdim=True)
     b2 = torch.sum(b * b, dim=-1, keepdim=True)
-    return torch.clamp(a2 + b2.T - 2.0 * (a @ b.T), min=0.0)
+    with precision_scope(precision):
+        ab = a @ b.T
+    return torch.clamp(a2 + b2.T - 2.0 * ab, min=0.0)
 
 
-def pairwise_euclidean(a, b):
-    return torch.sqrt(pairwise_sqeuclidean(a, b))
+def pairwise_euclidean(a, b, precision="highest"):
+    return torch.sqrt(pairwise_sqeuclidean(a, b, precision=precision))
 
 
-def pairwise_cosine(a, b):
+def pairwise_cosine(a, b, precision="highest"):
     """Cosine *distance* (1 - similarity)."""
-    return 1.0 - l2_normalize(a) @ l2_normalize(b).T
+    with precision_scope(precision):
+        sim = l2_normalize(a) @ l2_normalize(b).T
+    return 1.0 - sim
 
 
 def chi2_dist(x, y):
@@ -79,13 +86,20 @@ _PAIRWISE = {"euclidean": pairwise_sqeuclidean, "cosine": pairwise_cosine,
              "chi2": pairwise_chi2, "kl": pairwise_kl}
 
 
-def nearest_neighbor(gallery, gallery_labels, probes, metric: str = "euclidean"):
+def _pairwise(metric: str, a, b, precision):
+    if metric in ("euclidean", "cosine"):
+        return _PAIRWISE[metric](a, b, precision=precision)
+    return _PAIRWISE[metric](a, b)
+
+
+def nearest_neighbor(gallery, gallery_labels, probes, metric: str = "euclidean",
+                     precision="highest"):
     """1-NN classification: distance matrix + argmin + gather. Returns
     (predicted labels (M,), nn distances (M,)); euclidean distances are
     plain L2 (reference ``facerec_test.py:269-281,416-432``)."""
     if metric not in _PAIRWISE:
         raise ValueError(metric)
-    d = _PAIRWISE[metric](probes, gallery)
+    d = _pairwise(metric, probes, gallery, precision)
     idx = torch.argmin(d, dim=-1)
     dmin = torch.gather(d, -1, idx[:, None])[:, 0]
     if metric == "euclidean":
@@ -93,11 +107,12 @@ def nearest_neighbor(gallery, gallery_labels, probes, metric: str = "euclidean")
     return gallery_labels[idx], dmin
 
 
-def top_k_neighbors(gallery, probes, k: int, metric: str = "euclidean"):
+def top_k_neighbors(gallery, probes, k: int, metric: str = "euclidean",
+                    precision="highest"):
     """k nearest gallery indices + distances per probe (ascending)."""
     if metric not in ("euclidean", "cosine"):
         raise ValueError(metric)
-    d = _PAIRWISE[metric](probes, gallery)
+    d = _pairwise(metric, probes, gallery, precision)
     neg_d, idx = top_k(-d, k)
     d_k = -neg_d
     if metric == "euclidean":

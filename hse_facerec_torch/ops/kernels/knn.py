@@ -50,7 +50,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ...numerics import div_const, fma
+from ...numerics import div_const, fma, precision_scope
 from ..distance import pairwise_sqeuclidean
 from . import build
 
@@ -518,7 +518,9 @@ def nearest_neighbor_plain(probes, gallery, bf16: bool = True):
     if bf16:
         a = a.to(torch.bfloat16).to(torch.float32)
         b = b.to(torch.bfloat16).to(torch.float32)
-    d = (a2[:, None] + b2[None, :]) - 2.0 * (a @ b.T)
+    with precision_scope("highest"):
+        ab = a @ b.T
+    d = (a2[:, None] + b2[None, :]) - 2.0 * ab
     idx = torch.argmin(d, dim=1)
     return torch.clamp(torch.gather(d, 1, idx[:, None])[:, 0], min=0.0), idx
 

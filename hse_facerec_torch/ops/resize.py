@@ -9,6 +9,8 @@ module imports jax), applied as a matmul.
 (one image per lane) and ``crop_resize_bilinear_lanes`` (a lane index per
 box) are the plain PyTorch version of the CUDA crop kernel
 (``ops/kernels/crop.py``): the CPU path and the kernel's oracle.
+Every matmul form takes the reference's ``precision`` tier (``numerics``),
+"highest" by default, as there.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..numerics import div_const, fma
+from ..numerics import div_const, fma, precision_scope
 
 
 @functools.lru_cache(maxsize=256)
@@ -128,7 +130,8 @@ _WEIGHT_FNS = {
 }
 
 
-def resize(img, out_hw: Tuple[int, int], method: str = "cv2_linear"):
+def resize(img, out_hw: Tuple[int, int], method: str = "cv2_linear",
+           precision="highest"):
     """Resize (..., H, W, C) to (..., out_h, out_w, C) with the given
     semantics ('cv2_linear' | 'cv2_area' | 'pil_bilinear' | 'pil_nearest' |
     'cv2_cubic'): rows, then columns, each one matmul."""
@@ -137,8 +140,9 @@ def resize(img, out_hw: Tuple[int, int], method: str = "cv2_linear"):
     wfn = _WEIGHT_FNS[method]
     mh = torch.from_numpy(wfn(h, oh)).to(img.device)
     mw = torch.from_numpy(wfn(w, ow)).to(img.device)
-    x = torch.einsum("oh,...hwc->...owc", mh, img.to(torch.float32))
-    return torch.einsum("pw,...owc->...opc", mw, x)
+    with precision_scope(precision):
+        x = torch.einsum("oh,...hwc->...owc", mh, img.to(torch.float32))
+        return torch.einsum("pw,...owc->...opc", mw, x)
 
 
 @functools.lru_cache(maxsize=256)
@@ -233,23 +237,28 @@ def resize_linear_u8(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
     return np.clip(out, 0, 255).astype(np.uint8)
 
 
-def resize_pyramid(img, out_hws: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
-    """cv2 INTER_AREA resize of (..., H, W, C) images to several sizes: the
-    row passes of all levels stack into one (Σoh, H) matmul, the column
-    passes run per level."""
+def resize_pyramid(img, out_hws: Sequence[Tuple[int, int]],
+                   method: str = "cv2_area", precision="highest") -> List[torch.Tensor]:
+    """``[resize(img, hw, method) for hw in out_hws]`` of (..., H, W, C)
+    images (cv2 INTER_AREA by default, the MTCNN scale pyramid): the row
+    passes of all levels stack into one (Σoh, H) matmul, the column passes
+    run per level."""
     h, w, c = img.shape[-3:]
     lead = img.shape[:-3]
     dev = img.device
+    wfn = _WEIGHT_FNS[method]
     stacked = torch.from_numpy(
-        np.concatenate([_area_weights_cv2(h, oh) for oh, _ in out_hws])).to(dev)
+        np.concatenate([wfn(h, oh) for oh, _ in out_hws])).to(dev)
     x = img.to(torch.float32)
-    rows = (stacked @ x.reshape(*lead, h, w * c)).reshape(*lead, -1, w, c)
     outs = []
-    off = 0
-    for oh, ow in out_hws:
-        mw = torch.from_numpy(_area_weights_cv2(w, ow)).to(dev)
-        outs.append(torch.einsum("pw,...owc->...opc", mw, rows[..., off:off + oh, :, :]))
-        off += oh
+    with precision_scope(precision):
+        rows = (stacked @ x.reshape(*lead, h, w * c)).reshape(*lead, -1, w, c)
+        off = 0
+        for oh, ow in out_hws:
+            mw = torch.from_numpy(wfn(w, ow)).to(dev)
+            outs.append(torch.einsum("pw,...owc->...opc", mw,
+                                     rows[..., off:off + oh, :, :]))
+            off += oh
     return outs
 
 
@@ -286,7 +295,7 @@ def _crop_weights(boxes, H: int, W: int, out_size: int, supersample: int,
 
 
 def crop_resize_bilinear(img, boxes, out_size: int, supersample: int = 2,
-                         outside: str = "clamp"):
+                         outside: str = "clamp", precision="highest"):
     """Batched crop + resize with supersampled bilinear sampling.
 
     img: (H, W, C) float32; boxes: (N, 4) [y1, x1, y2, x2] pixel coords.
@@ -297,8 +306,9 @@ def crop_resize_bilinear(img, boxes, out_size: int, supersample: int = 2,
     img = img.to(torch.float32)
     H, W, C = img.shape
     R, Cw = _crop_weights(boxes, H, W, out_size, supersample, outside)
-    rows = (R @ img.reshape(H, W * C)).reshape(R.shape[0], out_size, W, C)
-    return torch.einsum("niwc,njw->nijc", rows, Cw)
+    with precision_scope(precision):
+        rows = (R @ img.reshape(H, W * C)).reshape(R.shape[0], out_size, W, C)
+        return torch.einsum("niwc,njw->nijc", rows, Cw)
 
 
 def crop_resize_bilinear_batch(images, boxes, out_size: int,
@@ -311,14 +321,16 @@ def crop_resize_bilinear_batch(images, boxes, out_size: int,
     K = boxes.shape[1]
     R, Cw = _crop_weights(boxes.reshape(L * K, 4), H, W, out_size, supersample,
                           outside)
-    rows = torch.matmul(R.reshape(L, K * out_size, H), images.reshape(L, H, W * C))
-    rows = rows.reshape(L * K, out_size, W, C)
-    out = torch.einsum("niwc,njw->nijc", rows, Cw)
+    with precision_scope("highest"):
+        rows = torch.matmul(R.reshape(L, K * out_size, H), images.reshape(L, H, W * C))
+        rows = rows.reshape(L * K, out_size, W, C)
+        out = torch.einsum("niwc,njw->nijc", rows, Cw)
     return out.reshape(L, K, out_size, out_size, C)
 
 
 def crop_resize_bilinear_lanes(images, lanes, boxes, out_size: int,
-                               supersample: int = 1, outside: str = "clamp"):
+                               supersample: int = 1, outside: str = "clamp",
+                               precision="highest"):
     """``crop_resize_bilinear`` where each box crops from its own image of a
     batch: images (L, H, W, C), lanes (N,) integer image index per box,
     boxes (N, 4) [y1, x1, y2, x2] -> (N, out_size, out_size, C). What lets
@@ -327,5 +339,6 @@ def crop_resize_bilinear_lanes(images, lanes, boxes, out_size: int,
     R, Cw = _crop_weights(boxes, images.shape[1], images.shape[2], out_size,
                           supersample, outside)
     per_box = images[lanes.long()]                                # (N, H, W, C)
-    rows = torch.einsum("nih,nhwc->niwc", R, per_box)
-    return torch.einsum("niwc,njw->nijc", rows, Cw)
+    with precision_scope(precision):
+        rows = torch.einsum("nih,nhwc->niwc", R, per_box)
+        return torch.einsum("niwc,njw->nijc", rows, Cw)

@@ -32,10 +32,11 @@ import torch
 
 from ..config import TrainConfig
 from ..models.layers import batch_norm, conv2d, dense, depthwise_conv2d, relu6_train
-from ..models.mobilenet import (BN_EPS, MOBILENET_V1_BLOCKS, _cast, _conv_bn_relu6,
+from ..models.mobilenet import (BN_EPS, MOBILENET_V1_BLOCKS, _conv_bn_relu6,
                                 init_mobilenet_params, update_bn_stats)
+from ..numerics import precision_scope
 from ..ops.kernels.warp import warp_batch
-from ..params import to_torch
+from ..params import cast_tree, to_torch
 from ..train.augment import AugmentConfig, sample_affine
 from ..train.face_id import Adam, make_optimizer
 from .sharding import Mesh, shard_sum, split_batch, to_device
@@ -166,10 +167,10 @@ def backbone_sharded(trees: Sequence[Dict], xs: Sequence[torch.Tensor], *,
     xs = [x.permute(0, 3, 1, 2).to(dt) for x in xs]
     stats: Dict[str, Tuple] = {}
     xs, stats["conv1"] = _conv_bn_relu6_sharded(
-        xs, [_cast(t["conv1"], dt) for t in trees], conv2d, 2, train, home)
+        xs, [cast_tree(t["conv1"], dt) for t in trees], conv2d, 2, train, home)
     for i, (stride, _) in enumerate(MOBILENET_V1_BLOCKS, start=1):
-        pdw = [_cast(t[f"dw{i}"], dt) for t in trees]
-        ppw = [_cast(t[f"pw{i}"], dt) for t in trees]
+        pdw = [cast_tree(t[f"dw{i}"], dt) for t in trees]
+        ppw = [cast_tree(t[f"pw{i}"], dt) for t in trees]
 
         def block(*xs, pdw=pdw, ppw=ppw, stride=stride):
             ys, s_dw = _conv_bn_relu6_sharded(xs, pdw, depthwise_conv2d, stride,
@@ -327,6 +328,7 @@ def make_sharded_face_id_step(mesh: Mesh, cfg: TrainConfig, optimizer: Adam,
     grid = _grid(mesh, split_classifier)
     rows = [row[0] for row in grid]
 
+    @precision_scope("highest")                   # the forward and the backward
     def step(params, opt_state, generator, images, labels):
         images = _as_float_batch(images)
         xs = (_augment_split(generator, images, augment, rows) if augment is not None
@@ -421,6 +423,7 @@ def make_sharded_age_gender_steps(mesh: Mesh, age_optimizer: Adam,
     def make(task: str):
         optimizer = optimizers[task]
 
+        @precision_scope("highest")               # the forward and the backward
         def step(params, opt_state, generator, images, labels, masks=None):
             images = _as_float_batch(images)
             n = images.shape[0]

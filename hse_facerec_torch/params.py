@@ -78,6 +78,12 @@ def to_torch(params: Dict, device) -> Dict:
     return out
 
 
+def cast_tree(tree: Dict, dtype) -> Dict:
+    """A nested dict of tensors with every leaf cast to ``dtype``."""
+    return {k: cast_tree(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in tree.items()}
+
+
 def normal(generator: torch.Generator, shape, std) -> np.ndarray:
     """float32 normals of ``shape`` times ``std``, drawn from ``generator``
     (on its device) and returned on the host: the init functions' seeded

@@ -12,9 +12,12 @@ lanes over the mesh's shards, each running the compacted batch program on
 its device with a replica of the detector and the heads (the JAX package's
 ``shard_map`` of ``_build_batch_compact_fn``).
 
-Numerics: parity with the reference needs fp32 without TF32. Call
-``hse_facerec_torch.set_parity_numerics()`` once before analyzing on a
-CUDA device, as the CLI and ``chip_smoke.py`` do.
+Numerics: each forward holds its own precision tier (``numerics``), so no
+global setting changes an answer. The detector's tier comes in
+``detector_kwargs`` (``precision=``), the heads' in their constructor
+(``MultiheadHeads(params, device, precision=...)``, or ``head_kwargs`` of
+``from_two_model_pbs``); both default to "highest", IEEE fp32, the tier of
+the reference's answers.
 """
 
 from __future__ import annotations

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..models import mtcnn as nets
-from ..numerics import fma
+from ..numerics import fma, fp32_precision
 from ..ops import boxes as B
 from ..ops.kernels.crop import crop_resize
 from ..ops.nms import nms_mask
@@ -88,13 +88,20 @@ class MTCNNDetector:
       max_level_boxes, max_stage2, max_stage3: fixed box caps per stage.
       supersample: sub-samples per axis of the stage-2/3 crops.
       max_escalations: cap-doubling retries when a cap dropped candidates.
+      precision: the tier of the P/R/O-Net forwards (``numerics``;
+        "highest" by default, where the reference defaults to HIGH, which
+        is f32-exact only on its chip). The pyramid resize always runs
+        "highest": its pixels are rounded to integers on .5 boundaries
+        that TF32 error would flip. The stage-2/3 crops (K1) are exact
+        float32 multiply-adds at every tier.
     """
 
     def __init__(self, params, device="cuda", minsize: int = 40,
                  thresholds=(0.6, 0.7, 0.9), factor: float = 0.709,
                  max_level_boxes: int = 384, max_stage2: int = 128,
                  max_stage3: int = 64, supersample: int = 2,
-                 max_escalations: int = 2):
+                 precision="highest", max_escalations: int = 2):
+        fp32_precision(precision)                 # refuse an unknown tier now
         self.device = resolve_device(device)
         self.params = to_torch(params, self.device)
         self.minsize = minsize
@@ -104,6 +111,7 @@ class MTCNNDetector:
         self.max_stage2 = max_stage2
         self.max_stage3 = max_stage3
         self.supersample = supersample
+        self.precision = precision
         self.max_escalations = max_escalations
         self.last_truncated = False
 
@@ -143,7 +151,8 @@ class MTCNNDetector:
             # transposed-feed convention: first spatial axis = image x
             level_t = level.transpose(-3, -2)
             reg_map, prob_map = nets.pnet(self.params["pnet"],
-                                          level_t if lead else level_t[None])
+                                          level_t if lead else level_t[None],
+                                          precision=self.precision)
             reg_map = reg_map.reshape(*lead, *reg_map.shape[1:])
             prob_map = prob_map[..., 1].reshape(*lead, *prob_map.shape[1:3])
             kmax = min(max_level, prob_map.shape[-2] * prob_map.shape[-1])
@@ -189,7 +198,7 @@ class MTCNNDetector:
         th2 = self.thresholds[1]
         lead = boxes.shape[:-1]
         crops = self._crop_batch(img_f, boxes, 24)
-        regs, probs = nets.rnet(self.params["rnet"], crops)
+        regs, probs = nets.rnet(self.params["rnet"], crops, precision=self.precision)
         regs, scores = regs.reshape(*lead, 4), probs[:, 1].reshape(lead)
         valid = valid & (scores > th2)
         keep = nms_mask(boxes, scores, valid, 0.7, "union")
@@ -204,7 +213,8 @@ class MTCNNDetector:
         th3 = self.thresholds[2]
         lead = boxes.shape[:-1]
         crops = self._crop_batch(img_f, boxes, 48)
-        regs, lmks, probs = nets.onet(self.params["onet"], crops)
+        regs, lmks, probs = nets.onet(self.params["onet"], crops,
+                                      precision=self.precision)
         regs, lmks = regs.reshape(*lead, 4), lmks.reshape(*lead, 10)
         scores = probs[:, 1].reshape(lead)
         valid = valid & (scores > th3)

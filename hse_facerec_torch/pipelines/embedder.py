@@ -48,17 +48,23 @@ class EmbeddingExtractor:
         all the mesh's shards (padded by repeating the last row), and the
         features come back in input order. The mesh's first device
         replaces ``device``.
+      compute_dtype: stored as ``self.compute_dtype``, as the reference
+        stores it; the forward's own dtype and tier are ``model_fn``'s
+        (``zoo.build_extractor(precision=...)``). The device resize runs
+        at "highest", as there.
     """
 
     def __init__(self, model_fn: Callable, params, input_size: Tuple[int, int],
                  normalization: str = "caffe", resize_method: str = "pil_bilinear",
                  batch_size: int = 64, device="cuda", flip_tta: bool = False,
                  l2_normalize_output: bool = False, host_resize: str = "never",
-                 convert: Callable = to_torch, mesh=None):
+                 convert: Callable = to_torch, mesh=None,
+                 compute_dtype=torch.float32):
         if host_resize not in ("always", "never"):
             raise ValueError(f"host_resize must be always|never, "
                              f"got {host_resize!r}")
         self.model_fn = model_fn
+        self.compute_dtype = compute_dtype
         self.mesh = mesh
         if mesh is None:
             self.device = resolve_device(device)

@@ -11,6 +11,7 @@ import torch
 from ..models.int8_infer import (is_quantized, multihead_apply_int8,
                                  quantize_multihead_int8)
 from ..models.multihead import expected_age_top_k, multihead_apply
+from ..numerics import fp32_precision
 from ..ops.preprocess import IMAGENET_MEANS_BGR
 from ..ops.resize import resize
 from ..params import to_torch
@@ -19,16 +20,22 @@ from ..params import to_torch
 class MultiheadHeads:
     """One-model configuration: the shipped multi-head net.
     ``apply(crops) -> (ages, gender_prob, identity)`` over (N, S, S, 3)
-    float32 RGB crops on ``device``."""
+    float32 RGB crops on ``device``, the net at ``precision``'s tier
+    ("highest" by default; the reference's HIGH is f32-exact only on its
+    chip)."""
 
     identity_dim = 1024
-    forward = staticmethod(multihead_apply)
 
-    def __init__(self, params, device):
+    def __init__(self, params, device, precision="highest"):
+        fp32_precision(precision)                 # refuse an unknown tier now
         self.device = torch.device(device)
         self.params = to_torch(params, self.device)
+        self.precision = precision
         self._means = torch.tensor(IMAGENET_MEANS_BGR, dtype=torch.float32,
                                    device=self.device)
+
+    def forward(self, params, x):
+        return multihead_apply(params, x, precision=self.precision)
 
     @torch.no_grad()
     def apply(self, crops):
@@ -42,13 +49,16 @@ class Int8MultiheadHeads(MultiheadHeads):
     """The one-model configuration on the full-int8 serving path
     (``models/int8_infer.py``, pointwise layers on K4). ``params`` are raw
     multi-head params, quantized here, or an already quantized pytree.
-    Same per-face semantics as ``MultiheadHeads``."""
-
-    forward = staticmethod(multihead_apply_int8)
+    Same per-face semantics as ``MultiheadHeads``. It takes no
+    ``precision``: the dial does not apply to the int8 path, as in the
+    reference (its float convs run "highest")."""
 
     def __init__(self, params, device):
         super().__init__(params if is_quantized(params)
                          else quantize_multihead_int8(params), device)
+
+    def forward(self, params, x):
+        return multihead_apply_int8(params, x)
 
 
 def _placeholder_hw(graph, name: str) -> Optional[Tuple[int, int]]:
@@ -73,6 +83,8 @@ class TwoModelHeads:
     expectation of the softmax tap; gender = the sigmoid tap, or with
     ``sota`` the ``data``/``prob`` taps and the hard decision P(male) > 0.5
     as 0.0/1.0. No identity features (reference :284): identity is (n, 0).
+    Both graphs run at ``precision``'s tier ("highest" by default, as in
+    the reference); the crop resize stays "highest", as there.
     """
 
     identity_dim = 0
@@ -82,7 +94,7 @@ class TwoModelHeads:
                  age_output: str = "predictions/Softmax",
                  gender_input: str = "input_1",
                  gender_output: str = "predictions/Sigmoid",
-                 sota: bool = False):
+                 sota: bool = False, precision="highest"):
         from ..core.graph_compiler import compile_pb
 
         if sota:
@@ -91,8 +103,9 @@ class TwoModelHeads:
             gender_input, gender_output = "data", "prob"
         self.sota = sota
         self.device = torch.device(device)
-        self._age = compile_pb(age_pb, [age_output])
-        self._gender = compile_pb(gender_pb, [gender_output])
+        self.precision = precision
+        self._age = compile_pb(age_pb, [age_output], precision=precision)
+        self._gender = compile_pb(gender_pb, [gender_output], precision=precision)
         self._age_in = age_input.split(":")[0]
         self._gender_in = gender_input.split(":")[0]
         self.age_hw = _placeholder_hw(self._age.graph, self._age_in) or (224, 224)

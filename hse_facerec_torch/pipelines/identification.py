@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..numerics import precision_scope
 from ..ops.distance import l2_normalize, nearest_neighbor, top_k_neighbors
 from ..ops.kernels.knn import nearest_neighbor_auto, quantize_embeddings
 from ..parallel.knn import nearest_neighbor_sharded
@@ -115,7 +116,8 @@ def pca_project(train: np.ndarray, test: np.ndarray, n_components: int,
 
     def proj(a):
         a = torch.as_tensor(np.asarray(a, np.float32), device=dev)
-        return ((a - mean) @ comps).cpu().numpy()
+        with precision_scope("highest"):
+            return ((a - mean) @ comps).cpu().numpy()
 
     return proj(train), proj(test)
 

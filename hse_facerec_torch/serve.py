@@ -534,7 +534,6 @@ def build_server(port: int = 8000, model: str = "agegender_identity",
 
 def main(argv=None):
     from .models.zoo import MODEL_ZOO
-    from .numerics import set_parity_numerics
 
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -565,7 +564,6 @@ def main(argv=None):
                         "queue")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    set_parity_numerics()
     server = build_server(args.port, args.model, args.max_batch,
                           with_analyzer=not args.no_analyzer,
                           request_timeout_s=args.request_timeout,

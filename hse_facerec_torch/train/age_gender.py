@@ -38,7 +38,7 @@ from ..config import TrainConfig
 from ..models.layers import dense
 from ..models.mobilenet import (init_mobilenet_params, mobilenet_v1_backbone,
                                 update_bn_stats)
-from ..numerics import div_const
+from ..numerics import div_const, precision_scope
 from ..params import to_torch
 from ..pipelines.detector import resolve_device
 from .augment import AugmentConfig, augment_batch
@@ -82,7 +82,8 @@ def dropout_masks(generator: torch.Generator, n: int, params: Dict
 
 
 def forward(params: Dict, images, *, masks: Optional[Sequence[torch.Tensor]] = None,
-            backbone_train: bool = False, compute_dtype=torch.bfloat16):
+            precision="highest", backbone_train: bool = False,
+            compute_dtype=torch.bfloat16):
     """Shared trunk -> (age_logits (N, 100), gender_logit (N,), BN moments).
 
     ``backbone_train`` runs the trunk's BN on the batch's moments and
@@ -90,14 +91,19 @@ def forward(params: Dict, images, *, masks: Optional[Sequence[torch.Tensor]] = N
     inference-mode BN on its running statistics, without autograd (the
     frozen phase and evaluation), and the moments are ``{}``. ``masks``
     (``dropout_masks``) apply dropout as the reference does:
-    ``emb·mask/keep``, then ``relu(feats)``, then ``f·mask/keep``."""
+    ``emb·mask/keep``, then ``relu(feats)``, then ``f·mask/keep``. Every
+    layer runs at ``precision``'s tier ("highest" by default, where the
+    reference's trainers default to DEFAULT)."""
     stats: Dict = {}
-    with torch.set_grad_enabled(backbone_train and torch.is_grad_enabled()):
-        h = mobilenet_v1_backbone(params["backbone"], images, compute_dtype=compute_dtype,
-                                  train=backbone_train,
-                                  stats_out=stats if backbone_train else None)
-        emb = torch.mean(h, dim=(1, 2)).to(torch.float32)
-    return (*heads(params, emb, masks), stats)
+    with precision_scope(precision):
+        with torch.set_grad_enabled(backbone_train and torch.is_grad_enabled()):
+            h = mobilenet_v1_backbone(params["backbone"], images,
+                                      precision=precision,
+                                      compute_dtype=compute_dtype,
+                                      train=backbone_train,
+                                      stats_out=stats if backbone_train else None)
+            emb = torch.mean(h, dim=(1, 2)).to(torch.float32)
+        return (*heads(params, emb, masks), stats)
 
 
 def heads(params: Dict, emb, masks: Optional[Sequence[torch.Tensor]] = None):
@@ -170,6 +176,7 @@ def make_steps(age_optimizer: Adam, gender_optimizer: Optional[Adam] = None,
     def make(task: str):
         optimizer = optimizers[task]
 
+        @precision_scope("highest")               # the forward and the backward
         def step(params, opt_state, generator, images, labels, masks=None):
             if augment is not None:
                 images = augment_batch(generator, images, augment)

@@ -29,6 +29,7 @@ from ..models.layers import dense
 from ..models.mobilenet import (init_mobilenet_params, mobilenet_classify,
                                 mobilenet_embed, mobilenet_v1_backbone,
                                 update_bn_stats)
+from ..numerics import precision_scope
 from ..pipelines.detector import resolve_device
 from .augment import AugmentConfig, augment_batch
 
@@ -137,28 +138,34 @@ def make_optimizer(cfg: TrainConfig) -> Adam:
     return Adam(cfg.learning_rate, cfg.lr_decay)
 
 
-def forward_train(params: Dict, images, *, remat: bool = False,
-                  compute_dtype=torch.bfloat16):
+def forward_train(params: Dict, images, *, precision="highest",
+                  remat: bool = False, compute_dtype=torch.bfloat16):
     """Training forward: logits and the BN batch moments. ``remat`` applies
     per-block recomputation in the backbone (activation-memory headroom,
-    not speed); ``compute_dtype`` is the backbone's activation type."""
+    not speed); ``compute_dtype`` is the backbone's activation type, and
+    every layer runs at ``precision``'s tier ("highest" by default, where
+    the reference's trainers default to DEFAULT)."""
     stats: Dict = {}
-    h = mobilenet_v1_backbone(params, images, compute_dtype=compute_dtype,
-                              train=True, stats_out=stats, remat=remat)
-    emb = torch.mean(h, dim=(1, 2)).to(torch.float32)
-    logits = dense(emb, params["classifier"]["kernel"], params["classifier"]["bias"])
+    with precision_scope(precision):
+        h = mobilenet_v1_backbone(params, images, precision=precision,
+                                  compute_dtype=compute_dtype, train=True,
+                                  stats_out=stats, remat=remat)
+        emb = torch.mean(h, dim=(1, 2)).to(torch.float32)
+        logits = dense(emb, params["classifier"]["kernel"], params["classifier"]["bias"])
     return logits, stats
 
 
-def forward_eval(params: Dict, images, *, compute_dtype=torch.bfloat16):
-    return mobilenet_classify(params, images, compute_dtype=compute_dtype)
+def forward_eval(params: Dict, images, *, precision="highest",
+                 compute_dtype=torch.bfloat16):
+    return mobilenet_classify(params, images, precision=precision,
+                              compute_dtype=compute_dtype)
 
 
-def loss_fn(params: Dict, images, labels, weight_decay: float, remat: bool = False,
-            compute_dtype=torch.bfloat16):
+def loss_fn(params: Dict, images, labels, weight_decay: float,
+            precision="highest", remat: bool = False, compute_dtype=torch.bfloat16):
     """Mean softmax cross-entropy plus ``weight_decay``·Σ kernel² of the
     classifier; returns (loss, (BN moments, accuracy))."""
-    logits, stats = forward_train(params, images, remat=remat,
+    logits, stats = forward_train(params, images, precision=precision, remat=remat,
                                   compute_dtype=compute_dtype)
     ce = F.cross_entropy(logits, labels)
     l2 = weight_decay * torch.sum(torch.square(params["classifier"]["kernel"]))
@@ -174,7 +181,9 @@ def make_train_step(cfg: TrainConfig, optimizer: Adam,
     (params, opt_state, metrics)``: the same objects, updated in place;
     ``metrics`` holds the loss and accuracy as device scalars. ``images``
     are the float32 preprocessed batch, ``generator`` a ``torch.Generator``
-    on their device (it draws the augmentation)."""
+    on their device (it draws the augmentation). The forward and the
+    backward run at "highest"."""
+    @precision_scope("highest")
     def step(params, opt_state, generator, images, labels):
         if augment is not None:
             images = augment_batch(generator, images, augment)

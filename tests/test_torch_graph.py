@@ -348,7 +348,7 @@ def test_graph_extractor_matches_mobilenet_embed(tmp_path, rng):
     imgs = (rng.rand(3, 64, 64, 3) * 255).astype(np.uint8)
     got = tzoo.graph_extractor(path, "input_1:0", "reshape_1/Reshape:0", (64, 64),
                                device="cpu", **kw).extract_batch(imgs)
-    want = EmbeddingExtractor(tzoo.MODEL_ZOO["vgg2_mobilenet"].model_fn, params,
+    want = EmbeddingExtractor(tzoo.MODEL_ZOO["vgg2_mobilenet"].model_fn(), params,
                               (64, 64), device="cpu", **kw).extract_batch(imgs)
     np.testing.assert_allclose(got, want, atol=ATOL,
                                rtol=0)

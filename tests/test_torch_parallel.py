@@ -503,7 +503,7 @@ def test_serve_handler_on_a_mesh_matches_single_device(multihead_np):
     from .test_torch_serve import _call, _png, _serve
 
     def handler(**where):
-        ex = EmbeddingExtractor(tzoo.MODEL_ZOO["agegender_identity"].model_fn,
+        ex = EmbeddingExtractor(tzoo.MODEL_ZOO["agegender_identity"].model_fn(),
                                 multihead_np, (64, 64), normalization="caffe",
                                 resize_method="cv2_linear", batch_size=8, **where)
         an = FacialAnalyzer(_mtcnn(), multihead_np, **_kw(), **where)

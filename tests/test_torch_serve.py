@@ -961,7 +961,7 @@ def test_handler_matches_jax(analyzer_pair, multihead_np):
     kw = dict(normalization="caffe", resize_method="cv2_linear", batch_size=8)
     jex = JaxExtractor(jzoo.MODEL_ZOO["agegender_identity"].model_fn(), multihead_np,
                        (64, 64), **kw)
-    tex = EmbeddingExtractor(tzoo.MODEL_ZOO["agegender_identity"].model_fn,
+    tex = EmbeddingExtractor(tzoo.MODEL_ZOO["agegender_identity"].model_fn(),
                              multihead_np, (64, 64), device="cpu", **kw)
     galleries = {"jax": _Recording(JaxGallery()),
                  "port": _Recording(EnrollmentGallery(device="cpu"))}
