@@ -291,13 +291,15 @@ def weights_origin(name: str) -> str:
 
 
 def build_extractor(name: str, batch_size: int = 64, device="cuda",
-                    params: Optional[Dict] = None, mesh=None, precision="highest"):
+                    params: Optional[Dict] = None, mesh=None, precision="highest",
+                    timer=None):
     """The zoo entry as an ``EmbeddingExtractor`` on ``device``, or over
     ``mesh`` (params replicated, batches split), its forward at
     ``precision``'s tier. ``params``
     (numpy, the layouts ``build_params`` returns: quantized for the int8
     entries) replaces the entry's weights, e.g. with seeded random weights
-    where the file is absent."""
+    where the file is absent. ``timer``: a ``StageTimer`` that takes the
+    extractor's spans and counters (None records nothing)."""
     from ..pipelines.embedder import EmbeddingExtractor
 
     spec = MODEL_ZOO[name]
@@ -307,7 +309,7 @@ def build_extractor(name: str, batch_size: int = 64, device="cuda",
                               normalization=spec.normalization,
                               resize_method=spec.resize_method,
                               batch_size=batch_size, device=device, mesh=mesh,
-                              **spec.extractor_kwargs)
+                              timer=timer, **spec.extractor_kwargs)
 
 
 def graph_extractor(pb_path: str, input_tensor: str, output_tensor: str,

@@ -5,10 +5,20 @@ goes to the device, is resized (matmuls), normalized and run through the
 backbone, in batches instead of the reference's one ``sess.run`` per image
 (``facerec_test.py:114-122``). With a ``mesh`` the params are replicated on
 its devices and each batch is split over them.
+
+With a ``timer`` (``utils.profiling.StageTimer``) every call records its
+spans on the device trace's clock: ``embed.call`` around the call and,
+each with the call as its parent, ``embed.upload`` (host rows to a device
+tensor), ``embed.forward`` (the launches of one chunk's forward: host
+enqueue time, no sync) and ``embed.fetch`` (the copies back, where the
+host waits for the card); and the counters ``embed.upload_bytes``,
+``embed.rows`` (rows returned) and ``embed.padded_rows`` (padding
+computed and thrown away).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -19,6 +29,8 @@ from ..ops.resize import resize, resize_host
 from ..params import to_torch
 from ..parallel.sharding import gather, pad_batch, split_batch
 from .detector import resolve_device
+
+_UNTIMED = contextlib.nullcontext()
 
 
 class EmbeddingExtractor:
@@ -52,6 +64,9 @@ class EmbeddingExtractor:
         stores it; the forward's own dtype and tier are ``model_fn``'s
         (``zoo.build_extractor(precision=...)``). The device resize runs
         at "highest", as there.
+      timer: a ``utils.profiling.StageTimer`` that takes the spans and
+        counters above; None (the default) records nothing and reads no
+        clock.
     """
 
     def __init__(self, model_fn: Callable, params, input_size: Tuple[int, int],
@@ -59,7 +74,7 @@ class EmbeddingExtractor:
                  batch_size: int = 64, device="cuda", flip_tta: bool = False,
                  l2_normalize_output: bool = False, host_resize: str = "never",
                  convert: Callable = to_torch, mesh=None,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, timer=None):
         if host_resize not in ("always", "never"):
             raise ValueError(f"host_resize must be always|never, "
                              f"got {host_resize!r}")
@@ -80,6 +95,16 @@ class EmbeddingExtractor:
         self.flip_tta = flip_tta
         self.l2_normalize_output = l2_normalize_output
         self.host_resize = host_resize
+        self.timer = timer
+
+    def _span(self, name: str):
+        """The timer's span ``name`` (its parent the span open on this
+        thread), or the shared no-op context without a timer."""
+        return _UNTIMED if self.timer is None else self.timer.stage(name)
+
+    def _count(self, name: str, n: int) -> None:
+        if self.timer is not None:
+            self.timer.count(name, n)
 
     def _maybe_host_resize(self, batch: np.ndarray) -> np.ndarray:
         """Resize on the host when ``host_resize='always'``."""
@@ -91,14 +116,32 @@ class EmbeddingExtractor:
     @torch.no_grad()
     def _forward(self, images: np.ndarray) -> torch.Tensor:
         if self.mesh is None:
-            return self._forward_on(self.params, torch.from_numpy(
-                np.ascontiguousarray(images)).to(self.device))
+            with self._span("embed.upload"):
+                up = [torch.from_numpy(np.ascontiguousarray(images)).to(self.device)]
+            self._count("embed.upload_bytes", up[0].nbytes)
+            with self._span("embed.forward"):
+                # handed over, not held: the forward frees the uint8 rows
+                # once it has converted them
+                return self._forward_on(self.params, up.pop())
         # each shard's rows on its device, the features gathered in order
         shards = self.mesh.shard_devices()
         padded, n = pad_batch(np.asarray(images), len(shards))
-        feats = [self._forward_on(self._replicas[d], x)
-                 for d, x in zip(shards, split_batch(padded, shards))]
-        return gather(feats, self.device)[:n]
+        self._count("embed.padded_rows", len(padded) - n)
+        with self._span("embed.upload"):
+            xs = split_batch(padded, shards)
+        self._count("embed.upload_bytes", padded.nbytes)
+        with self._span("embed.forward"):
+            feats = [self._forward_on(self._replicas[d], x) for d, x in zip(shards, xs)]
+        with self._span("embed.fetch"):
+            return gather(feats, self.device)[:n]
+
+    def _fetch(self, outs: Sequence[torch.Tensor], takes: Sequence[int]) -> np.ndarray:
+        """The first ``take`` rows of each device result, copied back and
+        concatenated in order."""
+        with self._span("embed.fetch"):
+            out = np.concatenate([o[:t].cpu().numpy() for o, t in zip(outs, takes)])
+        self._count("embed.rows", len(out))
+        return out
 
     def _forward_on(self, params, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.float32)
@@ -121,19 +164,22 @@ class EmbeddingExtractor:
         reference; each chunk is queued on the device before any result is
         copied back. Under a mesh the tail bucket holds at least one row a
         shard."""
-        images = self._maybe_host_resize(np.asarray(images))
-        outs, takes = [], []
-        for i in range(0, len(images), self.batch_size):
-            chunk = images[i:i + self.batch_size]
-            take = len(chunk)
-            if take < self.batch_size:
-                bucket = max(8, 1 << max(0, (take - 1).bit_length()))
-                if self.mesh is not None:
-                    bucket = max(bucket, self.mesh.size)
-                chunk = pad_batch(chunk, min(bucket, self.batch_size))[0]
-            outs.append(self._forward(chunk))
-            takes.append(take)
-        return np.concatenate([o[:t].cpu().numpy() for o, t in zip(outs, takes)])
+        with self._span("embed.call"):
+            images = self._maybe_host_resize(np.asarray(images))
+            outs, takes, padded = [], [], 0
+            for i in range(0, len(images), self.batch_size):
+                chunk = images[i:i + self.batch_size]
+                take = len(chunk)
+                if take < self.batch_size:
+                    bucket = max(8, 1 << max(0, (take - 1).bit_length()))
+                    if self.mesh is not None:
+                        bucket = max(bucket, self.mesh.size)
+                    chunk = pad_batch(chunk, min(bucket, self.batch_size))[0]
+                    padded = len(chunk) - take
+                outs.append(self._forward(chunk))
+                takes.append(take)
+            self._count("embed.padded_rows", padded)
+            return self._fetch(outs, takes)
 
     def extract_files(self, paths: Sequence[str], loader=None,
                       decode_workers: int = 4) -> np.ndarray:
@@ -142,7 +188,9 @@ class EmbeddingExtractor:
         buckets; a full bucket is queued on the device at once, so decoding
         the next batch overlaps the device's work on this one.
         ``decode_workers=0`` decodes inline. ``loader`` maps a path to an
-        RGB array (default: decode the image file)."""
+        RGB array (default: decode the image file). A timer sees the
+        spans and counters of ``extract_batch``, ``embed.call`` around the
+        whole stream."""
         from ..utils.image_io import imread_rgb
         from ..utils.prefetch import bounded_thread_map
 
@@ -155,29 +203,33 @@ class EmbeddingExtractor:
             idxs = [i for i, _ in bucket]
             batch = self._maybe_host_resize(np.stack([im for _, im in bucket]))
             padded = pad_batch(batch, self.batch_size)[0]
+            self._count("embed.padded_rows", len(padded) - len(idxs))
             for s in range(0, len(padded), self.batch_size):
                 in_flight.append((idxs[s:s + self.batch_size],
                                   self._forward(padded[s:s + self.batch_size])))
 
         def drain():
-            for idxs, dev in in_flight:
-                emb = dev[:len(idxs)].cpu().numpy()
-                for j, i in enumerate(idxs):
+            if in_flight:
+                emb = self._fetch([dev for _, dev in in_flight],
+                                  [len(idxs) for idxs, _ in in_flight])
+                order = [i for idxs, _ in in_flight for i in idxs]
+                for j, i in enumerate(order):
                     feats[i] = emb[j]
-            in_flight.clear()
+                in_flight.clear()
 
-        for i, img in enumerate(bounded_thread_map(loader, paths,
-                                                   workers=decode_workers,
-                                                   depth=2 * self.batch_size)):
-            bucket = buckets.setdefault(img.shape[:2], [])
-            bucket.append((i, img))
-            if len(bucket) == self.batch_size:
-                dispatch(bucket)
-                buckets[img.shape[:2]] = []
-            if len(in_flight) >= 2:   # bound device-side queueing + host copies
-                drain()
-        for bucket in buckets.values():
-            if bucket:
-                dispatch(bucket)
-        drain()
+        with self._span("embed.call"):
+            for i, img in enumerate(bounded_thread_map(loader, paths,
+                                                       workers=decode_workers,
+                                                       depth=2 * self.batch_size)):
+                bucket = buckets.setdefault(img.shape[:2], [])
+                bucket.append((i, img))
+                if len(bucket) == self.batch_size:
+                    dispatch(bucket)
+                    buckets[img.shape[:2]] = []
+                if len(in_flight) >= 2:   # bound device-side queueing + host copies
+                    drain()
+            for bucket in buckets.values():
+                if bucket:
+                    dispatch(bucket)
+            drain()
         return np.stack(feats)

@@ -35,7 +35,12 @@ Endpoints:
   GET  /stats    -> per-endpoint latency {count, mean_ms, p50_ms, p95_ms}
                     plus the batching workers' per-request decomposition
                     (``embed_worker.queue_wait`` / ``.assemble`` /
-                    ``.process``) — where a request's latency goes
+                    ``.process``) — where a request's latency goes — and,
+                    from ``build_server``'s extractor, ``process`` split
+                    into ``embed.upload`` / ``embed.forward`` (launches) /
+                    ``embed.fetch`` (the wait for the card and the copy
+                    back), with the counters ``embed.upload_bytes``,
+                    ``embed.rows`` and ``embed.padded_rows`` as {"total": n}
   GET  /profile  -> on-demand device-time table of the embed program's
                     kernels (utils.profiling.fusion_profile)
 
@@ -131,8 +136,7 @@ class _BatchingWorker:
 
     def _sample(self, stage: str, dt: float):
         if self.timer is not None:
-            with self.timer._lock:
-                self.timer.samples[f"{self.name}.{stage}"].append(dt)
+            self.timer.add(f"{self.name}.{stage}", dt)
 
     def _run(self):
         while True:
@@ -291,8 +295,10 @@ def make_handler(worker: _BatchingWorker, analyze_worker,
                 self._json(200, {"ok": True, "device": device_name})
             elif self.path == "/stats":
                 # per-endpoint request latency (count / mean / p50 / p95 ms),
-                # measured around the batching-worker round trip
-                self._json(200, timer.stats())
+                # measured around the batching-worker round trip, and the
+                # timer's counters
+                counts = {k: {"total": n} for k, n in timer.counts().items()}
+                self._json(200, {**timer.stats(), **counts})
             elif self.path == "/profile":
                 # on-demand kernel profile of the embed program (a dummy
                 # batch of 8 under torch.profiler; concurrent live
@@ -492,7 +498,13 @@ def build_server(port: int = 8000, model: str = "agegender_identity",
             mesh = make_mesh()
         else:
             print("serve: --data-parallel ignored (single device)")
-    extractor = build_extractor(model, device=device, params=params, mesh=mesh)
+    from .utils.profiling import StageTimer
+
+    # one timer for the workers' stages, the endpoints' latencies and the
+    # extractor's spans and counters, all under GET /stats
+    timer = StageTimer()
+    extractor = build_extractor(model, device=device, params=params, mesh=mesh,
+                                timer=timer)
     if prewarm:
         # run every embed batch bucket once BEFORE serving traffic: the
         # first call builds the kernels and lets cuDNN pick its algorithms
@@ -501,9 +513,7 @@ def build_server(port: int = 8000, model: str = "agegender_identity",
         h, w = extractor.input_size
         for n in _prewarm_buckets(max_batch, extractor.batch_size):
             extractor.extract_batch(np.zeros((n, h, w, 3), np.uint8))
-    from .utils.profiling import StageTimer
-
-    timer = StageTimer()
+        timer.reset()
     worker = _BatchingWorker(extractor.extract_batch, max_batch=max_batch,
                              name="embed_worker", timer=timer)
     analyze_worker = None

@@ -1004,6 +1004,9 @@ ALLOWED = {
     "parallel/sharding.py:batch_sharding": "*",
     "parallel/sharding.py:replicated": "*",
     "utils/profiling.py:StageTimer.timed": "*",
+    # a text exporter nothing of the port reads; /stats, the album and
+    # the benchmark read stats(), spans() and counts()
+    "utils/profiling.py:StageTimer.report": "*",
     "utils/profiling.py:xla_trace": "*",
     # the port's layers take PyTorch-layout weights, not HWIO kernels, and
     # its frozen-graph importers fold scale_bias away

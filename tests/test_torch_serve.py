@@ -209,6 +209,38 @@ def test_http_endpoints(rng):
         server.shutdown()
 
 
+def test_http_stats_split_the_embed_workers_process(rng):
+    """With the handler's timer handed to a real extractor, ``/stats``
+    keeps every key it had and splits the embed worker's ``process`` into
+    the extractor's upload, launches and fetch, with its counters."""
+    from hse_facerec_torch.pipelines.embedder import EmbeddingExtractor
+    from hse_facerec_torch.utils.profiling import StageTimer
+
+    timer = StageTimer()
+    w = torch.from_numpy(rng.randn(20 * 20 * 3, 8).astype(np.float32))
+    extractor = EmbeddingExtractor(lambda p, x: x.reshape(len(x), -1) @ p, w, (20, 20),
+                                   normalization="none", device="cpu",
+                                   convert=lambda p, dev: p.to(dev), timer=timer)
+    server, port = _serve(make_handler(_BatchingWorker(extractor.extract_batch,
+                                                       name="embed_worker", timer=timer),
+                                       None, timer=timer, device="cpu"))
+    try:
+        img = (rng.rand(20, 20, 3) * 255).astype(np.uint8)
+        assert _call(port, "POST", "/embed", _png(img))[0] == 200
+        status, stats = _call(port, "GET", "/stats")
+        assert status == 200
+        for key in ("embed", "embed_worker.queue_wait", "embed_worker.assemble",
+                    "embed_worker.process", "embed.call", "embed.upload", "embed.forward",
+                    "embed.fetch"):
+            assert stats[key]["count"] == 1 and stats[key]["p95_ms"] >= 0, key
+        # one request padded to the bucket of 8 rows
+        assert stats["embed.upload_bytes"] == {"total": 8 * 20 * 20 * 3}
+        assert stats["embed.rows"] == {"total": 1}
+        assert stats["embed.padded_rows"] == {"total": 7}
+    finally:
+        server.shutdown()
+
+
 def test_http_custom_decoder(rng):
     """``make_handler(decode=...)`` replaces cv2 (the card's machine has
     none): the smoke posts raw BMP bodies through it."""
@@ -627,6 +659,7 @@ def _fake_build(monkeypatch, seen):
     def fake_build_extractor(model, device="cuda", mesh=None, **kw):
         seen["extractor"] = (model, device)
         seen["extractor_mesh"] = mesh
+        seen["extractor_timer"] = kw.get("timer")
         return FakeExtractor()
 
     class FakeAnalyzer:
@@ -670,6 +703,10 @@ def test_build_server_wiring(monkeypatch, tmp_path, capsys):
         assert seen["prewarm"] == serve_mod._prewarm_buckets(48, 64) == [8, 16, 32, 64]
         assert "--data-parallel ignored (single device)" in capsys.readouterr().out
         assert seen["extractor_mesh"] is seen["analyzer_mesh"] is seen["gallery_mesh"] is None
+        # the extractor's spans go to the timer behind GET /stats
+        from hse_facerec_torch.utils.profiling import StageTimer
+
+        assert isinstance(seen["extractor_timer"], StageTimer)
     finally:
         srv.server_close()
 
