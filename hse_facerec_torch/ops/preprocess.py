@@ -27,9 +27,14 @@ def to_bgr(x):
 
 
 def normalize_caffe(x, means_bgr=IMAGENET_MEANS_BGR):
-    """RGB float input -> BGR, per-channel mean subtraction."""
-    return to_bgr(x.to(torch.float32)) - torch.tensor(
-        means_bgr, dtype=torch.float32, device=x.device)
+    """RGB float input -> BGR, per-channel mean subtraction. Each mean is
+    filled in on ``x``'s device by a kernel that takes it as an argument: a
+    copy from the host (``torch.tensor(..., device=...)``, or an item
+    assigned) would make the host wait for the card's queued work."""
+    means = torch.empty(len(means_bgr), dtype=torch.float32, device=x.device)
+    for c, m in enumerate(means_bgr):
+        means[c].fill_(m)
+    return to_bgr(x.to(torch.float32)) - means
 
 
 def normalize_vggface2(x):

@@ -6,19 +6,28 @@ backbone, in batches instead of the reference's one ``sess.run`` per image
 (``facerec_test.py:114-122``). With a ``mesh`` the params are replicated on
 its devices and each batch is split over them.
 
+On a CUDA device without a mesh, a chunk's rows reach the card through
+``UploadRing``: staged in page-locked memory and copied on a side stream,
+so the copy engine moves the next chunk while the SMs run this one's
+forward, and the host queues a whole call's forwards without blocking.
+
 With a ``timer`` (``utils.profiling.StageTimer``) every call records its
 spans on the device trace's clock: ``embed.call`` around the call and,
 each with the call as its parent, ``embed.upload`` (host rows to a device
-tensor), ``embed.forward`` (the launches of one chunk's forward: host
-enqueue time, no sync) and ``embed.fetch`` (the copies back, where the
-host waits for the card); and the counters ``embed.upload_bytes``,
-``embed.rows`` (rows returned) and ``embed.padded_rows`` (padding
-computed and thrown away).
+tensor; through the ring: the wait for a free slot, the host copy into it
+and the copy's launch), ``embed.forward`` (the launches of one chunk's
+forward: host enqueue time, no sync) and ``embed.fetch`` (the copies back,
+where the host waits for the card); and the counters
+``embed.upload_bytes``, ``embed.upload_staged`` (chunks that went through
+the ring), ``embed.upload_slot_waits`` (times the host waited for a slot's
+last copy), ``embed.rows`` (rows returned) and ``embed.padded_rows``
+(padding computed and thrown away).
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -31,6 +40,112 @@ from ..parallel.sharding import gather, pad_batch, split_batch
 from .detector import resolve_device
 
 _UNTIMED = contextlib.nullcontext()
+
+
+class CudaStaging:
+    """What ``UploadRing`` asks of CUDA on ``device``; the CPU tests hand
+    the ring fakes of it."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+    def pinned(self, nbytes: int) -> torch.Tensor:
+        """A page-locked host byte buffer."""
+        return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+
+    def event(self):
+        return torch.cuda.Event()
+
+    def stream(self):
+        """A side stream for the copies."""
+        return torch.cuda.Stream(self.device)
+
+    def current(self):
+        """The caller's stream, read at each upload."""
+        return torch.cuda.current_stream(self.device)
+
+    def on(self, stream):
+        """Make ``stream`` current for the block: tensors allocated in it
+        belong to ``stream`` in the caching allocator."""
+        return torch.cuda.stream(stream)
+
+    def record(self, tensor: torch.Tensor, stream) -> None:
+        """Tell the caching allocator that ``stream`` uses ``tensor``."""
+        tensor.record_stream(stream)
+
+
+class _Slot:
+    __slots__ = ("buf", "event")
+
+    def __init__(self):
+        self.buf: Optional[torch.Tensor] = None   # pinned bytes
+        self.event = None                          # recorded after its last copy
+
+
+class UploadRing:
+    """Host rows to the card through a ring of two page-locked slots and
+    a side copy stream, one ring per calling thread.
+
+    An upload takes the thread's next slot and, if that slot's last copy
+    has not finished, waits for it (a slot is never rewritten under a
+    copy); copies the rows into the slot on the host; allocates the device
+    rows under the side stream and copies them there without blocking;
+    records the slot's event on the side stream; makes the caller's current
+    stream wait on that event and records the rows onto it, so that the
+    caching allocator hands their block to no later copy before the
+    caller's queued work has read them. The host returns once the copy is
+    queued: the copy engine moves a chunk while the SMs run the forward
+    queued before it.
+
+    A slot is a byte buffer viewed as the rows' dtype, grown to the largest
+    chunk's bytes seen on its thread. Each thread has its own slots and
+    side stream (serve's worker calls one extractor from two threads); the
+    caller's stream is read at each upload.
+
+    ``cuda``: what the ring asks of CUDA (``CudaStaging(device)`` by
+    default)."""
+
+    SLOTS = 2
+
+    def __init__(self, device, cuda: Optional[CudaStaging] = None):
+        self.device = torch.device(device)
+        self.cuda = CudaStaging(self.device) if cuda is None else cuda
+        self._local = threading.local()
+
+    def _ring(self):
+        """This thread's (side stream, slots, next slot's index)."""
+        local = self._local
+        if not hasattr(local, "slots"):
+            local.side = self.cuda.stream()
+            local.slots = [_Slot() for _ in range(self.SLOTS)]
+            local.turn = 0
+        return local
+
+    def upload(self, rows: np.ndarray) -> Tuple[torch.Tensor, bool]:
+        """``rows`` as a device tensor that the caller's current stream may
+        read, and whether the host waited for the slot's last copy."""
+        src = torch.from_numpy(np.ascontiguousarray(rows))
+        ring = self._ring()
+        slot = ring.slots[ring.turn]
+        ring.turn = (ring.turn + 1) % len(ring.slots)
+        waited = slot.event is not None and not slot.event.query()
+        if waited:
+            slot.event.synchronize()
+        if slot.buf is None or slot.buf.numel() < src.nbytes:
+            slot.buf = None                 # the old buffer goes before the new one comes
+            slot.buf = self.cuda.pinned(src.nbytes)
+        staged = slot.buf[:src.nbytes].view(src.dtype).view(src.shape)
+        staged.copy_(src)
+        current = self.cuda.current()
+        with self.cuda.on(ring.side):
+            x = torch.empty(src.shape, dtype=src.dtype, device=self.device)
+            x.copy_(staged, non_blocking=True)
+        if slot.event is None:
+            slot.event = self.cuda.event()
+        slot.event.record(ring.side)
+        current.wait_event(slot.event)
+        self.cuda.record(x, current)
+        return x, waited
 
 
 class EmbeddingExtractor:
@@ -96,6 +211,9 @@ class EmbeddingExtractor:
         self.l2_normalize_output = l2_normalize_output
         self.host_resize = host_resize
         self.timer = timer
+        # staged uploads on a card; the CPU and the mesh's split_batch copy directly
+        self._uploads = (UploadRing(self.device)
+                         if mesh is None and self.device.type == "cuda" else None)
 
     def _span(self, name: str):
         """The timer's span ``name`` (its parent the span open on this
@@ -113,11 +231,21 @@ class EmbeddingExtractor:
             return resize_host(batch, self.input_size, self.resize_method)
         return batch
 
+    def _upload(self, images: np.ndarray) -> torch.Tensor:
+        """A chunk's host rows as a device tensor: through the ring on a
+        card, else copied directly."""
+        if self._uploads is None:
+            return torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+        x, waited = self._uploads.upload(images)
+        self._count("embed.upload_staged", 1)
+        self._count("embed.upload_slot_waits", int(waited))
+        return x
+
     @torch.no_grad()
     def _forward(self, images: np.ndarray) -> torch.Tensor:
         if self.mesh is None:
             with self._span("embed.upload"):
-                up = [torch.from_numpy(np.ascontiguousarray(images)).to(self.device)]
+                up = [self._upload(images)]
             self._count("embed.upload_bytes", up[0].nbytes)
             with self._span("embed.forward"):
                 # handed over, not held: the forward frees the uint8 rows

@@ -30,6 +30,19 @@ def test_preprocess_batch_matches_jax(normalization, method):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=PRE_ATOL)
 
 
+@pytest.mark.parametrize("normalization,means", [("caffe", tpre.IMAGENET_MEANS_BGR),
+                                                 ("vggface2", tpre.VGGFACE2_MEANS_BGR),
+                                                 ("vggface1", tpre.VGGFACE1_MEANS_BGR)])
+def test_the_means_filled_on_the_device_equal_a_host_tensors(normalization, means):
+    """The Caffe-lineage normalizations fill their means in on the input's
+    device instead of copying them from the host: the same float32 values,
+    so the same result bit for bit."""
+    x = torch.from_numpy((np.random.RandomState(3).rand(2, 5, 6, 3) * 255).astype(np.float32))
+    want = torch.flip(x, dims=(-1,)) - torch.tensor(means, dtype=torch.float32)
+    got = tpre.NORMALIZERS[normalization](x)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def _clustered_boxes(rng, n):
     centers = rng.uniform(20, 180, (6, 2))
     c = centers[rng.randint(0, 6, n)] + rng.randn(n, 2) * 6

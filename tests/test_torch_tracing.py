@@ -261,6 +261,35 @@ def test_the_mesh_branch_records_the_same_spans():
     assert counts["embed.upload_bytes"] == 320 * SIZE[0] * SIZE[1] * 3
 
 
+@pytest.mark.parametrize("shards", [1, 2], ids=["cpu", "mesh"])
+def test_the_cpu_and_the_mesh_keep_the_direct_copy(monkeypatch, shards):
+    """Only a card without a mesh stages its uploads (``UploadRing``): the
+    CPU and the mesh's ``split_batch`` copy directly, count no staged chunk
+    and return the direct copy's forwards bit for bit."""
+    from hse_facerec_torch.parallel.sharding import make_mesh
+    from hse_facerec_torch.pipelines.embedder import UploadRing
+
+    def refuse(self, rows):
+        raise AssertionError("staged off the card")
+
+    monkeypatch.setattr(UploadRing, "upload", refuse)
+    images = _images(300)
+    timer = StageTimer()
+    mesh = make_mesh(devices=["cpu"] * shards) if shards > 1 else None
+    ex = _extractor(timer, mesh=mesh)
+    got = ex.extract_batch(images)
+    assert ex._uploads is None
+    counts = timer.counts()
+    assert "embed.upload_staged" not in counts and "embed.upload_slot_waits" not in counts
+    # a chunk of 256, then the tail of 44 padded with its last row to 64;
+    # each chunk's shards forward on their own
+    padded = np.concatenate([images, np.repeat(images[-1:], 20, axis=0)])
+    want = np.concatenate([ex._forward_on(ex.params, torch.from_numpy(part)).numpy()
+                           for chunk in (padded[:256], padded[256:])
+                           for part in np.split(chunk, shards)])[:300]
+    np.testing.assert_array_equal(got, want)
+
+
 def test_build_extractor_hands_on_the_timer():
     from hse_facerec_torch.models.zoo import build_extractor
 
