@@ -17,7 +17,12 @@ kernels are built for sm_90a). It:
    a ragged shape, and times both with CUDA events, K4 per layer beside
    its bound and ``torch._int_mm``; counts the IMMA, IGMMA, HMMA and HGMMA
    (tensor-core) and IDP.4A instructions in the SASS of K4 and of the
-   int8 and bf16 1-NN sweeps;
+   int8 and bf16 1-NN sweeps; then, in a child process, K5 (attention)
+   against its plain version in float64 at the ViT-L chunk (256 images x
+   144 tokens x 8 heads x 96) and at ragged tokens and heads, one launch a
+   call, timed beside its bound, its plain version and
+   ``F.scaled_dot_product_attention``, one profiled call running exactly
+   one device kernel;
 4. drives the analyze path: ``FacialAnalyzer.analyze_with_rotations``
    (K1), timed, then checked against the same analyzer on the CPU; then
    the batch path at batch 8 (``analyze_batch``: one K1 launch per crop
@@ -94,6 +99,11 @@ kernels are built for sm_90a). It:
    - identify ``--quantized`` and the gallery (K2b, K2c) on
      ``insightface_arcface`` (IResNet-100, 512-d at 112²) and
      ``vggface_vgg16`` (4096-d at 224²), and their embed img/s at batch 64;
+   - vit: ``build_extractor("insightface_vit_l")`` at full width (768
+     wide, 24 blocks, 8 heads, 144 tokens, 512-d) on 1,024 crops a call at
+     batch 256, as the ``vit-enroll`` cell runs it: exactly 96 K5 launches
+     a call and no other kernel of the library, 4 rows against the CPU's
+     extractor, the call timed;
    - K2b/K2c at D 4096 (16 and 8192 x 1,048,576 probes): the probe tile
      (16 resident; 128 streamed beside the gallery), bit-equality with
      the twin, ms, T int8 ops/s and the share of the bound beside the
@@ -200,6 +210,7 @@ from hse_facerec_torch.models.mtcnn import import_mtcnn_params
 from hse_facerec_torch.models.multihead import import_multihead_params, multihead_apply
 from hse_facerec_torch.native import rankorder
 from hse_facerec_torch.ops.kernels import build, kernel_launches, reset_launches
+from hse_facerec_torch.ops.kernels import attention
 from hse_facerec_torch.ops.kernels import knn
 from hse_facerec_torch.ops.kernels import pw_conv
 from hse_facerec_torch.ops.kernels import warp
@@ -327,6 +338,19 @@ WARP_SHAPES = [("train", 256, 224, 224, 3, AugmentConfig()),
                ("h1", 3, 1, 64, 3, AugmentConfig()),
                ("wide", 1, 8, 4000, 3, AugmentConfig())]
 WARP_ATOL = 1e-6
+# K5 (attention) against its plain version in float64: (name, images,
+# tokens, heads) at D 96, the first the vit-enroll cell's chunk (ViT-L at
+# batch 256), then T and H off the ViT's; the error relative to the output
+# or 1 (the softmax runs online in float32, its sums in another order)
+ATTN_SHAPES = [("vit_l", 256, 144, 8), ("ragged_t", 3, 33, 8), ("ragged_h", 5, 144, 3),
+               ("t7_h1", 2, 7, 1)]
+ATTN_RTOL = 1e-5
+# the ViT-L embedder as the vit-enroll cell runs it: batch 256, 1,024 crops
+# a call; W_q and W_k scaled up from the source's 0.02 init, which leaves
+# the attention near uniform, so that the card's rows against the CPU's
+# show a fault in K5; relative L2 of VIT_CPU_ROWS rows against the CPU's
+VIT_BATCH, VIT_CALL, VIT_REPEATS = 256, 1024, 3
+VIT_QK_SCALE, VIT_CPU_ROWS, VIT_CPU_RTOL = 3.6, 4, 1e-4
 # face-ID training at the JAX bench's configuration (bench.py:399)
 TRAIN_CLASSES, TRAIN_BATCH, TRAIN_SIZE = 9131, 256, 224
 TRAIN_WARMUP, TRAIN_STEPS, LEARN_STEPS = 2, 5, 10
@@ -3006,6 +3030,121 @@ def check_warp_kernel():
     return report
 
 
+def sdpa_attention(qkv, heads: int):
+    """One ``F.scaled_dot_product_attention`` call on f32 q, k and v viewed
+    from the same qkv, (B, H, T, D) out: the library yardstick for K5.
+    Returns the call and its output as (B, T, H·D)."""
+    b, t, _ = qkv.shape
+    q, k, v = qkv.view(b, t, 3, heads, attention.HEAD_DIM).permute(2, 0, 3, 1, 4).unbind(0)
+
+    def call():
+        return F.scaled_dot_product_attention(q, k, v)
+    return call, call().transpose(1, 2).reshape(b, t, -1)
+
+
+def check_attention_kernel():
+    """K5 against ``attention_plain`` in float64 at every ``ATTN_SHAPES``
+    entry, each call counted from 0 (exactly one launch) and within
+    ``ATTN_RTOL`` of it relative to the output or 1. At the ViT-L shape the
+    kernel, its plain version in f32 and ``F.scaled_dot_product_attention``
+    are timed with CUDA events beside the bound (4·B·H·T²·D f32 operations;
+    bytes: qkv read, o written), and one call runs under ``torch.profiler``,
+    which must see exactly one device kernel. Returns that shape's numbers
+    for the JSON line."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 131)
+    d, report = attention.HEAD_DIM, None
+    for name, b, t, h in ATTN_SHAPES:
+        qkv = torch.randn((b, t, 3 * h * d), generator=gen, device="cuda") * 1.5
+        reset_launches()
+        got = attention.attention(qkv, h)
+        launches = kernel_launches()
+        want = attention.attention_plain(qkv.double(), h)
+        err = float(((got.double() - want).abs() / want.abs().clamp_min(1.0)).max())
+        others = {k: n for k, n in launches.items() if n and k != "attention"}
+        print(f"attention {name}: {b}x{t}x{h}x{d} max_rel_err={err:.3g} launches "
+              f"{launches['attention']}")
+        if launches["attention"] != 1 or others:
+            raise AssertionError(f"attention {name}: launches {launches}, not one K5")
+        if not err <= ATTN_RTOL:
+            raise AssertionError(f"attention {name}: max rel err {err} > {ATTN_RTOL}")
+        if report is None:
+            ms = cuda_ms(lambda: attention.attention(qkv, h), 20)
+            plain_ms = cuda_ms(lambda: attention.attention_plain(qkv, h), 5, 1)
+            lib_call, lib_out = sdpa_attention(qkv, h)
+            lib_ms = cuda_ms(lib_call, 20)
+            lib_err = float(((lib_out.double() - want).abs() / want.abs().clamp_min(1.0)).max())
+            b_ms, b_by = bound(nbytes(qkv, got), 4.0 * b * h * t * t * d, "f32")
+            rows, call_ms = profile_calls(lambda: attention.attention(qkv, h), 1, "attention")
+            device = [(key[:80], count, round(dev_ms, 4))
+                      for key, count, dev_ms, on_device in rows if on_device]
+            kernels = sum(count for _, count, _ in device)
+            dev_ms = sum(dev_ms for _, _, dev_ms in device)
+            print(f"attention {name}: kernel_ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms="
+                  f"{plain_ms:.4f} sdpa_ms={lib_ms:.4f} (max_rel_err {lib_err:.3g}) "
+                  f"bound_ms={b_ms:.4f} ({b_by}) {b_ms / ms:.3f} of the bound; profiled "
+                  f"call: {kernels} device kernel(s) {json.dumps(device)}, {call_ms:.4f} ms")
+            if kernels != 1:
+                raise AssertionError(f"attention ran {kernels} device kernels, not 1")
+            report = {"max_rel_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "library_max_rel_err": lib_err,
+                      "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
+                      "shape": f"{b}x{t}x{h}x{d} f32"}
+            del lib_out
+        else:
+            report["max_rel_err"] = max(report["max_rel_err"], err)
+        del qkv, got, want
+    torch.cuda.empty_cache()
+    return report
+
+
+def vit_path(rng):
+    """The ViT-L embedder on the ``vit-enroll`` cell's path at full width:
+    ``zoo.build_extractor("insightface_vit_l")`` (768 wide, 24 blocks, 8
+    heads, 144 tokens, 512-d) from the zoo's seeded params with W_q and W_k
+    scaled by ``VIT_QK_SCALE``, ``extract_batch`` of ``VIT_CALL`` crops at
+    ``VIT_BATCH``. After a warm-up call the counters are set to 0 and one
+    call must launch exactly 24 K5 a chunk and no other kernel of the
+    library; ``VIT_CPU_ROWS`` of its rows against the CPU's extractor from
+    the same params; then the call timed. Returns (launches, numbers)."""
+    from hse_facerec_torch.models.vit import VIT_L, init_vit_params
+
+    params = init_vit_params(torch.Generator().manual_seed(SEED + 137), **VIT_L)
+    for i in range(VIT_L["depth"]):
+        params[f"block{i}"]["qkv"]["kernel"][:, :2] *= VIT_QK_SCALE
+    ex = zoo.build_extractor("insightface_vit_l", batch_size=VIT_BATCH, device="cuda",
+                             params=params)
+    imgs = np.stack(smooth_images(rng, VIT_CALL, ex.input_size))
+    ex.extract_batch(imgs)
+    torch.cuda.synchronize()
+    reset_launches()
+    feats = ex.extract_batch(imgs)
+    launches = kernel_launches()
+    chunks = -(-VIT_CALL // VIT_BATCH)
+    others = {k: n for k, n in launches.items() if n and k != "attention"}
+    if launches["attention"] != VIT_L["depth"] * chunks or others:
+        raise AssertionError(f"vit: launches {launches}, not {VIT_L['depth']} K5 a chunk "
+                             f"x {chunks} chunks")
+    if feats.shape != (VIT_CALL, VIT_L["embedding_dim"]) or not np.all(np.isfinite(feats)):
+        raise AssertionError(f"vit: malformed embeddings {feats.shape}")
+    cpu = zoo.build_extractor("insightface_vit_l", batch_size=VIT_CPU_ROWS, device="cpu",
+                              params=params).extract_batch(imgs[:VIT_CPU_ROWS])
+    rel = np.linalg.norm(feats[:VIT_CPU_ROWS] - cpu, axis=1) / np.linalg.norm(cpu, axis=1)
+    spread = float(np.abs(feats @ feats.T - np.eye(VIT_CALL)).max())
+    print(f"vit: {VIT_CALL} crops at batch {VIT_BATCH}, launches "
+          f"{json.dumps(launches)}; card against CPU on {VIT_CPU_ROWS} rows: relative "
+          f"L2 {float(rel.max()):.3g}; largest |cosine| between two crops {spread:.4f}")
+    if not rel.max() <= VIT_CPU_RTOL:
+        raise AssertionError(f"vit: card against CPU {rel.max()} > {VIT_CPU_RTOL}")
+    ms = median_ms(lambda: ex.extract_batch(imgs), VIT_REPEATS)
+    numbers = {"ms": ms, "faces_per_s": VIT_CALL * 1e3 / ms, "cpu_rel_l2": float(rel.max()),
+               "k5_per_call": launches["attention"]}
+    print(f"vit: median {ms:.1f} ms a call = {numbers['faces_per_s']:.1f} faces/s over "
+          f"{VIT_REPEATS} calls")
+    del ex
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
 def train_batch_np(rng, n: int, size: int, n_classes: int):
     """Seeded synthetic images in [-1, 1] and labels, on the host."""
     x = rng.rand(n, size, size, 3).astype(np.float32) * 2 - 1
@@ -4192,7 +4331,8 @@ def main() -> None:
     pw = check_pw_kernel(gen, PW_BATCH, True, 20, 5)
     pw_maps = tensor_map_encode_us()
     warp_result = check_warp_kernel()
-    phase_done("K1, K4 and K3 checks")
+    attn_result = apart("cs.check_attention_kernel()", "K5 checks")
+    phase_done("K1, K4, K3 and K5 checks")
 
     # --- main paths: counts set to 0 just before each, read just after ---
     mtcnn_params, mh_params = load_params()
@@ -4273,6 +4413,9 @@ def main() -> None:
         path_launches += new_zoo_launches
         torch.cuda.empty_cache()
         phase_done(f"identify and zoo on {' and '.join(NEW_ZOO)}")
+    vit_launches, vit = vit_path(np.random.RandomState(SEED + 139))
+    path_launches.append(vit_launches)
+    phase_done("ViT-L embed")
     # K4 at the shapes vgg2_mobilenet_int8 gives it (192², the zoo's batch)
     pw_192 = check_pw_kernel_apart(SEED + 6, ZOO_BATCH, 10, 2, size=192)
     torch.cuda.empty_cache()
@@ -4374,6 +4517,12 @@ def main() -> None:
         "launches_per_face_id_step": max(n["warp_batch"] for n in train_launches) / TRAIN_STEPS,
         "launches_per_age_gender_pair": max(n["warp_batch"] for n in ag_launches) / AG_PAIRS,
         **warp_result})
+    kernels.append({
+        "name": "attention", "route": "cuda",
+        "source": "hse_facerec_torch/csrc/attention.cu", "replaces": None,
+        "launches": launches["attention"], "mesh_launches": mesh_total["attention"],
+        "bench_launches": bench_launches["attention"],
+        "launches_per_vit_call": vit_launches["attention"], **attn_result})
     print(f"int8 serving: analyze --int8-heads median {int8_median:.3f} ms/image "
           f"(f32 heads {median:.3f}); embed batch {EMBED_BATCH} "
           + json.dumps({k: round(v, 1) for k, v in embed["ips"].items()}) + " img/s")
@@ -4387,6 +4536,7 @@ def main() -> None:
     print("utkface: " + json.dumps({b: {k: v for k, v in r.items() if k != "metrics"}
                                     for b, r in utk.items()}))
     print("zoo 512-d and 4096-d: " + json.dumps(new_zoo))
+    print("vit: " + json.dumps(vit))
     print("age/gender train: " + json.dumps(ag_train))
     print("age_gender cuda vs cpu: " + json.dumps(ag_parity))
     print("align: " + json.dumps(aligned))

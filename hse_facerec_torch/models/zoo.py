@@ -37,6 +37,9 @@ VGGFACE_RESNET50_H5 = os.environ.get(
 ARCFACE_NPZ = os.environ.get(
     "HSE_FACEREC_ARCFACE_NPZ",
     os.path.join(REFERENCE_ROOT, "models", "arcface_r100.npz"))
+# arcface_torch's ViT-L, trained on WebFace42M: a PyTorch checkpoint that
+# the port does not import yet, so the entry always builds seeded weights.
+VIT_L_CHECKPOINT = "arcface_torch's WebFace42M vit_l checkpoint (not imported)"
 # keras_vggface VGG16 weights (rcmalli_vggface_tf_vgg16.h5 — external blob,
 # downloaded by keras_vggface in the reference's environment).
 VGGFACE_VGG16_H5 = os.environ.get(
@@ -113,6 +116,12 @@ def _arcface_embed(params, x, precision="highest"):
     from .arcface import iresnet_embed
 
     return iresnet_embed(params, x, precision=precision)
+
+
+def _vit_embed(params, x, precision="highest"):
+    from .vit import vit_embed
+
+    return vit_embed(params, x, precision=precision)
 
 
 def _vgg16_embed(params, x, precision="highest"):
@@ -206,6 +215,21 @@ def _arcface_params():
     return init_iresnet_params(_seed0(), depth=100)   # numpy already
 
 
+def _vit_l_params():
+    """Seeded in the source's initialisation: no trained ViT-L weights are
+    in the repository, nor an importer of the checkpoint."""
+    from .vit import VIT_L, init_vit_params
+
+    _warn_random_init("insightface_vit_l", VIT_L_CHECKPOINT)
+    return init_vit_params(_seed0(), **VIT_L)
+
+
+def _vit_to_torch(params, device):
+    from .vit import to_torch
+
+    return to_torch(params, device)
+
+
 def _vgg16_params():
     from .vgg16 import init_vgg16_params, vgg16_params_from_h5
 
@@ -243,6 +267,13 @@ MODEL_ZOO: Dict[str, ModelSpec] = {
         "insightface_arcface", (112, 112), "none", "cv2_linear", 512,
         _arcface_params, _at(_arcface_embed),
         extractor_kwargs={"l2_normalize_output": True, "convert": _tree_to_torch}),
+    # InsightFace arcface_torch ViT-L (backbones/vit.py, get_model("vit_l")):
+    # 112² RGB 0-255 in (the model scales it), 144 tokens of 768, 24 blocks,
+    # 8 heads on K5; L2-normalized 512-d output, no flip-TTA
+    "insightface_vit_l": ModelSpec(
+        "insightface_vit_l", (112, 112), "none", "cv2_linear", 512,
+        _vit_l_params, _at(_vit_embed),
+        extractor_kwargs={"l2_normalize_output": True, "convert": _vit_to_torch}),
     # the int8 serving variants (models/int8_infer.py, pointwise layers on
     # K4); same preprocessing and protocols as their f32 bases
     "agegender_identity_int8": ModelSpec(
@@ -286,7 +317,8 @@ def weights_origin(name: str) -> str:
              "vgg2_resnet": (VGG2_RESNET_PB,),
              "vggface_resnet50": (VGGFACE_RESNET50_H5,),
              "insightface_arcface": (ARCFACE_NPZ,),
-             "vggface_vgg16": (VGGFACE_VGG16_H5,)}[name]
+             "vggface_vgg16": (VGGFACE_VGG16_H5,),
+             "insightface_vit_l": ()}[name]
     return "imported" if any(os.path.exists(f) for f in files) else "random"
 
 
