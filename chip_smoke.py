@@ -22,7 +22,10 @@ kernels are built for sm_90a). It:
    144 tokens x 8 heads x 96) and at ragged tokens and heads, one launch a
    call, timed beside its bound, its plain version and
    ``F.scaled_dot_product_attention``, one profiled call running exactly
-   one device kernel;
+   one device kernel; then, in another child, K6 (fused BN/PReLU/residual)
+   at every pass and activation shape of IResNet-100's trunk at batch 256,
+   one launch a call, bit-equal to torch's own passes, timed beside its
+   bytes bound and those passes, and summed over one 256-face chunk;
 4. drives the analyze path: ``FacialAnalyzer.analyze_with_rotations``
    (K1), timed, then checked against the same analyzer on the CPU; then
    the batch path at batch 8 (``analyze_batch``: one K1 launch per crop
@@ -211,6 +214,7 @@ from hse_facerec_torch.models.multihead import import_multihead_params, multihea
 from hse_facerec_torch.native import rankorder
 from hse_facerec_torch.ops.kernels import build, kernel_launches, reset_launches
 from hse_facerec_torch.ops.kernels import attention
+from hse_facerec_torch.ops.kernels import bn_act
 from hse_facerec_torch.ops.kernels import knn
 from hse_facerec_torch.ops.kernels import pw_conv
 from hse_facerec_torch.ops.kernels import warp
@@ -345,6 +349,22 @@ WARP_ATOL = 1e-6
 ATTN_SHAPES = [("vit_l", 256, 144, 8), ("ragged_t", 3, 33, 8), ("ragged_h", 5, 144, 3),
                ("t7_h1", 2, 7, 1)]
 ATTN_RTOL = 1e-5
+# K6 (fused BN/PReLU/residual) at the (C, H, W) of every activation
+# IResNet-100's trunk hands it at 112², at the arcface-enroll cell's batch;
+# per 256-face chunk the trunk launches each (pass, shape) this many times
+# (one stem pass, per unit bn2 + PReLU and the tail: bn3 + the shortcut,
+# its own BN in a stage's first unit, with the next bn1)
+BN_ACT_BATCH = 256
+BN_ACT_CHUNK = {
+    ("stem", (64, 112, 112)): 1,
+    ("bn_prelu", (64, 112, 112)): 1, ("bn_prelu", (64, 56, 56)): 2,
+    ("bn_prelu", (128, 56, 56)): 1, ("bn_prelu", (128, 28, 28)): 12,
+    ("bn_prelu", (256, 28, 28)): 1, ("bn_prelu", (256, 14, 14)): 29,
+    ("bn_prelu", (512, 14, 14)): 1, ("bn_prelu", (512, 7, 7)): 2,
+    ("tail_sc", (64, 56, 56)): 1, ("tail_sc", (128, 28, 28)): 1,
+    ("tail_sc", (256, 14, 14)): 1, ("tail_sc", (512, 7, 7)): 1,
+    ("tail", (64, 56, 56)): 2, ("tail", (128, 28, 28)): 12,
+    ("tail", (256, 14, 14)): 29, ("tail", (512, 7, 7)): 2}
 # the ViT-L embedder as the vit-enroll cell runs it: batch 256, 1,024 crops
 # a call; W_q and W_k scaled up from the source's 0.02 init, which leaves
 # the attention near uniform, so that the card's rows against the CPU's
@@ -3097,6 +3117,101 @@ def check_attention_kernel():
     return report
 
 
+def bn_act_operands(kind: str, shape, gen):
+    """x (channels-last, as the trunk's convs hand it over) and the keyword
+    arguments of one of the trunk's four K6 passes, from ``gen``."""
+    c = shape[1]
+
+    def bn_dict():
+        return {"gamma": torch.rand(c, generator=gen, device="cuda") + 0.5,
+                "beta": torch.randn(c, generator=gen, device="cuda") * 0.1,
+                "mean": torch.randn(c, generator=gen, device="cuda") * 0.3,
+                "var": torch.rand(c, generator=gen, device="cuda") + 0.5}
+
+    def act():
+        return (torch.randn(shape, generator=gen, device="cuda") * 2.0).contiguous(
+            memory_format=torch.channels_last)
+
+    kw = {"bn": bn_dict()}
+    if kind in ("bn_prelu", "stem"):
+        kw["alpha"] = torch.rand(c, generator=gen, device="cuda")
+    if kind in ("tail", "tail_sc"):
+        kw["residual"] = act()
+    if kind == "tail_sc":
+        kw["residual_bn"] = bn_dict()
+    if kind != "bn_prelu":
+        kw["next_bn"] = bn_dict()
+    return act(), kw
+
+
+def device_ms_per_call(fn, calls: int, expect: str = ""):
+    """Device time a call of ``fn`` under ``torch.profiler``: of the
+    kernels whose name holds ``expect`` (of every kernel with ""), and
+    those kernels' count a call."""
+    rows, _ = profile_calls(fn, calls, expect)
+    kept = [(n, ms) for key, n, ms, on_device in rows if on_device and expect in key]
+    return sum(ms for _, ms in kept) / calls, sum(n for n, _ in kept) / calls
+
+
+def check_bn_act_kernel():
+    """K6 at every (pass, shape) of ``BN_ACT_CHUNK`` at batch
+    ``BN_ACT_BATCH``: one launch a call, its outputs bit-equal to
+    ``bn_act_plain`` (torch's own passes, as ``models/arcface.py``'s eager
+    path runs them). Each is timed a call with CUDA events (the wrapper's
+    host work and its ``gamma · rsqrt(var + eps)`` launches included, which
+    the small shapes cannot hide here) and by its kernel's device time
+    under ``torch.profiler``, beside its bound (x and the residual read,
+    the outputs written, at 3.35 TB/s) and the eager passes' device time.
+    Returns the per-chunk sums, weighted by the trunk's launches, and each
+    (pass, shape)'s numbers for the JSON line."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 141)
+    rows = {}
+    chunk = dict.fromkeys(("ms", "device_ms", "plain_ms", "bound_ms"), 0.0)
+    chunk["launches_per_chunk"] = 0
+    for (kind, chw), per_chunk in BN_ACT_CHUNK.items():
+        shape = (BN_ACT_BATCH,) + chw
+        x, kw = bn_act_operands(kind, shape, gen)
+        reset_launches()
+        got = bn_act.bn_act(x, **kw)
+        launches = kernel_launches()
+        want = bn_act.bn_act_plain(x, **kw)
+        got, want = ((got, want) if isinstance(got, tuple) else ((got,), (want,)))
+        torch.cuda.synchronize()
+        if launches["bn_act"] != 1 or sum(launches.values()) != 1:
+            raise AssertionError(f"bn_act {kind} {shape}: launches {launches}, not one K6")
+        if not all(torch.equal(g, w) and g.stride() == x.stride() for g, w in zip(got, want)):
+            raise AssertionError(f"bn_act {kind} {shape}: not the eager passes' bits")
+        ms = cuda_ms(lambda: bn_act.bn_act(x, **kw), 20)
+        dev_ms, kernels = device_ms_per_call(lambda: bn_act.bn_act(x, **kw), 10, "k6_bn_act")
+        plain_ms, plain_kernels = device_ms_per_call(lambda: bn_act.bn_act_plain(x, **kw), 10)
+        if kernels != 1:
+            raise AssertionError(f"bn_act {kind} {shape}: {kernels} K6 kernels a call")
+        moved = nbytes(x, *got) + (nbytes(kw["residual"]) if "residual" in kw else 0)
+        b_ms, _ = bound(moved, 0.0, "f32")
+        name = f"{kind} {'x'.join(map(str, shape))}"
+        rows[name] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                      "plain_kernels": plain_kernels, "bound_ms": b_ms,
+                      "share_of_bound": b_ms / dev_ms, "tb_per_s": moved / dev_ms / 1e9,
+                      "per_chunk": per_chunk}
+        print(f"bn_act {name}: a call {ms:.4f} ms, device_ms={dev_ms:.4f} bound_ms="
+              f"{b_ms:.4f} {b_ms / dev_ms:.3f} of the bound ({moved / dev_ms / 1e9:.2f} "
+              f"TB/s); eager passes device {plain_ms:.4f} ms in {plain_kernels:.0f} "
+              f"kernels; {per_chunk} a chunk")
+        for key, value in (("ms", ms), ("device_ms", dev_ms), ("plain_ms", plain_ms),
+                           ("bound_ms", b_ms)):
+            chunk[key] += per_chunk * value
+        chunk["launches_per_chunk"] += per_chunk
+        del x, kw, got, want
+    torch.cuda.empty_cache()
+    share = chunk["bound_ms"] / chunk["device_ms"]
+    print(f"bn_act per {BN_ACT_BATCH}-face chunk: {chunk['launches_per_chunk']} launches, device "
+          f"{chunk['device_ms']:.3f} ms (calls {chunk['ms']:.3f}), eager passes device "
+          f"{chunk['plain_ms']:.3f}, bound {chunk['bound_ms']:.3f} ({share:.3f})")
+    return {**chunk, "bound_by": "bytes", "share_of_bound": share, "equal": True,
+            "shape": f"IResNet-100's trunk passes of one {BN_ACT_BATCH}-face chunk, "
+                     f"channels-last f32", "passes": rows}
+
+
 def vit_path(rng):
     """The ViT-L embedder on the ``vit-enroll`` cell's path at full width:
     ``zoo.build_extractor("insightface_vit_l")`` (768 wide, 24 blocks, 8
@@ -4332,7 +4447,8 @@ def main() -> None:
     pw_maps = tensor_map_encode_us()
     warp_result = check_warp_kernel()
     attn_result = apart("cs.check_attention_kernel()", "K5 checks")
-    phase_done("K1, K4, K3 and K5 checks")
+    bn_act_result = apart("cs.check_bn_act_kernel()", "K6 checks")
+    phase_done("K1, K4, K3, K5 and K6 checks")
 
     # --- main paths: counts set to 0 just before each, read just after ---
     mtcnn_params, mh_params = load_params()
@@ -4523,6 +4639,11 @@ def main() -> None:
         "launches": launches["attention"], "mesh_launches": mesh_total["attention"],
         "bench_launches": bench_launches["attention"],
         "launches_per_vit_call": vit_launches["attention"], **attn_result})
+    kernels.append({
+        "name": "bn_act", "route": "cuda",
+        "source": "hse_facerec_torch/csrc/bn_act.cu", "replaces": None,
+        "launches": launches["bn_act"], "mesh_launches": mesh_total["bn_act"],
+        "bench_launches": bench_launches["bn_act"], **bn_act_result})
     print(f"int8 serving: analyze --int8-heads median {int8_median:.3f} ms/image "
           f"(f32 heads {median:.3f}); embed batch {EMBED_BATCH} "
           + json.dumps({k: round(v, 1) for k, v in embed["ips"].items()}) + " img/s")

@@ -17,6 +17,12 @@ forward takes the reference's ``precision`` tier and ``compute_dtype``:
 each conv casts its input and weight to ``compute_dtype`` and its output
 back to float32; BN, PReLU and ``pre_fc1`` stay float32.
 
+On a card the trunk runs each unit's BNs, PReLU and residual add as two
+launches of the fused kernel K6 (``ops/kernels/bn_act.py``), which rounds
+every step as the eager passes do; CPU tensors take the eager passes. K6
+has no backward, so on a card the trunk refuses a forward that autograd
+would record.
+
 ``iresnet_params_from_npz`` reads the flat MXNet param naming
 (``stage{s}_unit{u}_bn1_gamma``, ``conv0_weight``, ``pre_fc1_weight``, …)
 from an ``.npz``; unit counts come from the names. Params are numpy
@@ -34,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from ..numerics import div_const, precision_scope
+from ..ops.kernels.bn_act import bn_act, bn_plain
 from ..params import normal
 
 # stage unit counts per depth (insightface fresnet configs)
@@ -43,14 +50,9 @@ IRESNET_UNITS = {
     100: (3, 13, 30, 3),
 }
 IRESNET_FILTERS = (64, 64, 128, 256, 512)
-BN_EPS = 2e-5  # mxnet BatchNorm default eps used by insightface
-
-
-def _bn(x, p, eps: float = BN_EPS):
-    inv = torch.rsqrt(p["var"] + eps)
-    shape = (1, -1) + (1,) * (x.dim() - 2)
-    return ((x - p["mean"].reshape(shape)) * (p["gamma"] * inv).reshape(shape)
-            + p["beta"].reshape(shape))
+# IResNet's inference BN (mxnet's default eps, as insightface uses it),
+# defined once beside K6, whose passes must give its bits
+_bn = bn_plain
 
 
 def _prelu(x, alpha):
@@ -74,6 +76,39 @@ def _unit(x, p, stride: int, dt):
     return h + sc
 
 
+def _trunk(params: Dict, x, dt):
+    """conv0 → bn0 → PReLU → the units → bn1, in eager passes."""
+    h = _conv(x, params["conv0"], 1, dt)
+    h = _prelu(_bn(h, params["bn0"]), params["relu0_alpha"])
+    for s, n_units in enumerate(iresnet_units(params), start=1):
+        for u in range(1, n_units + 1):
+            h = _unit(h, params[f"stage{s}_unit{u}"], 2 if u == 1 else 1, dt)
+    return _bn(h, params["bn1"])
+
+
+def _trunk_fused(params: Dict, x, dt):
+    """``_trunk`` on K6, the same bits: the stem's BN and PReLU with unit
+    1's ``bn1`` as a second output, then per unit bn2 → PReLU, and bn3 plus
+    the shortcut (its own BN in a downsampling unit) with the next unit's
+    ``bn1`` (the last unit's: the trunk's ``bn1``) as a second output. One
+    launch for the stem and two a unit."""
+    units = [(params[f"stage{s}_unit{u}"], 2 if u == 1 else 1)
+             for s, n_units in enumerate(iresnet_units(params), start=1)
+             for u in range(1, n_units + 1)]
+    nexts = [p["bn1"] for p, _ in units] + [params["bn1"]]
+    h, b = bn_act(_conv(x, params["conv0"], 1, dt), params["bn0"],
+                  alpha=params["relu0_alpha"], next_bn=nexts[0])
+    for (p, stride), nxt in zip(units, nexts[1:]):
+        r = bn_act(_conv(b, p["conv1"], 1, dt), p["bn2"], alpha=p["relu1_alpha"])
+        r = _conv(r, p["conv2"], stride, dt)
+        if "conv1sc" in p:
+            h, b = bn_act(r, p["bn3"], residual=_conv(h, p["conv1sc"], stride, dt),
+                          residual_bn=p["sc"], next_bn=nxt)
+        else:
+            h, b = bn_act(r, p["bn3"], residual=h, next_bn=nxt)
+    return b
+
+
 def iresnet_units(params: Dict) -> Tuple[int, ...]:
     """Per-stage unit counts recovered from the param dict's keys."""
     counts = []
@@ -93,12 +128,7 @@ def iresnet_embed(params: Dict, x, *, precision="highest",
     dt = compute_dtype
     with precision_scope(precision):
         x = div_const(x.to(torch.float32) - 127.5, 127.5).permute(0, 3, 1, 2)
-        h = _conv(x, params["conv0"], 1, dt)
-        h = _prelu(_bn(h, params["bn0"]), params["relu0_alpha"])
-        for s, n_units in enumerate(iresnet_units(params), start=1):
-            for u in range(1, n_units + 1):
-                h = _unit(h, params[f"stage{s}_unit{u}"], 2 if u == 1 else 1, dt)
-        h = _bn(h, params["bn1"])
+        h = (_trunk_fused if x.device.type == "cuda" else _trunk)(params, x, dt)
         # NHWC flatten; pre_fc1's kernel is stored in the matching order
         h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
         h = F.linear(h, params["pre_fc1"]["kernel"], params["pre_fc1"]["bias"])

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels' wrappers (K1 ``crop``, K2 ``knn``, K3
-``warp``, K4 ``pw_conv``, K5 ``attention``) and their launch counters.
+``warp``, K4 ``pw_conv``, K5 ``attention``, K6 ``bn_act``) and their launch
+counters.
 
 Each wrapper adds one to its ``launches`` where it launches its kernel and
 nowhere else; ``kernel_launches`` reads every counter and
@@ -13,7 +14,7 @@ from typing import Dict
 
 
 def _wrappers() -> Dict[str, object]:
-    from . import attention, crop, knn, pw_conv, warp
+    from . import attention, bn_act, crop, knn, pw_conv, warp
 
     return {"knn_f32": knn.nearest_neighbor_f32,
             "knn_int8q": knn.nearest_neighbor_int8q,
@@ -21,7 +22,8 @@ def _wrappers() -> Dict[str, object]:
             "crop_resize": crop.crop_resize,
             "pw_conv_int8": pw_conv.pw_conv_int8,
             "warp_batch": warp.warp_batch,
-            "attention": attention.attention}
+            "attention": attention.attention,
+            "bn_act": bn_act.bn_act}
 
 
 def kernel_launches() -> Dict[str, int]:

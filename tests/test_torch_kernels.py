@@ -99,8 +99,9 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
 
 
 def test_build_key_tracks_sources(tmp_path, monkeypatch):
-    assert [p.name for p in build.sources()] == ["attention.cu", "crop_resize.cu", "knn.cu",
-                                                 "pw_conv.cu", "warp.cu"]
+    assert [p.name for p in build.sources()] == ["attention.cu", "bn_act.cu",
+                                                 "crop_resize.cu", "knn.cu", "pw_conv.cu",
+                                                 "warp.cu"]
     assert [p.name for p in build.headers()] == ["mma_s8.cuh"]
     key = build.source_hash()
     assert key == build.source_hash() and len(key) == 16
