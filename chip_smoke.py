@@ -163,12 +163,7 @@ kernels are built for sm_90a). It:
    each f32 zoo embed at batch 64 and a face-ID training forward at 256;
    two threads, one running ``analyze``
    at "highest" and one a zoo embed at "default", 20 rounds, the
-   "highest" answers bit-equal to a solo run;
-12. runs the port's benchmark, ``python -m hse_facerec_torch.bench --quick``
-   (the JAX bench's paths at its configurations, each timed once) in a
-   child process: every key of the JAX bench's ``extra`` present, finite
-   and positive, K1, K2a (bf16), K2c, K3 and K4 launched, the compact line
-   printed.
+   "highest" answers bit-equal to a solo run.
 The K1 checks and the K4 checks at batch 1024 and at 192² run in child
 processes too: profiler sessions late in one process lose kernel records.
 The parent and the other children call ``set_parity_numerics`` first, as
@@ -189,7 +184,6 @@ from __future__ import annotations
 import ctypes
 import importlib.util
 import json
-import math
 import os
 import re
 import shutil
@@ -202,8 +196,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from hse_facerec_torch import bench, set_parity_numerics
-from hse_facerec_torch.bench import bound, gpu_name_and_power_limit
+from hse_facerec_torch import set_parity_numerics
 from hse_facerec_torch.config import AlbumConfig, TrainConfig
 from hse_facerec_torch.models import zoo
 from hse_facerec_torch.models.int8_infer import (block_int8, multihead_apply_int8,
@@ -245,6 +238,8 @@ from hse_facerec_torch.testing import (BmpAlbumOrganizer, bmp_bytes, decode_bmp,
 from hse_facerec_torch.train import age_gender, face_id
 from hse_facerec_torch.train.augment import AugmentConfig, sample_affine
 from hse_facerec_torch.train.checkpoints import flatten
+from perfbench.flops import bound_s
+from perfbench.trace import card_name_and_power_limit
 
 H, W = 480, 640
 N_IMAGES = 3
@@ -935,6 +930,31 @@ def int8_twin_rows(p, qb, sb, sub, pack: bool):
     return knn._int8_distances(part, emin, pack), idx
 
 
+def check_int8_bit_equal(label, p, qb, sb, packed, sub=None, results=None) -> None:
+    """K2b (``nearest_neighbor_int8q``) and K2c (``nearest_neighbor_int8p``
+    on ``packed``) in both epilogues (``pack_idx``) bit-equal to the int8
+    twin: on every probe (``nearest_neighbor_int8_plain``) or, with ``sub``,
+    on those probes of the call over all of ``p`` (``int8_twin_rows``).
+    Raises naming the kernel, ``label`` and the epilogue. With ``results``,
+    keeps each kernel's largest distance error in
+    ``results[kname]["max_abs_err"]``."""
+    for pack in (False, True):
+        want = (knn.nearest_neighbor_int8_plain(p, qb, sb, pack_idx=pack) if sub is None
+                else int8_twin_rows(p, qb, sb, sub, pack))
+        for kname, got in (
+                ("knn_int8q", knn.nearest_neighbor_int8q(p, qb, sb, pack_idx=pack)),
+                ("knn_int8p", knn.nearest_neighbor_int8p(p, *packed, pack_idx=pack))):
+            if sub is not None:
+                got = (got[0][sub], got[1][sub])
+            if not same(got, want):
+                bad = int((got[1] != want[1]).sum())
+                raise AssertionError(f"{kname} {label} pack_idx={pack}: {bad} indices "
+                                     "differ or distances not bit-equal to the twin")
+            if results is not None:
+                results[kname]["max_abs_err"] = max(
+                    results[kname]["max_abs_err"], float((got[0] - want[0]).abs().max()))
+
+
 def int8q_norms(in_sweep: bool):
     """K2b a call with its gallery norms formed in the sweep or taken from
     one host pass (``_sumsq``): to time that choice."""
@@ -969,19 +989,7 @@ def check_knn_shape(gen, name, m, n, d, results):
     p = unit_rows(gen, m, d)
     qb, sb = knn.quantize_embeddings(g)
     packed = knn.pack_quantized_gallery(qb, sb)
-    for pack in (False, True):
-        want = knn.nearest_neighbor_int8_plain(p, qb, sb, pack_idx=pack)
-        for kname, got in (
-                ("knn_int8q", knn.nearest_neighbor_int8q(p, qb, sb, pack_idx=pack)),
-                ("knn_int8p", knn.nearest_neighbor_int8p(p, *packed, pack_idx=pack))):
-            torch.cuda.synchronize()
-            if not same(got, want):
-                bad = int((got[1] != want[1]).sum())
-                raise AssertionError(f"{kname} {name} pack_idx={pack}: {bad} "
-                                     "indices differ or distances not bit-equal")
-            results[kname]["max_abs_err"] = max(
-                results[kname]["max_abs_err"],
-                float((got[0] - want[0]).abs().max()))
+    check_int8_bit_equal(name, p, qb, sb, packed, results=results)
     times = {
         "knn_int8q": cuda_ms(lambda: knn.nearest_neighbor_int8q(p, qb, sb), 20),
         "knn_int8q_plain": cuda_ms(lambda: knn.nearest_neighbor_int8_plain(
@@ -1197,14 +1205,7 @@ def check_knn_design_point(gen, results):
     qb, sb = knn.quantize_embeddings(g)
     packed = knn.pack_quantized_gallery(qb, sb)
     sub = torch.arange(0, m, DESIGN_CHECK_STRIDE, device="cuda")
-    for pack in (False, True):
-        want = int8_twin_rows(p, qb, sb, sub, pack)
-        for kname, got in (
-                ("knn_int8q", knn.nearest_neighbor_int8q(p, qb, sb, pack_idx=pack)),
-                ("knn_int8p", knn.nearest_neighbor_int8p(p, *packed, pack_idx=pack))):
-            if not same((got[0][sub], got[1][sub]), want):
-                raise AssertionError(f"{kname} design point pack_idx={pack}: "
-                                     "not bit-equal to the twin")
+    check_int8_bit_equal("design point", p, qb, sb, packed, sub=sub)
     q_ms = cuda_ms(lambda: knn.nearest_neighbor_int8q(p, qb, sb), 3, 1)
     p_ms = cuda_ms(lambda: knn.nearest_neighbor_int8p(p, *packed), 3, 1)
     plain_ms = cuda_ms(lambda: knn.nearest_neighbor_int8_plain(p, qb, sb), 1, 0)
@@ -1214,7 +1215,7 @@ def check_knn_design_point(gen, results):
     tile = knn.int8_tile(m, d, torch.cuda.current_device())
     b_ms, b_by = bound(nbytes(p, qb) + m * 8, 2.0 * m * n * d, "int8")
     qa = knn.quantize_embeddings(p, reciprocal=True)[0]
-    del g, p, packed, want, got
+    del g, p, packed
     torch.cuda.empty_cache()
     int_mm, why = int_mm_call(qa, qb)
     lib_ms = cuda_ms(int_mm, 3, 1) if int_mm else None
@@ -2448,7 +2449,7 @@ def serve_path(mtcnn_params, mh_params, rng):
     if worst_cos < 0.999:
         raise AssertionError(f"/embed vs extract_batch: cosine {worst_cos}")
     print(f"serve: {len(plan)} requests from {SERVE_CLIENTS} clients in {wall:.3f} s "
-          f"= {len(plan) / wall:.1f} requests/s ({gpu_name_and_power_limit()}); gallery "
+          f"= {len(plan) / wall:.1f} requests/s ({card_name_and_power_limit()}); gallery "
           f"{len(gallery)} x {SERVE_DIM}-d int8; setup {setup_s:.1f} s")
     for name in ("analyze", "identify", "embed", "enroll"):
         if name in stats:
@@ -2928,18 +2929,8 @@ def check_knn_wide(gen, knn_results):
         torch.cuda.empty_cache()
         packed = knn.pack_quantized_gallery(qb, sb)
         sub = torch.arange(0, m, 1 if m <= 16 else WIDE_CHECK_STRIDE, device="cuda")
-        for pack in (False, True):
-            want = int8_twin_rows(p, qb, sb, sub, pack)
-            for kname, got in (
-                    ("knn_int8q", knn.nearest_neighbor_int8q(p, qb, sb, pack_idx=pack)),
-                    ("knn_int8p", knn.nearest_neighbor_int8p(p, *packed, pack_idx=pack))):
-                if not same((got[0][sub], got[1][sub]), want):
-                    raise AssertionError(f"{kname} M={m} N={n} D={d} pack_idx={pack}: "
-                                         "not bit-equal to the twin")
-                knn_results[kname]["max_abs_err"] = max(
-                    knn_results[kname]["max_abs_err"],
-                    float((got[0][sub] - want[0]).abs().max()))
-            del want, got
+        check_int8_bit_equal(f"M={m} N={n} D={d}", p, qb, sb, packed, sub=sub,
+                             results=knn_results)
         iters = 20 if m <= 16 else 2
         q_ms = cuda_ms(lambda: knn.nearest_neighbor_int8q(p, qb, sb), iters, 1)
         p_ms = cuda_ms(lambda: knn.nearest_neighbor_int8p(p, *packed), iters, 1)
@@ -2974,6 +2965,12 @@ def check_knn_wide(gen, knn_results):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved: float, ops: float, kind: str):
+    """``perfbench.flops.bound_s`` in ms: (ms, "bytes" or "operations")."""
+    seconds, by = bound_s(moved, ops, kind)
+    return seconds * 1e3, by
 
 
 def grid_sample_warp(images, mats):
@@ -4380,48 +4377,11 @@ def tiers_path() -> dict:
     return {"api": api, "fault": fault, "threads": threads, "rows": rows}
 
 
-def bench_path():
-    """The port's benchmark as a user runs it, ``python -m
-    hse_facerec_torch.bench --quick`` (every chain and iters 1, warmup 1,
-    at full widths), in a child process: the quick run in this process,
-    after the other phases' profiler sessions, lost half the kernel
-    records of its profiled call (device-busy rate 31,633 img/s over a
-    wall rate of 15,623, H100). ``bench.main`` sets the launch counts to 0
-    before its paths and reads them after (``extra["launches"]``). Checks
-    every key of the JAX bench's ``extra`` present, finite and positive
-    (the int8 cosine in (0, 1]), and K1, K2a, K2c, K3 and K4 launched.
-    Returns the launches of the run and the compact line."""
-    out = subprocess.run([sys.executable, "-m", "hse_facerec_torch.bench", "--quick"],
-                         capture_output=True, text=True, timeout=900,
-                         cwd=os.path.dirname(os.path.abspath(__file__)))
-    lines = out.stdout.strip().splitlines()
-    print("\n".join(lines[:-2]))
-    if out.returncode != 0:
-        raise AssertionError(f"bench --quick failed ({out.returncode}): "
-                             f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
-    result, compact = json.loads(lines[-2]), json.loads(lines[-1])
-    extra = result["extra"]
-    launches = extra["launches"]
-    bad = [k for k in bench.EXTRA_KEYS if not (
-        isinstance(extra.get(k), (int, float)) and math.isfinite(extra[k]) and extra[k] > 0)]
-    if bad or extra["embed_int8_cosine_vs_f32"] > 1.0 or not result.get("quick"):
-        raise AssertionError(f"bench: keys missing, non-finite or not positive: {bad}")
-    if result["metric"] != "multihead_embed_images_per_sec_per_chip" or not (
-            result["value"] > 0 and result["vs_baseline"] > 0):
-        raise AssertionError(f"bench: malformed headline {result['metric']} {result['value']}")
-    idle = [k for k in ("crop_resize", "knn_f32", "knn_int8p", "warp_batch", "pw_conv_int8")
-            if launches[k] <= 0]
-    if idle:
-        raise AssertionError(f"bench: the run launched no {idle}")
-    print(f"bench (quick): launches {json.dumps(launches)}")
-    return launches, compact
-
-
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
 
-    print(gpu_name_and_power_limit())
+    print(card_name_and_power_limit())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     set_parity_numerics()
@@ -4561,10 +4521,6 @@ def main() -> None:
     path_launches += mesh_launches
     mesh_total = {k: sum(p[k] for p in mesh_launches) for k in mesh_launches[0]}
     phase_done("multichip")
-    bench_launches, bench_line = bench_path()
-    path_launches.append(bench_launches)
-    torch.cuda.empty_cache()
-    phase_done("bench (quick)")
     launches = {k: sum(p[k] for p in path_launches) for k in path_launches[0]}
 
     # crop: the sums over the three single-image call sites, i.e. one image's
@@ -4579,7 +4535,6 @@ def main() -> None:
         "replaces": "hse_facerec_tf_tpu/ops/pallas/crop.py:103",
         "launches": launches["crop_resize"],
         "mesh_launches": mesh_total["crop_resize"],
-        "bench_launches": bench_launches["crop_resize"],
         "serve_launches": serve_launches["crop_resize"],
         "max_abs_err": max(r["max_abs_err"] for r in crop_results.values()),
         **{k: sum(r[k] for r in singles) for k in (
@@ -4599,7 +4554,7 @@ def main() -> None:
             "name": name, "route": "cuda", "source": "hse_facerec_torch/csrc/knn.cu",
             "replaces": f"hse_facerec_tf_tpu/ops/pallas/knn.py:{line}",
             "launches": launches[name], "serve_launches": serve_launches[name],
-            "mesh_launches": mesh_total[name], "bench_launches": bench_launches[name],
+            "mesh_launches": mesh_total[name],
             "equal": name != "knn_f32", **r,
             **({"widths": {k: {"route": v["route"], "tile": v["tile"],
                                "streamed": v["streamed"], "ms": v[name + "_ms"],
@@ -4614,7 +4569,6 @@ def main() -> None:
         "replaces": "hse_facerec_tf_tpu/ops/pallas/pw_conv.py:150",
         "launches": launches["pw_conv_int8"],
         "mesh_launches": mesh_total["pw_conv_int8"],
-        "bench_launches": bench_launches["pw_conv_int8"],
         "serve_launches": serve_launches["pw_conv_int8"], "equal": True,
         **pw,
         "max_abs_err": max(pw["max_abs_err"], pw_embed["max_abs_err"],
@@ -4629,7 +4583,6 @@ def main() -> None:
         "replaces": "hse_facerec_tf_tpu/ops/pallas/warp.py:166",
         "launches": launches["warp_batch"],
         "mesh_launches": mesh_total["warp_batch"],
-        "bench_launches": bench_launches["warp_batch"],
         "launches_per_face_id_step": max(n["warp_batch"] for n in train_launches) / TRAIN_STEPS,
         "launches_per_age_gender_pair": max(n["warp_batch"] for n in ag_launches) / AG_PAIRS,
         **warp_result})
@@ -4637,13 +4590,12 @@ def main() -> None:
         "name": "attention", "route": "cuda",
         "source": "hse_facerec_torch/csrc/attention.cu", "replaces": None,
         "launches": launches["attention"], "mesh_launches": mesh_total["attention"],
-        "bench_launches": bench_launches["attention"],
         "launches_per_vit_call": vit_launches["attention"], **attn_result})
     kernels.append({
         "name": "bn_act", "route": "cuda",
         "source": "hse_facerec_torch/csrc/bn_act.cu", "replaces": None,
         "launches": launches["bn_act"], "mesh_launches": mesh_total["bn_act"],
-        "bench_launches": bench_launches["bn_act"], **bn_act_result})
+        **bn_act_result})
     print(f"int8 serving: analyze --int8-heads median {int8_median:.3f} ms/image "
           f"(f32 heads {median:.3f}); embed batch {EMBED_BATCH} "
           + json.dumps({k: round(v, 1) for k, v in embed["ips"].items()}) + " img/s")
@@ -4663,7 +4615,6 @@ def main() -> None:
     print("align: " + json.dumps(aligned))
     print("cascade: " + json.dumps(cascade))
     print("multichip: " + json.dumps(mesh_numbers))
-    print("bench (quick): " + json.dumps(bench_line))
     print("tiers: " + json.dumps(tiers))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

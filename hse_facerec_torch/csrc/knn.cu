@@ -80,9 +80,9 @@
 //   reduce to one partial. The tile's b2v (b2 for bf16) rides the ring with
 //   its last K slice (cp.async).
 // Which probe tile, and what bounds each form on an H100 at 700 W (times
-// by chip_smoke.py and by int8_ab.py, which also ran the earlier design
-// on its own tree: mma.sync fed by cp.async, 4 warps a tile pair, an
-// ldmatrix and IMMA stream per warp, a 16-probe tile at M <= 16):
+// by chip_smoke.py and by an A/B timing of this design's tree and the
+// earlier design's in turns: mma.sync fed by cp.async, 4 warps a tile
+// pair, an ldmatrix and IMMA stream per warp, a 16-probe tile at M <= 16):
 // - int8 serving query (M <= 16, N = 1M, D = 512 or 4096): the gallery read
 //   once, 0.16 or 1.28 ms at 3.35 TB/s, so the padded probe rows cost no
 //   time. wgmma's 128-probe tile (112 rows of zeros) takes 0.216 ms of

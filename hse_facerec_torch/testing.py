@@ -1,10 +1,9 @@
 """Seeded random parameters for the analyze path and the zoo's
 backbones, numpy only, seeded synthetic photos and a seeded synthetic LBP
 cascade, and codec-free inputs: 24-bit BMP files, an in-memory video
-capture, an album organizer that reads them (``BmpAlbumOrganizer``) and a
-synthetic album (``synthetic_album``). The card's machine has no JPEG,
-PNG or MP4 codec, so ``chip_smoke.py`` and ``bench.py`` feed photos and
-clips in these forms.
+capture and an album organizer that reads them (``BmpAlbumOrganizer``).
+The card's machine has no JPEG, PNG or MP4 codec, so ``chip_smoke.py``
+feeds photos and clips in these forms.
 
 The pytrees have the reference's layouts and shapes (HWIO convs,
 (H, W, C, 1) depthwise, (in, out) dense), so the same arrays go through
@@ -18,12 +17,11 @@ from __future__ import annotations
 
 import os
 import struct
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from .models.mobilenet import MOBILENET_V1_BLOCKS
-from .ops.resize import resize_linear_u8
 from .pipelines.album import AlbumOrganizer
 
 # (name, kernel shape) per MTCNN layer with weights; shapes of the shipped
@@ -302,38 +300,3 @@ class BmpAlbumOrganizer(AlbumOrganizer):
 
     def _open_video(self, path: str):
         return FrameCapture(self.clips[os.path.basename(path)])
-
-
-ALBUM_SIZES = ((1024, 768), (800, 600), (640, 480))    # (w, h) mixed "cameras"
-
-
-def synthetic_album(album_dir: str, n_photos: int = 64, video_frames: int = 40,
-                    seed: int = 0, sizes: Sequence[Tuple[int, int]] = ALBUM_SIZES
-                    ) -> Tuple[int, int, Dict[str, List[np.ndarray]]]:
-    """The JAX bench's synthetic album (``bench.py:534-565``) without
-    codecs: BMP photos of mixed camera sizes (``sizes``, (w, h), in turn),
-    every 4th uniform noise (no faces), the others a base photo resized to
-    the size (``resize_linear_u8``, cv2's INTER_LINEAR) plus ±12 jitter;
-    and one clip of ``video_frames`` frames, the base photo at 640x480
-    rolled by 2 px a frame. The base is ``synthetic_photo(seed, 480,
-    640)`` (the reference's fixture photo is not in the repository). The
-    clip is a ``clip.mp4`` placeholder in ``album_dir``, its frames
-    returned for ``BmpAlbumOrganizer(clips=...)``. Returns (n_photos,
-    n_videos, clips)."""
-    base = synthetic_photo(seed, 480, 640)
-    rng = np.random.RandomState(seed)
-    for i in range(n_photos):
-        w, h = sizes[i % len(sizes)]
-        if i % 4 == 3:
-            img = rng.randint(0, 255, (h, w, 3), np.uint8)
-        else:
-            img = resize_linear_u8(base, (h, w))
-            jitter = rng.randint(-12, 13, img.shape, np.int16)
-            img = np.clip(img.astype(np.int16) + jitter, 0, 255).astype(np.uint8)
-        write_bmp(os.path.join(album_dir, f"photo_{i:03d}.bmp"), img)
-    frame = np.ascontiguousarray(base[:, :, ::-1])
-    clips = {"clip.mp4": [np.roll(frame, 2 * i, axis=1) for i in range(video_frames)]}
-    for name in clips:
-        with open(os.path.join(album_dir, name), "wb") as f:
-            f.write(b"frames served by BmpAlbumOrganizer._open_video")
-    return n_photos, len(clips), clips

@@ -3,7 +3,13 @@
 normalization; float32, one rounding order apart at most, so within
 2e-4 on 0-255 values), ``ops/nms.py::nms_numpy`` (host numpy, equal picks
 in equal order) and ``eval/lfw.py::load_class_filter`` (equal sets).
+
+The codec-free inputs of ``testing.py``, which feed the port where no
+image or video codec is installed: the BMP helpers bit-equal to cv2, and
+``BmpAlbumOrganizer`` giving the decoding organizer's album result.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -15,6 +21,9 @@ from hse_facerec_tf_tpu.ops import preprocess as jpre
 from hse_facerec_torch.eval import lfw as tlfw
 from hse_facerec_torch.ops import nms as tnms
 from hse_facerec_torch.ops import preprocess as tpre
+from hse_facerec_torch.testing import (BmpAlbumOrganizer, FrameCapture, bmp_bytes,
+                                       decode_bmp, random_mtcnn_params,
+                                       random_multihead_params, read_bmp, write_bmp)
 
 PRE_ATOL = 2e-4
 
@@ -70,3 +79,53 @@ def test_load_class_filter_equals_jax(tmp_path):
     got = tlfw.load_class_filter(str(path))
     assert got == jlfw.load_class_filter(str(path))
     assert got == {"Aaron_Eckhart", "Abdullah_Gul", "Adam_Sandler"}
+
+
+@pytest.mark.parametrize("shape", [(5, 7, 3), (4, 8, 3), (1, 1, 3)])
+def test_bmp_round_trip(shape, tmp_path):
+    import cv2
+
+    x = np.random.RandomState(5).randint(0, 256, shape).astype(np.uint8)
+    np.testing.assert_array_equal(decode_bmp(bmp_bytes(x)), x)
+    path = str(tmp_path / "x.bmp")
+    write_bmp(path, x)
+    np.testing.assert_array_equal(cv2.imread(path)[:, :, ::-1], x)
+    np.testing.assert_array_equal(read_bmp(path), x)
+    assert decode_bmp(b"not a bmp") is None
+
+
+def test_bmp_album_organizer_equals_the_decoding_organizer(tmp_path):
+    """``BmpAlbumOrganizer`` (photos through ``read_bmp``, a clip's frames
+    served from memory) gives the result ``AlbumOrganizer`` gives on the
+    same files decoded by cv2 and the same frames; ``write_outputs=False``
+    leaves the album as it was."""
+    from hse_facerec_torch.config import AlbumConfig
+    from hse_facerec_torch.pipelines.album import AlbumOrganizer
+    from hse_facerec_torch.pipelines.analyzer import FacialAnalyzer
+
+    from .test_torch_analyzer import _photo
+    from .test_torch_batch import CASES
+
+    for i, seed in enumerate((2, 5, 9)):
+        write_bmp(str(tmp_path / f"p{i}.bmp"), _photo(seed))
+    write_bmp(str(tmp_path / "z_blank.bmp"), np.zeros_like(_photo(2)))
+    (tmp_path / "clip.mp4").write_bytes(b"frames served from memory")
+    frames = [np.ascontiguousarray(_photo(2)[:, :, ::-1])] * 8
+    mtcnn_seed, _, det_kw, head_batch = CASES["fits"]
+    analyzer = FacialAnalyzer(random_mtcnn_params(np.random.RandomState(mtcnn_seed)),
+                              random_multihead_params(np.random.RandomState(100)),
+                              device="cpu", minsize=20, face_size=64,
+                              head_batch=head_batch, **det_kw)
+    cfg = AlbumConfig(minsize=20, min_days_difference=0)
+    album = sorted(os.listdir(tmp_path))
+    got = BmpAlbumOrganizer(analyzer, cfg, analyze_batch=4, clips={"clip.mp4": frames}
+                            ).process_album(str(tmp_path), use_cache=False,
+                                            write_outputs=False)
+    assert sorted(os.listdir(tmp_path)) == album
+    decoding = AlbumOrganizer(analyzer, cfg, analyze_batch=4)
+    decoding._open_video = lambda path: FrameCapture(frames)
+    want = decoding.process_album(str(tmp_path), use_cache=False, write_outputs=False)
+    for key in ("n_photos", "n_videos", "n_faces", "clusters", "cluster_genders",
+                "cluster_born_years", "cluster_labels"):
+        assert got[key] == want[key], key
+    assert (got["n_photos"], got["n_videos"]) == (4, 1) and got["n_faces"] > 0

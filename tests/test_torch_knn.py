@@ -173,6 +173,21 @@ def test_f32_bf16_twin_rounds_operands_only(d):
     np.testing.assert_allclose(gd.numpy(), np.asarray(wd), rtol=1e-4, atol=1e-3)
 
 
+def test_k2a_bf16_route_matches_jax():
+    rng = np.random.RandomState(4)
+    p = rng.randn(64, 32).astype(np.float32)
+    g = rng.randn(1000, 32).astype(np.float32)
+    _, want = jk.nearest_neighbor_tpu(jnp.asarray(p), jnp.asarray(g), bf16=True,
+                                      interpret=True)
+    _, got = tk.nearest_neighbor_f32(torch.from_numpy(p), torch.from_numpy(g), bf16=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # the chunked twin on bf16 operands ranks as the bf16 kernel does (JAX's
+    # chunked XLA form keeps f32 operands off the TPU, so it is no oracle here)
+    _, got_c = tk.nearest_neighbor_chunked(torch.from_numpy(p), torch.from_numpy(g),
+                                           16, bf16=True)
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(want))
+
+
 def test_chunked_matches_xla_chunked():
     rng = np.random.RandomState(9)
     p = rng.randn(700, 64).astype(np.float32)

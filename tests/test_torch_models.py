@@ -7,6 +7,14 @@ fp32 sums in another order on O(1) activations and probabilities. R-Net's
 24² and O-Net's 48² inputs run the SAME max-pools that pad with -inf and the
 NHWC flatten before the FC layers. The importers are held against the JAX
 importers on a synthetic frozen graph with the shipped graphs' tensor names.
+
+The multi-head forward on preprocessed inputs: float32 within 1e-4 of each
+output's largest magnitude; the bf16 tier (``compute_dtype``) against JAX's
+bf16 forward, identity cosine at least 0.999 (both round every layer's
+activations to bf16, each after its own f32 sums; 0.99999 measured). The
+analytic MobileNet count (``bench._mobilenet_flops`` + ``_dense_flops``)
+within 2% of XLA's ``cost_analysis()["flops"]``, which also counts the
+bias, ReLU6 and softmax work (0.5-0.7% at these sizes).
 """
 
 import jax
@@ -18,6 +26,7 @@ import torch
 from hse_facerec_tf_tpu.core.graphdef_export import GraphBuilder
 from hse_facerec_tf_tpu.models import mtcnn as jm
 from hse_facerec_tf_tpu.models import multihead as jmh
+from hse_facerec_torch import bench
 from hse_facerec_torch import params as P
 from hse_facerec_torch.models import mtcnn as tm
 from hse_facerec_torch.models import multihead as tmh
@@ -25,6 +34,7 @@ from hse_facerec_torch.models.mobilenet import MOBILENET_V1_BLOCKS
 from hse_facerec_torch.testing import random_mtcnn_params, random_multihead_params
 
 HIGHEST = jax.lax.Precision.HIGHEST
+MEANS_BGR = np.asarray((103.939, 116.779, 123.68), np.float32)
 
 
 @pytest.fixture(scope="module")
@@ -35,6 +45,11 @@ def mtcnn_np():
 @pytest.fixture(scope="module")
 def multihead_np():
     return random_multihead_params(np.random.RandomState(4))
+
+
+@pytest.fixture(scope="module")
+def mh_params():
+    return random_multihead_params(np.random.RandomState(100))
 
 
 def _t(a):
@@ -95,6 +110,62 @@ def test_multihead(multihead_np, size):
     assert got.identity.shape == (3, 1024)
     for name in ("age_probs", "gender_prob", "identity", "feats"):
         _close(getattr(got, name), getattr(want, name))
+
+
+def _preprocessed(n: int, size: int, seed: int) -> np.ndarray:
+    """Seeded BGR mean-subtracted inputs, as the embed path makes them."""
+    rgb = np.random.RandomState(seed).rand(n, size, size, 3).astype(np.float32) * 255
+    return np.ascontiguousarray(rgb[..., ::-1]) - MEANS_BGR
+
+
+def _cosines(a, b) -> np.ndarray:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.sum(a * b, -1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+
+
+def test_multihead_apply_f32_matches_jax(mh_params):
+    x = _preprocessed(3, 64, 1)
+    want = jax.jit(lambda v: jmh.multihead_apply(mh_params, v, precision=HIGHEST))(x)
+    got = tmh.multihead_apply(P.to_torch(mh_params, "cpu"), torch.from_numpy(x))
+    for field in ("identity", "feats", "age_probs", "gender_prob"):
+        w = np.asarray(getattr(want, field))
+        g = getattr(got, field)
+        assert g.dtype == torch.float32, field
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=1e-4 * float(np.abs(w).max()), err_msg=field)
+
+
+def test_multihead_apply_bf16_matches_jax_bf16(mh_params):
+    """The bf16 tier: backbone in bf16, identity cast to float32 after the
+    pool, heads in float32, as JAX ``compute_dtype=jnp.bfloat16``."""
+    x = _preprocessed(4, 64, 2)
+    want = jax.jit(lambda v: jmh.multihead_apply(mh_params, v,
+                                                 compute_dtype=jnp.bfloat16))(x)
+    got = tmh.multihead_apply(P.to_torch(mh_params, "cpu"), torch.from_numpy(x),
+                              compute_dtype=torch.bfloat16)
+    assert got.identity.dtype == torch.float32 and got.feats.dtype == torch.float32
+    cos = _cosines(got.identity.numpy(), want.identity)
+    print(f"bf16 identity cosine, port vs JAX: min {cos.min():.7f}")
+    assert cos.min() >= 0.999
+    # the tier is not the float32 forward: bf16 moved the identity
+    f32 = tmh.multihead_apply(P.to_torch(mh_params, "cpu"), torch.from_numpy(x)).identity
+    assert not torch.equal(f32, got.identity)
+
+
+# 224² (the multi-head's input), 192² (vgg2_mobilenet's), 112², and an odd
+# size on which SAME's ceiling division rounds up at every stride
+@pytest.mark.parametrize("hw", [(224, 224), (192, 192), (112, 112), (97, 131)],
+                         ids=lambda hw: f"{hw[0]}x{hw[1]}")
+def test_analytic_flops_match_xla_cost_analysis(mh_params, hw):
+    x = jnp.zeros((1, *hw, 3), jnp.float32)
+    compiled = jax.jit(lambda v: jmh.multihead_apply(mh_params, v, precision=HIGHEST)
+                       ).lower(x).compile()
+    ca = compiled.cost_analysis()
+    ca = ca[0] if isinstance(ca, list) else ca
+    flops = bench._mobilenet_flops(mh_params["backbone"], hw) + bench._dense_flops(
+        mh_params, ("feats", "age", "gender"))
+    print(f"analytic {flops / 1e9:.4f} GFLOP an image, XLA {ca['flops'] / 1e9:.4f}")
+    assert abs(flops / ca["flops"] - 1.0) < 0.02
 
 
 def test_expected_age_top_k_ties():

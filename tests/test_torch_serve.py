@@ -731,6 +731,40 @@ def test_build_server_wiring(monkeypatch, tmp_path, capsys):
         srv.server_close()
 
 
+def test_build_server_serves_bmp_bodies_on_given_weights():
+    """``build_server`` as a machine without image codecs runs it: the
+    float32 ``agegender_identity`` extractor on the weights handed in,
+    prewarmed, BMP bodies decoded by ``testing.decode_bmp``. ``/embed``
+    answers the extractor's own embedding of the image, and ``/stats``
+    counts the request and not the prewarm's calls."""
+    import hse_facerec_torch.serve as serve_mod
+    from hse_facerec_torch.models import zoo
+    from hse_facerec_torch.testing import bmp_bytes, decode_bmp, random_multihead_params
+
+    params = random_multihead_params(np.random.RandomState(100))
+    img = np.random.RandomState(0).randint(0, 255, (32, 32, 3), np.uint8)
+    srv = serve_mod.build_server(port=0, host="127.0.0.1", model="agegender_identity",
+                                 max_batch=8, with_analyzer=False, prewarm=True,
+                                 device="cpu", params=params, decode=decode_bmp)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        port = srv.server_address[1]
+        status, body = _call(port, "POST", "/embed", bmp_bytes(img))
+        assert status == 200
+        assert _call(port, "POST", "/embed", _png(img))[0] == 400
+        status, stats = _call(port, "GET", "/stats")
+        assert status == 200
+        for key in ("embed_worker.queue_wait", "embed_worker.assemble",
+                    "embed_worker.process"):
+            assert stats[key]["count"] == 1, key
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    want = zoo.build_extractor("agegender_identity", device="cpu",
+                               params=params).extract_batch(img[None])[0]
+    np.testing.assert_allclose(body["embedding"], want, rtol=0, atol=1e-6)
+
+
 def test_build_server_defaults_to_cuda():
     import hse_facerec_torch.serve as serve_mod
 
