@@ -25,9 +25,13 @@ kernels are built for sm_90a). It:
    one device kernel; then, in another child, K6 (fused BN/PReLU/residual)
    at every pass and activation shape of IResNet-100's trunk at batch 256,
    one launch a call, bit-equal to torch's own passes, timed beside its
-   bytes bound and those passes, and summed over one 256-face chunk;
+   bytes bound and those passes, and summed over one 256-face chunk; then,
+   in a third child, K7 (bias + ReLU6, the next conv's zero edge) at the
+   27 folded layers of MobileNet-V1 at 224² and batch 256, the same way,
+   beside torch's add, clamp and ``F.pad``;
 4. drives the analyze path: ``FacialAnalyzer.analyze_with_rotations``
-   (K1), timed, then checked against the same analyzer on the CPU; then
+   (K1, and K7's 27 launches in each head forward), timed, then checked
+   against the same analyzer on the CPU; then
    the batch path at batch 8 (``analyze_batch``: one K1 launch per crop
    site for the whole batch, the head crops with a lane index), timed
    beside 8 single-image analyses and ``detect_batch``, checked against
@@ -42,11 +46,12 @@ kernels are built for sm_90a). It:
    one profiled flush, and clustering at 4096 x 1024-d faces (the distance
    matrix on the card, HAC and native rank-order on the host); then
    ``analyze_with_rotations`` again with ``Int8MultiheadHeads`` (analyze
-   --int8-heads: K1 + K4),
+   --int8-heads: K1 + K4, no K7),
    whose boxes must equal the f32 analyzer's, and whose int8 activations
    on the CPU's own crops must match the CPU's stage by stage; then the
    int8 embedder at
-   224², batch 1024, beside the f32 one, with a profile of one int8
+   224², batch 1024, beside the f32 one (27 K7 launches a forward, the
+   int8 one none), with a profile of one int8
    forward, and K4 against its plain version again at the batch-1024
    layer shapes;
 5. holds K2a/K2b/K2c (1-NN) against their plain twins on ragged shapes
@@ -60,9 +65,10 @@ kernels are built for sm_90a). It:
    sweep must hold HMMA (its 16-probe tile) and HGMMA (its 128-probe
    tile);
 6. drives the identify paths at full width:
-   - identify: the ``agegender_identity`` extractor, then the
-     ``agegender_identity_int8`` one (K4), embeds a seeded gallery/probe
-     tree through ``extract_files``, then ``KNNIdentifier(quantized=True)``
+   - identify: the ``agegender_identity`` extractor (27 K7 launches a
+     forward on its resized crops), then the ``agegender_identity_int8``
+     one (K4, no K7), embeds a seeded gallery/probe tree through
+     ``extract_files``, then ``KNNIdentifier(quantized=True)``
      (K2b) and an int8 ``EnrollmentGallery`` (K2c) rank the probes;
      answers equal the same objects on the CPU;
    - identify at scale: 2048 probes against 1,048,576 enrolled 1024-d
@@ -181,6 +187,7 @@ call's time where one PyTorch call computes a like function) and
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import importlib.util
 import json
@@ -360,6 +367,13 @@ BN_ACT_CHUNK = {
     ("tail_sc", (256, 14, 14)): 1, ("tail_sc", (512, 7, 7)): 1,
     ("tail", (64, 56, 56)): 2, ("tail", (128, 28, 28)): 12,
     ("tail", (256, 14, 14)): 29, ("tail", (512, 7, 7)): 2}
+# K7 (bias + ReLU6) at the conv output of each of MobileNet-V1's 27 folded
+# layers at 224², at the multihead-enroll cell's batch, once each a chunk;
+# the layers before a stride-2 depthwise conv write its zero edge
+BIAS_RELU6_BATCH, BIAS_RELU6_SIZE = 256, 224
+# K7 launches of one folded float32 MobileNet-V1 forward on the card, one a
+# layer, which the main paths that run it are held to
+K7_PER_FORWARD = 27
 # the ViT-L embedder as the vit-enroll cell runs it: batch 256, 1,024 crops
 # a call; W_q and W_k scaled up from the source's 0.02 init, which leaves
 # the attention near uniform, so that the card's rows against the CPU's
@@ -1398,20 +1412,59 @@ def cosine(a, b) -> np.ndarray:
     return np.sum(a * b, -1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
 
 
-def timed_analyze(analyzer, images):
+@contextlib.contextmanager
+def forwards_counted(obj, name: str):
+    """Inside the block, ``obj.<name>(params, x, ...)`` counts its calls on
+    a non-empty batch ``x``. Yields the count, a one-element list that the
+    caller zeroes where it resets the launch counters."""
+    fn, own, count = getattr(obj, name), vars(obj).get(name), [0]
+
+    def counted(params, x, *args, **kwargs):
+        count[0] += int(x.shape[0] > 0)
+        return fn(params, x, *args, **kwargs)
+
+    setattr(obj, name, counted)
+    try:
+        yield count
+    finally:
+        if own is None:
+            delattr(obj, name)
+        else:
+            setattr(obj, name, own)
+
+
+def check_k7_launches(what: str, launches, forwards: int, per_forward: int):
+    """A main path's K7 launches, counted from 0 around it, are
+    ``per_forward`` for each of its ``forwards`` (``K7_PER_FORWARD`` where
+    they are folded float32 MobileNet-V1 forwards on the card, 0 where
+    they are not)."""
+    if launches["bias_relu6"] != per_forward * forwards:
+        raise AssertionError(f"{what}: {launches['bias_relu6']} K7 launches over "
+                             f"{forwards} forwards, not {per_forward} a forward")
+
+
+def timed_analyze(analyzer, images, k7_per_forward=None):
     """Median host ms/image of ``ANALYZE_REPEATS`` synced passes over the
     images (after one warm-up image), the last pass's outputs and the
-    kernel launches of the timed passes."""
+    kernel launches of the timed passes. With ``k7_per_forward`` the K7
+    launches are held to that many for each head forward of the timed
+    passes."""
     analyzer.analyze_with_rotations(images[0])      # warm-up: cuDNN, allocator
     torch.cuda.synchronize()
-    reset_launches()
-    repeats = []
-    for _ in range(ANALYZE_REPEATS):
-        t0 = time.perf_counter()
-        outputs = [analyzer.analyze_with_rotations(img) for img in images]
-        torch.cuda.synchronize()
-        repeats.append((time.perf_counter() - t0) * 1e3 / len(images))
-    launches = kernel_launches()
+    counting = (forwards_counted(analyzer.heads, "forward") if k7_per_forward is not None
+                else contextlib.nullcontext([0]))
+    with counting as forwards:
+        reset_launches()
+        forwards[0] = 0
+        repeats = []
+        for _ in range(ANALYZE_REPEATS):
+            t0 = time.perf_counter()
+            outputs = [analyzer.analyze_with_rotations(img) for img in images]
+            torch.cuda.synchronize()
+            repeats.append((time.perf_counter() - t0) * 1e3 / len(images))
+        launches = kernel_launches()
+    if k7_per_forward is not None:
+        check_k7_launches("analyze_with_rotations", launches, forwards[0], k7_per_forward)
     for i, (faces, rot) in enumerate(outputs):
         print(f"image {i}: {len(faces)} faces, rotation {rot}: " + json.dumps(
             [{"bbox": list(f.bbox), "age": round(f.age, 2),
@@ -1431,7 +1484,7 @@ def int8_analyze_path(mtcnn_params, mh_params, images, f32_outputs):
     same analyzer's on the CPU."""
     gpu = FacialAnalyzer(mtcnn_params, device="cuda",
                          heads=Int8MultiheadHeads(mh_params, "cuda"))
-    median, repeats, outputs, launches = timed_analyze(gpu, images)
+    median, repeats, outputs, launches = timed_analyze(gpu, images, k7_per_forward=0)
     print(f"analyze_with_rotations --int8-heads: median {median:.3f} ms/image "
           f"over {ANALYZE_REPEATS} repeats of {len(images)} images (each "
           f"{[round(r, 3) for r in repeats]}); launches {json.dumps(launches)}")
@@ -1558,7 +1611,11 @@ def int8_embed_throughput(mh_params):
         reset_launches()
         ms = {"int8": cuda_ms(fns["int8"], EMBED_REPEATS, warmup=0)}
         launches = kernel_launches()
+        check_k7_launches("int8 embed", launches, EMBED_REPEATS, 0)
+        reset_launches()
         ms["f32"] = cuda_ms(fns["f32"], EMBED_REPEATS, warmup=0)
+        check_k7_launches(f"f32 embed at batch {EMBED_BATCH}", kernel_launches(),
+                          EMBED_REPEATS, K7_PER_FORWARD)
         split = profile_split(fns["int8"])
     cos = cosine(ident["int8"].cpu().numpy(), ident["f32"].cpu().numpy())
     ips = {k: EMBED_BATCH / (v / 1e3) for k, v in ms.items()}
@@ -1593,12 +1650,13 @@ def people_tree(rng, root: str):
     return paths, {k: np.asarray(v) for k, v in labels.items()}
 
 
-def identify_path(rng, model: str, params, tmp: str, cpu_probes=None):
+def identify_path(rng, model: str, params, tmp: str, cpu_probes=None, k7_per_forward=None):
     """``identify --model <model>`` at full width (the entry's input size
     and width) on the card, then the same ranking objects on the CPU with
     the card's features, and the CPU's extractor on the first
     ``cpu_probes`` probes (all by default). ``params`` are the zoo entry's
-    (quantized for ``*_int8``)."""
+    (quantized for ``*_int8``). With ``k7_per_forward`` the K7 launches
+    of the extraction are held to that many a forward of the extractor."""
     spec = zoo.MODEL_ZOO[model]
     tmp = os.path.join(tmp, model)
     paths, labels = people_tree(rng, tmp)
@@ -1607,7 +1665,13 @@ def identify_path(rng, model: str, params, tmp: str, cpu_probes=None):
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    feats = {s: gpu_ex.extract_files(paths[s], loader=np.load) for s in paths}
+    counting = (forwards_counted(gpu_ex, "model_fn") if k7_per_forward is not None
+                else contextlib.nullcontext([0]))
+    with counting as forwards:
+        feats = {s: gpu_ex.extract_files(paths[s], loader=np.load) for s in paths}
+    if k7_per_forward is not None:
+        check_k7_launches(f"identify --model {model}", kernel_launches(), forwards[0],
+                          k7_per_forward)
     preds, idents, accs = {}, {}, {}
     for dev in ("cuda", "cpu"):
         knn_q = KNNIdentifier(quantized=True, device=dev).fit(
@@ -3209,6 +3273,79 @@ def check_bn_act_kernel():
                      f"channels-last f32", "passes": rows}
 
 
+def bias_relu6_layers(size: int):
+    """(layer, conv output (C, H, W), pads the next conv's edge) of the 27
+    folded layers of MobileNet-V1 at ``size``²."""
+    h = -(-size // 2)
+    rows, c = [("conv1", (32, h, h), False)], 32
+    for i, (stride, cout) in enumerate(MOBILENET_V1_BLOCKS, start=1):
+        h = -(-h // stride)
+        rows.append((f"dw{i}", (c, h, h), False))
+        nxt = MOBILENET_V1_BLOCKS[i][0] if i < len(MOBILENET_V1_BLOCKS) else 1
+        rows.append((f"pw{i}", (cout, h, h), nxt == 2 and h % 2 == 0))
+        c = cout
+    return rows
+
+
+def check_bias_relu6_kernel():
+    """K7 at the conv output of each of MobileNet-V1's 27 folded layers at
+    ``BIAS_RELU6_SIZE``² and batch ``BIAS_RELU6_BATCH`` (channels-last, as
+    cuDNN hands it over), with the next conv's zero edge where the layer
+    writes it: one launch a call, the output bit-equal to
+    ``bias_relu6_plain`` (torch's add, clamp and ``F.pad``, the eager
+    layer's passes), with the same strides. Each is timed a call with CUDA
+    events and by its kernel's device time under ``torch.profiler``,
+    beside its bound (the conv output read, the activation written, at
+    3.35 TB/s) and the plain passes' device time. Returns the sums over
+    one chunk (each layer once) and each layer's numbers."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 143)
+    rows = {}
+    chunk = dict.fromkeys(("ms", "device_ms", "plain_ms", "bound_ms"), 0.0)
+    for name, chw, edge in bias_relu6_layers(BIAS_RELU6_SIZE):
+        shape = (BIAS_RELU6_BATCH,) + chw
+        y = (torch.randn(shape, generator=gen, device="cuda") * 3.0).contiguous(
+            memory_format=torch.channels_last)
+        b = torch.randn(chw[0], generator=gen, device="cuda")
+        reset_launches()
+        got = bn_act.bias_relu6(y, b, pad_next=edge)
+        launches = kernel_launches()
+        want = bn_act.bias_relu6_plain(y, b, pad_next=edge)
+        torch.cuda.synchronize()
+        if launches["bias_relu6"] != 1 or sum(launches.values()) != 1:
+            raise AssertionError(f"bias_relu6 {name} {shape}: launches {launches}, not one K7")
+        if not (torch.equal(got, want) and got.stride() == want.stride()):
+            raise AssertionError(f"bias_relu6 {name} {shape}: not the eager passes' bits")
+        ms = cuda_ms(lambda: bn_act.bias_relu6(y, b, pad_next=edge), 20)
+        dev_ms, kernels = device_ms_per_call(lambda: bn_act.bias_relu6(y, b, pad_next=edge), 10,
+                                             "k7_bias_relu6")
+        plain_ms, plain_kernels = device_ms_per_call(
+            lambda: bn_act.bias_relu6_plain(y, b, pad_next=edge), 10)
+        if kernels != 1:
+            raise AssertionError(f"bias_relu6 {name} {shape}: {kernels} K7 kernels a call")
+        moved = nbytes(y, got)
+        b_ms, _ = bound(moved, 0.0, "f32")
+        key = f"{name} {'x'.join(map(str, shape))}{' pad_next' if edge else ''}"
+        rows[key] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "plain_kernels": plain_kernels, "bound_ms": b_ms,
+                     "share_of_bound": b_ms / dev_ms, "tb_per_s": moved / dev_ms / 1e9}
+        print(f"bias_relu6 {key}: a call {ms:.4f} ms, device_ms={dev_ms:.4f} bound_ms="
+              f"{b_ms:.4f} {b_ms / dev_ms:.3f} of the bound ({moved / dev_ms / 1e9:.2f} "
+              f"TB/s); eager passes device {plain_ms:.4f} ms in {plain_kernels:.0f} kernels")
+        for k, value in (("ms", ms), ("device_ms", dev_ms), ("plain_ms", plain_ms),
+                         ("bound_ms", b_ms)):
+            chunk[k] += value
+        del y, b, got, want
+    torch.cuda.empty_cache()
+    share = chunk["bound_ms"] / chunk["device_ms"]
+    print(f"bias_relu6 per {BIAS_RELU6_BATCH}-face chunk at {BIAS_RELU6_SIZE}²: {len(rows)} "
+          f"launches, device {chunk['device_ms']:.3f} ms (calls {chunk['ms']:.3f}), eager "
+          f"passes device {chunk['plain_ms']:.3f}, bound {chunk['bound_ms']:.3f} ({share:.3f})")
+    return {**chunk, "launches_per_chunk": len(rows), "bound_by": "bytes",
+            "share_of_bound": share, "equal": True,
+            "shape": f"MobileNet-V1's 27 folded layers of one {BIAS_RELU6_BATCH}-face chunk "
+                     f"at {BIAS_RELU6_SIZE}², channels-last f32", "passes": rows}
+
+
 def vit_path(rng):
     """The ViT-L embedder on the ``vit-enroll`` cell's path at full width:
     ``zoo.build_extractor("insightface_vit_l")`` (768 wide, 24 blocks, 8
@@ -4408,13 +4545,14 @@ def main() -> None:
     warp_result = check_warp_kernel()
     attn_result = apart("cs.check_attention_kernel()", "K5 checks")
     bn_act_result = apart("cs.check_bn_act_kernel()", "K6 checks")
-    phase_done("K1, K4, K3, K5 and K6 checks")
+    bias_relu6_result = apart("cs.check_bias_relu6_kernel()", "K7 checks")
+    phase_done("K1, K4, K3, K5, K6 and K7 checks")
 
     # --- main paths: counts set to 0 just before each, read just after ---
     mtcnn_params, mh_params = load_params()
     gpu = FacialAnalyzer(mtcnn_params, mh_params, device="cuda")
     images = load_images(rng)
-    median, repeats, outputs, analyze_launches = timed_analyze(gpu, images)
+    median, repeats, outputs, analyze_launches = timed_analyze(gpu, images, K7_PER_FORWARD)
     path_launches = [analyze_launches]
     print(f"analyze_with_rotations: median {median:.3f} "
           f"ms/image over {ANALYZE_REPEATS} repeats of {len(images)} images "
@@ -4461,9 +4599,12 @@ def main() -> None:
     phase_done("K2 checks")
 
     with tempfile.TemporaryDirectory() as tmp:
-        path_launches.append(identify_path(rng, "agegender_identity", mh_params, tmp))
+        # the 112² photos pass the extractor's resize before the backbone
+        path_launches.append(identify_path(rng, "agegender_identity", mh_params, tmp,
+                                           k7_per_forward=K7_PER_FORWARD))
         path_launches.append(identify_path(rng, "agegender_identity_int8",
-                                           quantize_multihead_int8(mh_params), tmp))
+                                           quantize_multihead_int8(mh_params), tmp,
+                                           k7_per_forward=0))
         phase_done("identify f32 and int8")
         path_launches.append(identify_at_scale())
         torch.cuda.empty_cache()
@@ -4596,6 +4737,11 @@ def main() -> None:
         "source": "hse_facerec_torch/csrc/bn_act.cu", "replaces": None,
         "launches": launches["bn_act"], "mesh_launches": mesh_total["bn_act"],
         **bn_act_result})
+    kernels.append({
+        "name": "bias_relu6", "route": "cuda",
+        "source": "hse_facerec_torch/csrc/bn_act.cu", "replaces": None,
+        "launches": launches["bias_relu6"], "mesh_launches": mesh_total["bias_relu6"],
+        **bias_relu6_result})
     print(f"int8 serving: analyze --int8-heads median {int8_median:.3f} ms/image "
           f"(f32 heads {median:.3f}); embed batch {EMBED_BATCH} "
           + json.dumps({k: round(v, 1) for k, v in embed["ips"].items()}) + " img/s")

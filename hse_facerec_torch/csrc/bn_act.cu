@@ -35,6 +35,34 @@
 // - The outputs take the layout of x, so the convolutions that read them
 //   see the strides they saw before.
 
+// Bias and ReLU6 after a folded conv of MobileNet-V1 (kernel K7).
+//
+// Replaces no TPU kernel either: XLA fuses the bias add and the clip into
+// the JAX package's convolutions. It was added for MobileNet-V1's folded
+// layers on a card (models/mobilenet.py): eager PyTorch hands cuDNN's conv
+// no bias and adds it in a broadcast pass, clamps in a second pass, and
+// gives each stride-2 depthwise conv on an even size its TF SAME edge with
+// an F.pad, a fill and a strided copy.
+//
+// What one launch computes, per element of y (N, C, H, W) f32 channels-last
+// in channel c:
+//   s   = y + bias[c]                                 (__fadd_rn)
+//   out = isnan(s) ? s : fminf(fmaxf(s, 0), 6)        (torch.clamp's order)
+// With pad_next, out is (N, C, H+1, W+1) channels-last with a last row and
+// column of zeros: F.pad(out, (0, 1, 0, 1)), the zero edge of a 3x3 stride-2
+// conv on an even size, so that conv pads nothing. The values are the eager
+// passes' bits, NaN and -0.0 included.
+//
+// What bounds it: bytes, one read of y and one write of out at 3.35 TB/s,
+// against two flops an element.
+//
+// Design: K6's channels-last loop. A thread keeps four channels (the grid's
+// thread count is a multiple of C/4) with their biases in registers and
+// moves two float4s a step. With pad_next the grid runs over the output's
+// float4s: a thread's pixel p advances by a fixed step and splits into
+// (n, h, w) over (H+1, W+1) in 32-bit arithmetic; an edge pixel stores
+// zeros, any other reads y at (n, h, w).
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -198,22 +226,94 @@ long long gcd(long long a, long long b) {
   return a;
 }
 
-template <int M>
-int launch(const Args& p, bool vec, cudaStream_t stream) {
-  const long long work = vec ? p.n / 4 : p.n;
+// Blocks of kThreads for `work` items, at most kBlocksPerSm a SM; with
+// cv > 0 rounded up so that the grid's threads are a multiple of cv, so
+// that each thread of a channels-last loop keeps its channels.
+unsigned grid_blocks(long long work, long long cv) {
   long long blocks = (work + kThreads - 1) / kThreads;
   const long long most = static_cast<long long>(sm_count()) * kBlocksPerSm;
   if (blocks > most) blocks = most;
-  if (vec) {
-    // the grid's threads a multiple of C / 4: each thread keeps its channels
-    const long long cv = p.C / 4;
+  if (cv > 0) {
     const long long unit = cv / gcd(kThreads, cv);
     blocks = (blocks + unit - 1) / unit * unit;
-    k6_bn_act_kernel<M><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(p);
-  } else {
-    k6_bn_act_scalar_kernel<M><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(p);
   }
+  return static_cast<unsigned>(blocks);
+}
+
+template <int M>
+int launch(const Args& p, bool vec, cudaStream_t stream) {
+  if (vec)
+    k6_bn_act_kernel<M><<<grid_blocks(p.n / 4, p.C / 4), kThreads, 0, stream>>>(p);
+  else
+    k6_bn_act_scalar_kernel<M><<<grid_blocks(p.n, 0), kThreads, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---- K7 ----
+
+struct K7Args {
+  const float* y;
+  const float* bias;
+  float* out;
+  long long nv;  // float4s of out
+  int cv;        // C / 4
+  unsigned H, W; // y's height and width
+};
+
+__device__ __forceinline__ float bias_relu6(float y, float b) {
+  const float s = __fadd_rn(y, b);
+  return isnan(s) ? s : fminf(fmaxf(s, 0.f), 6.f);
+}
+
+__device__ __forceinline__ float4 bias_relu6(float4 y, const float (&b)[4]) {
+  return make_float4(bias_relu6(y.x, b[0]), bias_relu6(y.y, b[1]), bias_relu6(y.z, b[2]),
+                     bias_relu6(y.w, b[3]));
+}
+
+// Pad: out is y's shape plus one row and one column, both zero.
+template <bool Pad>
+__global__ void __launch_bounds__(kThreads) k7_bias_relu6_kernel(K7Args p) {
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  long long v = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (v >= p.nv) return;
+  const int c4 = static_cast<int>(v % p.cv);
+  float b[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) b[k] = __ldg(p.bias + 4 * c4 + k);
+  const float4* __restrict__ y4 = reinterpret_cast<const float4*>(p.y);
+  float4* __restrict__ o4 = reinterpret_cast<float4*>(p.out);
+  if constexpr (!Pad) {
+    for (; v + stride < p.nv; v += 2 * stride) {
+      const float4 ya = __ldg(y4 + v), yb = __ldg(y4 + v + stride);
+      o4[v] = bias_relu6(ya, b);
+      o4[v + stride] = bias_relu6(yb, b);
+    }
+    if (v < p.nv) o4[v] = bias_relu6(__ldg(y4 + v), b);
+  } else {
+    const unsigned hp = p.H + 1, wp = p.W + 1;
+    const unsigned npix = static_cast<unsigned>(p.nv / p.cv);
+    const unsigned step = static_cast<unsigned>(stride / p.cv);
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    // y's float4 at output pixel q, or -1 on the zero edge
+    auto source = [&](unsigned q) -> long long {
+      const unsigned w = q % wp, t = q / wp;
+      const unsigned h = t % hp, n = t / hp;
+      if (h == p.H || w == p.W) return -1;
+      return ((static_cast<long long>(n) * p.H + h) * p.W + w) * p.cv + c4;
+    };
+    unsigned q = static_cast<unsigned>(v / p.cv);
+    for (; q + step < npix; q += 2 * step) {
+      const long long sa = source(q), sb = source(q + step);
+      const float4 ya = sa < 0 ? zero : __ldg(y4 + sa);
+      const float4 yb = sb < 0 ? zero : __ldg(y4 + sb);
+      o4[static_cast<long long>(q) * p.cv + c4] = sa < 0 ? zero : bias_relu6(ya, b);
+      o4[static_cast<long long>(q + step) * p.cv + c4] = sb < 0 ? zero : bias_relu6(yb, b);
+    }
+    if (q < npix) {
+      const long long sa = source(q);
+      o4[static_cast<long long>(q) * p.cv + c4] = sa < 0 ? zero : bias_relu6(__ldg(y4 + sa), b);
+    }
+  }
 }
 
 bool aligned16(const void* ptr) {
@@ -265,6 +365,32 @@ int k6_bn_act(const float* x, const float* x_mean, const float* x_scale,
     case kResid | kResidBn | kOut2: return launch<kResid | kResidBn | kOut2>(p, vec, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// y (N, C, H, W) f32 channels-last on the current device, bias (C,) f32,
+// C a multiple of 4. out is (N, C, H, W) channels-last, or with pad_next
+// (N, C, H+1, W+1) channels-last, its last row and column written as zeros;
+// out does not overlap y. y and out 16-byte aligned, and with
+// pad_next fewer than 2^31 output pixels; anything else is
+// cudaErrorInvalidValue. Launches one kernel on `stream` and returns
+// cudaGetLastError().
+int k7_bias_relu6(const float* y, const float* bias, float* out, int N, int C, int H,
+                  int W, int pad_next, void* stream) {
+  if (y == nullptr || bias == nullptr || out == nullptr || N < 1 || C < 4 || C % 4 != 0 ||
+      H < 1 || W < 1 || !aligned16(y) || !aligned16(out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int edge = pad_next ? 1 : 0;
+  const long long pixels = static_cast<long long>(N) * (H + edge) * (W + edge);
+  if (edge && pixels >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  const K7Args p{y, bias, out, pixels * (C / 4), C / 4, static_cast<unsigned>(H),
+                 static_cast<unsigned>(W)};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned blocks = grid_blocks(p.nv, p.cv);
+  if (edge)
+    k7_bias_relu6_kernel<true><<<blocks, kThreads, 0, st>>>(p);
+  else
+    k7_bias_relu6_kernel<false><<<blocks, kThreads, 0, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

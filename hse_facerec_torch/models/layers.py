@@ -36,6 +36,15 @@ def _pad_same(x, kh: int, kw: int, stride: int, value: float = 0.0):
     return x
 
 
+def bottom_right_edge(shape, weight_shape, stride: int) -> bool:
+    """True where ``conv2d``'s SAME padding of an input of ``shape`` (N, C,
+    H, W) is one zero row at the bottom and one zero column at the right,
+    nothing else: the ``F.pad(x, (0, 1, 0, 1))`` of a 3x3 stride-2 conv on
+    an even size."""
+    return all(_same_pads(n, k, stride) == (0, 1)
+               for n, k in zip(shape[2:], weight_shape[2:]))
+
+
 def conv2d(x, weight, bias=None, *, stride: int = 1, padding: str = "SAME",
            precision=None, groups: int = 1):
     """NCHW conv with an OIHW weight, TF-compatible SAME padding. Symmetric

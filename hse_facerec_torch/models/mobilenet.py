@@ -5,7 +5,9 @@ PyTorch layout (``params.to_torch``), one dict per layer, in either form:
   - folded:  {"kernel", "bias"}  (imported from frozen pbs; inference)
   - bn:      {"kernel", "bn": {gamma, beta, mean, var}}  (training)
 Input and output keep the reference's NHWC layout; the permuted view is
-already channels-last in memory, which is the layout cuDNN prefers.
+channels-last in memory, which is the layout cuDNN prefers. On a card any
+other input (a resize's output) is copied to it once, at the backbone's
+entry.
 
 In training mode (``train=True``) a BN layer normalizes with the batch
 moments, mean and biased variance over N, H and W, written out as the
@@ -16,6 +18,14 @@ reference writes them (``layers.batch_norm``), not through
 Each forward takes the reference's ``precision`` tier (``numerics``) and
 ``compute_dtype``; the backbone also takes ``bf16_blocks_below``, the
 reference's mixed-precision serving dial.
+
+A folded float32 layer on a card ends in one K7 launch
+(``ops/kernels/bn_act.py::bias_relu6``): its conv runs without the bias,
+and K7 adds the bias and clips in one pass, writing the zero edge of the
+next conv where that conv is a stride-2 depthwise conv on an even size (4
+of a forward's 27 layers at 224² and 192²), so that conv pads nothing. The
+bits are the eager layer's. Every other layer (the BN form, bf16, the CPU)
+runs the eager passes.
 """
 
 from __future__ import annotations
@@ -28,9 +38,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..numerics import precision_scope
+from ..ops.kernels.bn_act import bias_relu6
 from ..params import cast_tree
-from .layers import (batch_norm, conv2d, dense, depthwise_conv2d, relu6,
-                     relu6_train)
+from .layers import (batch_norm, bottom_right_edge, conv2d, dense, depthwise_conv2d,
+                     relu6, relu6_train)
 
 # (stride, out_channels) for the 13 depthwise-separable blocks, alpha=1.0.
 MOBILENET_V1_BLOCKS: List[Tuple[int, int]] = [
@@ -53,6 +64,28 @@ def _conv_bn_relu6(x, p, conv, stride: int, train: bool):
     var, mean = torch.var_mean(y, dim=(0, 2, 3), correction=0)
     return (relu6_train(batch_norm(y, bn["gamma"], bn["beta"], mean, var, eps=BN_EPS)),
             (mean.detach(), var.detach()))
+
+
+def _on_card(x) -> bool:
+    return x.device.type == "cuda"
+
+
+def _on_k7(p: Dict, dt, x) -> bool:
+    """A layer runs on K7 when its params are folded and it computes in
+    float32 on a card (``x`` is the backbone's input)."""
+    return "bn" not in p and dt == torch.float32 and _on_card(x)
+
+
+def _conv_bias_relu6_k7(x, p, conv, stride: int, padded: bool, nxt=None):
+    """A folded layer on K7: the conv without its bias, then the bias and
+    ReLU6 in one pass. ``padded``: ``x`` carries this conv's zero edge
+    already, so the conv pads nothing. ``nxt``: the next conv's (weight,
+    stride) where that conv runs on K7 too; K7 writes its zero edge where
+    its SAME padding is one row and one column at the bottom right.
+    Returns the activation and whether it carries that edge."""
+    y = conv(x, p["kernel"], stride=stride, padding="VALID" if padded else "SAME")
+    edge = nxt is not None and bottom_right_edge(y.shape, nxt[0].shape, nxt[1])
+    return bias_relu6(y, p["bias"], pad_next=edge), edge
 
 
 def mobilenet_v1_backbone(params: Dict, x, *, precision="highest",
@@ -81,13 +114,35 @@ def mobilenet_v1_backbone(params: Dict, x, *, precision="highest",
 def _backbone(params: Dict, x, dtype, train: bool, stats_out: Optional[Dict],
               remat: bool):
     x = x.permute(0, 3, 1, 2).to(dtype(0))
+    if _on_card(x):
+        # channels-last memory (a no-op for NHWC input), so every conv's
+        # output is too, as K7 takes it: on NCHW memory torch's f32
+        # depthwise conv is not cuDNN's and sums its bias in with the
+        # products, which no epilogue after it reproduces
+        x = x.contiguous(memory_format=torch.channels_last)
+    n_blocks = len(MOBILENET_V1_BLOCKS)
+    # per block (conv1 = 0) whether its layers run on K7, and the conv that
+    # follows each block: the next block's depthwise conv and its stride
+    k7 = [_on_k7(params[f"dw{i}" if i else "conv1"], dtype(i), x)
+          for i in range(n_blocks + 1)]
+    nxt = [(params[f"dw{i + 1}"]["kernel"], MOBILENET_V1_BLOCKS[i][0])
+           if i < n_blocks and k7[i + 1] else None for i in range(n_blocks + 1)]
     stats: Dict[str, Tuple] = {}
-    x, s = _conv_bn_relu6(x, cast_tree(params["conv1"], dtype(0)), conv2d, 2, train)
-    stats["conv1"] = s
+    padded = False    # x carries the next conv's zero edge (K7 wrote it)
+    p1 = cast_tree(params["conv1"], dtype(0))
+    if k7[0]:
+        x, padded = _conv_bias_relu6_k7(x, p1, conv2d, 2, False, nxt[0])
+    else:
+        x, stats["conv1"] = _conv_bn_relu6(x, p1, conv2d, 2, train)
     for i, (stride, _) in enumerate(MOBILENET_V1_BLOCKS, start=1):
         dt = dtype(i)
         x = x.to(dt)
         pdw, ppw = cast_tree(params[f"dw{i}"], dt), cast_tree(params[f"pw{i}"], dt)
+        if k7[i]:
+            # x rebound at once: the block's input is freed before pw's pass
+            x, _ = _conv_bias_relu6_k7(x, pdw, depthwise_conv2d, stride, padded)
+            x, padded = _conv_bias_relu6_k7(x, ppw, conv2d, 1, False, nxt[i])
+            continue
 
         def block(x, pdw=pdw, ppw=ppw, stride=stride):
             y, s_dw = _conv_bn_relu6(x, pdw, depthwise_conv2d, stride, train)

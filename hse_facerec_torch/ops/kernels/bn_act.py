@@ -15,6 +15,16 @@ BN's arithmetic: ``arcface._bn`` is ``bn_plain``, and K6 takes
 autograd would record it: the eager passes stay the CPU's path. ``bn_act_plain`` computes the same function
 with torch's own passes, on any device. ``bn_act.launches`` counts kernel
 launches.
+
+K7, in the same source, came with MobileNet-V1's folded layers on a card
+(``models/mobilenet.py``) and has no TPU counterpart either: XLA fuses the
+bias and the clip into the convs. ``bias_relu6`` takes a folded conv's
+bias-free output through its bias and ReLU6 in one pass, and writes it, on
+request, into the next conv's zero edge: the buffer ``F.pad`` would make
+for a 3x3 stride-2 conv on an even size. ``bias_relu6_plain`` is torch's
+own add, clamp and ``F.pad``, the eager layer's bits; ``bias_relu6`` takes
+what ``bn_act`` takes and raises where it does, and counts its launches in
+``bias_relu6.launches``.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ import functools
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import build
 
@@ -84,9 +95,9 @@ def _layout(x) -> bool:
                      f"{x.stride()}")
 
 
-def _vec(v, x, what: str):
+def _vec(v, x, what: str, kernel: str = "bn_act"):
     if v.dtype != torch.float32 or v.shape != (x.shape[1],) or v.device != x.device:
-        raise ValueError(f"bn_act: {what} must be ({x.shape[1]},) float32 on {x.device}, "
+        raise ValueError(f"{kernel}: {what} must be ({x.shape[1]},) float32 on {x.device}, "
                          f"got {tuple(v.shape)} {v.dtype} on {v.device}")
     return v.contiguous()
 
@@ -150,3 +161,61 @@ def bn_act(x, bn: Dict, *, alpha=None, residual=None,
 
 
 bn_act.launches = 0
+
+
+def bias_relu6_plain(y, bias, *, pad_next: bool = False):
+    """K7's function in torch's own passes: ``clamp(y + bias, 0, 6)``, the
+    eager folded layer's bias add (cuDNN's conv adds none) and ReLU6, then,
+    with ``pad_next``, ``F.pad`` of one zero row at the bottom and one
+    zero column at the right."""
+    out = torch.clamp(y + bias.reshape(1, -1, 1, 1), 0.0, 6.0)
+    return F.pad(out, (0, 1, 0, 1)) if pad_next else out
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel7():
+    lib = build.load_library()
+    fn = lib.k7_bias_relu6
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def bias_relu6(y, bias, *, pad_next: bool = False):
+    """``bias_relu6_plain``'s function in one K7 launch. ``y`` (N, C, H, W)
+    float32 on a card, channels-last on a 16-byte boundary, C a multiple of
+    4; ``bias`` (C,) float32 on the same card. Returns a new channels-last
+    tensor: (N, C, H, W), or with ``pad_next`` (N, C, H+1, W+1) with its
+    last row and column zero, the strides ``F.pad`` gives. K7 has no
+    backward: it raises where autograd would record the call."""
+    if torch.is_grad_enabled() and (y.requires_grad or bias.requires_grad):
+        raise RuntimeError("bias_relu6 (K7) has no backward: call it, and MobileNet's folded "
+                           "forward on a card, under torch.no_grad() or with tensors that "
+                           "need no grad")
+    if y.dtype != torch.float32:
+        raise TypeError(f"bias_relu6 takes float32 tensors, got {y.dtype}")
+    if y.dim() != 4 or y.shape[1] % 4:
+        raise ValueError(f"bias_relu6 takes (N, C, H, W) tensors with C a multiple of 4, "
+                         f"got {tuple(y.shape)}")
+    if not y.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError(f"bias_relu6 takes channels-last tensors, got strides {y.stride()}")
+    if y.data_ptr() % 16:
+        raise ValueError("bias_relu6 takes tensors on a 16-byte boundary")
+    bias = _vec(bias, y, "bias", "bias_relu6")
+    if y.device.type != "cuda":
+        raise ValueError(f"bias_relu6 runs on CUDA tensors, not {y.device}")
+    n, c, h, w = y.shape
+    edge = int(bool(pad_next))
+    out = torch.empty((n, c, h + edge, w + edge), dtype=y.dtype, device=y.device,
+                      memory_format=torch.channels_last)
+    if y.numel():
+        lib, fn = _kernel7()
+        with torch.cuda.device(y.device):
+            stream = torch.cuda.current_stream(y.device).cuda_stream
+            code = fn(y.data_ptr(), bias.data_ptr(), out.data_ptr(), n, c, h, w, edge, stream)
+        build.check(lib, code, f"bias_relu6 launch at {tuple(y.shape)}")
+        build.count_launch(bias_relu6)
+    return out
+
+
+bias_relu6.launches = 0

@@ -99,3 +99,64 @@ def test_int8_bit_equal_check_names_a_faulty_kernel(monkeypatch, kname, pack):
     p, qb, sb, packed = _int8_case(16, 200, 64)
     with pytest.raises(AssertionError, match=f"{kname} cpu pack_idx={pack}: 1 indices"):
         chip_smoke.check_int8_bit_equal("cpu", p, qb, sb, packed)
+
+
+@pytest.mark.parametrize("size", [224, 192])
+def test_bias_relu6_layers_are_the_backbones(size):
+    """The smoke's K7 table: each folded layer's conv output (C, H, W) as
+    the backbone computes it, and the zero edge on exactly the layers whose
+    next conv pads one row and column at the bottom right."""
+    from hse_facerec_torch.models import layers, mobilenet
+
+    rows = chip_smoke.bias_relu6_layers(size)
+    assert [r[0] for r in rows] == ["conv1"] + [f"{k}{i}" for i in range(1, 14)
+                                                for k in ("dw", "pw")]
+    h, c = -(-size // 2), 32
+    strides = [s for s, _ in mobilenet.MOBILENET_V1_BLOCKS] + [1]
+    for name, chw, edge in rows:
+        if name.startswith("dw"):
+            h = -(-h // strides[int(name[2:]) - 1])
+        elif name.startswith("pw"):
+            c = mobilenet.MOBILENET_V1_BLOCKS[int(name[2:]) - 1][1]
+        assert chw == (c, h, h), name
+        # the next conv's stride: the next block's depthwise conv after pw_i,
+        # stride 1 after conv1 (dw1) and after dw_i (pw_i)
+        nxt = strides[int(name[2:])] if name.startswith("pw") else 1
+        assert edge == layers.bottom_right_edge((1, c, h, h), (c, 1, 3, 3), nxt), name
+    assert sum(r[2] for r in rows) == 4
+
+
+class _Heads:
+    def forward(self, params, x):
+        return x.shape[0]
+
+
+@pytest.mark.parametrize("kind", ["method", "attribute"])
+def test_forwards_counted_counts_non_empty_forwards_and_restores(kind):
+    """The smoke's forward counter: the calls on a non-empty batch inside
+    the block, each passed through, and the method or instance attribute
+    put back after it."""
+    obj = _Heads()
+    if kind == "attribute":
+        obj.forward = lambda params, x: -x.shape[0]
+    before = obj.forward
+    with chip_smoke.forwards_counted(obj, "forward") as count:
+        assert obj.forward(None, torch.zeros(3, 2)) == (3 if kind == "method" else -3)
+        obj.forward(None, torch.zeros(0, 2))
+        obj.forward(None, x=torch.zeros(1, 2))
+    assert count == [2]
+    assert obj.forward == before and ("forward" in vars(obj)) == (kind == "attribute")
+
+
+@pytest.mark.parametrize("launched,forwards,per_forward,ok",
+                         [(54, 2, 27, True), (0, 3, 0, True), (27, 2, 27, False),
+                          (27, 1, 0, False)])
+def test_check_k7_launches(launched, forwards, per_forward, ok):
+    """A main path's K7 count is held to ``per_forward`` a forward, exactly."""
+    launches = {"bias_relu6": launched, "bn_act": 99}
+    if ok:
+        chip_smoke.check_k7_launches("path", launches, forwards, per_forward)
+    else:
+        with pytest.raises(AssertionError, match=f"path: {launched} K7 launches over "
+                                                 f"{forwards} forwards"):
+            chip_smoke.check_k7_launches("path", launches, forwards, per_forward)
