@@ -113,6 +113,16 @@ kernels are built for sm_90a). It:
      batch 256, as the ``vit-enroll`` cell runs it: exactly 96 K5 launches
      a call and no other kernel of the library, 4 rows against the CPU's
      extractor, the call timed;
+   - swin, in a child process: first K8 (windowed attention) against its
+     plain version in float64 at each shape of Swin-T's 12 launches a
+     256-face chunk (56² x 3 heads to 7² x 24, shifted and not), one launch
+     a call, timed beside its bound, its plain version and
+     ``F.scaled_dot_product_attention`` with the bias and mask as a float
+     ``attn_mask``; then ``build_extractor("swin_t_face")`` at full width
+     from the ``swin-enroll`` cell's seeded weights on 1,024 crops a call at
+     batch 256: exactly 48 K8 launches a call, no other kernel of the
+     library and no ``torch.roll``, 4 rows against the CPU's extractor,
+     the call timed;
    - K2b/K2c at D 4096 (16 and 8192 x 1,048,576 probes): the probe tile
      (16 resident; 128 streamed beside the gallery), bit-equality with
      the twin, ms, T int8 ops/s and the share of the bound beside the
@@ -198,6 +208,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -211,6 +222,7 @@ from hse_facerec_torch.models.int8_infer import (block_int8, multihead_apply_int
 from hse_facerec_torch.models.mobilenet import MOBILENET_V1_BLOCKS, init_mobilenet_params
 from hse_facerec_torch.models.mtcnn import import_mtcnn_params
 from hse_facerec_torch.models.multihead import import_multihead_params, multihead_apply
+from hse_facerec_torch.models.swin import shift_of
 from hse_facerec_torch.native import rankorder
 from hse_facerec_torch.ops.kernels import build, kernel_launches, reset_launches
 from hse_facerec_torch.ops.kernels import attention
@@ -245,7 +257,9 @@ from hse_facerec_torch.testing import (BmpAlbumOrganizer, bmp_bytes, decode_bmp,
 from hse_facerec_torch.train import age_gender, face_id
 from hse_facerec_torch.train.augment import AugmentConfig, sample_affine
 from hse_facerec_torch.train.checkpoints import flatten
+from perfbench import swin as perf_swin
 from perfbench.flops import bound_s
+from perfbench.spec import Benchmark
 from perfbench.trace import card_name_and_power_limit
 
 H, W = 480, 640
@@ -380,6 +394,14 @@ K7_PER_FORWARD = 27
 # show a fault in K5; relative L2 of VIT_CPU_ROWS rows against the CPU's
 VIT_BATCH, VIT_CALL, VIT_REPEATS = 256, 1024, 3
 VIT_QK_SCALE, VIT_CPU_ROWS, VIT_CPU_RTOL = 3.6, 4, 1e-4
+# K8 (windowed attention) and the Swin-T embedder as the swin-enroll cell
+# runs them: batch 256, 1,024 crops a call, the cell's seeded weights. K8
+# against its plain version in float64 at each (R, heads, shift) of a
+# chunk's 12 launches, the error relative to the output or 1 (the softmax
+# runs online in float32, its sums in another order); relative L2 of
+# SWIN_CPU_ROWS rows against the CPU's extractor
+SWIN_CONFIG, SWIN_BATCH, SWIN_CALL, SWIN_REPEATS = "swin-t-face", 256, 1024, 3
+WINATTN_RTOL, SWIN_CPU_ROWS, SWIN_CPU_RTOL = 1e-5, 4, 1e-4
 # face-ID training at the JAX bench's configuration (bench.py:399)
 TRAIN_CLASSES, TRAIN_BATCH, TRAIN_SIZE = 9131, 256, 224
 TRAIN_WARMUP, TRAIN_STEPS, LEARN_STEPS = 2, 5, 10
@@ -3394,6 +3416,174 @@ def vit_path(rng):
     return launches, numbers
 
 
+def swin_config() -> dict:
+    """The swin-enroll cell's configuration (``perfbench/configs``)."""
+    return Benchmark(Path(__file__).resolve().parent).config(SWIN_CONFIG)
+
+
+def window_launches(cfg: dict) -> list:
+    """(map side R, heads, shift) of each K8 launch of one Swin forward, in
+    launch order: one a block."""
+    return [(r, heads, shift_of(i, r, cfg["window_size"]))
+            for depth, r, _, heads, _ in perf_swin.stages(cfg) for i in range(depth)]
+
+
+def window_sdpa(qkv, heads: int, shift: int, bias):
+    """``F.scaled_dot_product_attention`` on the map's 7 x 7 windows, rolled
+    and partitioned by torch, with the bias and the shifted windows' -100
+    mask as one float ``attn_mask``: the library yardstick for K8. Returns
+    the call (the roll and copies made once, outside it) and its output
+    put back in the map's order, (B, R, R, H·D)."""
+    b, r, _, width = qkv.shape
+    w, d = attention.WINDOW, width // (3 * heads)
+    n = r // w
+    x = torch.roll(qkv, (-shift, -shift), (1, 2)) if shift else qkv
+    x = x.reshape(b, n, w, n, w, 3, heads, d).permute(5, 0, 1, 3, 6, 2, 4, 7)
+    q, k, v = x.reshape(3, b, n * n, heads, w * w, d).contiguous().unbind(0)
+    mask = bias.expand(n * n, heads, w * w, w * w).clone()
+    if shift:
+        labels = attention.region_labels(r, w, shift).to(qkv.device)
+        mask += torch.where(labels[:, :, None] != labels[:, None, :],
+                            attention.MASK_VALUE, 0.0)[:, None]
+
+    def call():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    o = call().reshape(b, n, n, heads, w, w, d).permute(0, 1, 4, 2, 5, 3, 6)
+    o = o.reshape(b, r, r, heads * d)
+    return call, torch.roll(o, (shift, shift), (1, 2)) if shift else o
+
+
+def check_window_attention_kernel():
+    """K8 against ``window_attention_plain`` in float64 at each distinct
+    (R, heads, shift) of Swin-T's 12 launches a chunk, at the swin-enroll
+    cell's batch ``SWIN_BATCH``: each call counted from 0 (exactly one
+    launch, no other kernel of the library) and within ``WINATTN_RTOL`` of
+    it relative to the output or 1. Each shape is timed a call with CUDA
+    events and by its kernel's device time under ``torch.profiler`` (one
+    kernel a call), beside its bound (``perfbench.swin.
+    window_attention_work``: q, k and v read and the output written at
+    3.35 TB/s, or 4 x 49 x C operations a token at the f32 peak), the plain
+    version in f32 and ``window_sdpa``. Returns the sums over one chunk's
+    12 launches and each shape's numbers."""
+    cfg = swin_config()
+    w, d = attention.WINDOW, attention.WINDOW_HEAD_DIM
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 149)
+    rows, worst = {}, 0.0
+    for (r, h, shift), (ops, moved) in zip(window_launches(cfg),
+                                           perf_swin.window_attention_work(cfg, SWIN_BATCH)):
+        name = f"{SWIN_BATCH}x{r}x{r}x{h} shift {shift}"
+        if name in rows:
+            rows[name]["per_chunk"] += 1
+            continue
+        qkv = torch.randn((SWIN_BATCH, r, r, 3 * h * d), generator=gen, device="cuda") * 1.5
+        bias = torch.randn((h, w * w, w * w), generator=gen, device="cuda")
+
+        def k8():
+            return attention.window_attention(qkv, h, w, shift, bias)
+        reset_launches()
+        got = k8()
+        launches = kernel_launches()
+        want = attention.window_attention_plain(qkv.double(), h, w, shift, bias.double())
+        err = float(((got.double() - want).abs() / want.abs().clamp_min(1.0)).max())
+        worst = max(worst, err)
+        if launches["window_attention"] != 1 or sum(launches.values()) != 1:
+            raise AssertionError(f"window_attention {name}: launches {launches}, not one K8")
+        if not err <= WINATTN_RTOL:
+            raise AssertionError(f"window_attention {name}: max rel err {err} > {WINATTN_RTOL}")
+        ms = cuda_ms(k8, 20)
+        dev_ms, kernels = device_ms_per_call(k8, 10, "k8_window_attention")
+        if kernels != 1:
+            raise AssertionError(f"window_attention {name}: {kernels} K8 kernels a call")
+        plain_ms = cuda_ms(lambda: attention.window_attention_plain(qkv, h, w, shift, bias), 5, 1)
+        lib_call, lib_out = window_sdpa(qkv, h, shift, bias)
+        lib_ms = cuda_ms(lib_call, 20)
+        lib_err = float(((lib_out.double() - want).abs() / want.abs().clamp_min(1.0)).max())
+        b_ms, b_by = bound(moved, ops, "f32")
+        rows[name] = {"max_rel_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "library_max_rel_err": lib_err,
+                      "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / dev_ms,
+                      "per_chunk": 1}
+        print(f"window_attention {name}: max_rel_err={err:.3g} a call {ms:.4f} ms, "
+              f"device_ms={dev_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) {b_ms / dev_ms:.3f} of "
+              f"the bound; plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (max_rel_err "
+              f"{lib_err:.3g})")
+        del qkv, bias, got, want, lib_call, lib_out
+    torch.cuda.empty_cache()
+    chunk = {key: sum(row["per_chunk"] * row[key] for row in rows.values())
+             for key in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")}
+    chunk["launches_per_chunk"] = sum(row["per_chunk"] for row in rows.values())
+    share = chunk["bound_ms"] / chunk["device_ms"]
+    print(f"window_attention per {SWIN_BATCH}-face chunk: {chunk['launches_per_chunk']} "
+          f"launches, device {chunk['device_ms']:.3f} ms (calls {chunk['ms']:.3f}), plain "
+          f"{chunk['plain_ms']:.3f}, sdpa {chunk['library_ms']:.3f}, bound "
+          f"{chunk['bound_ms']:.3f} ({share:.3f})")
+    return {**chunk, "max_rel_err": worst, "bound_by": "bytes", "share_of_bound": share,
+            "shape": f"Swin-T's 12 launches of one {SWIN_BATCH}-face chunk, f32",
+            "shapes": rows}
+
+
+def swin_path(rng):
+    """The Swin-T embedder on the ``swin-enroll`` cell's path at full width:
+    ``zoo.build_extractor("swin_t_face")`` from the cell's seeded weights
+    (``perfbench.swin.weights``), ``extract_batch`` of ``SWIN_CALL`` crops
+    at ``SWIN_BATCH``. After a warm-up call the counters are set to 0 and
+    one call must launch exactly one K8 a block and chunk (48 a call) and no
+    other kernel of the library, and call no ``torch.roll``;
+    ``SWIN_CPU_ROWS`` of its rows against the CPU's extractor from the same
+    weights; then the call timed. Returns (launches, numbers)."""
+    cfg = swin_config()
+    params = perf_swin.weights(cfg, SEED + 151, "cuda")
+    ex = zoo.build_extractor("swin_t_face", batch_size=SWIN_BATCH, device="cuda",
+                             params=params)
+    imgs = np.stack(smooth_images(rng, SWIN_CALL, ex.input_size))
+    ex.extract_batch(imgs)
+    torch.cuda.synchronize()
+    rolls, real_roll = [], torch.roll
+
+    def counted_roll(*args, **kwargs):
+        rolls.append(args[1:])
+        return real_roll(*args, **kwargs)
+    torch.roll = counted_roll
+    try:
+        reset_launches()
+        feats = ex.extract_batch(imgs)
+        launches = kernel_launches()
+    finally:
+        torch.roll = real_roll
+    want = len(window_launches(cfg)) * -(-SWIN_CALL // SWIN_BATCH)
+    others = {k: n for k, n in launches.items() if n and k != "window_attention"}
+    if launches["window_attention"] != want or others or rolls:
+        raise AssertionError(f"swin: launches {launches} and {len(rolls)} torch.roll calls, "
+                             f"not {want} K8 and none")
+    if feats.shape != (SWIN_CALL, cfg["embedding_dim"]) or not np.all(np.isfinite(feats)):
+        raise AssertionError(f"swin: malformed embeddings {feats.shape}")
+    cpu = zoo.build_extractor("swin_t_face", batch_size=SWIN_CPU_ROWS, device="cpu",
+                              params=params).extract_batch(imgs[:SWIN_CPU_ROWS])
+    rel = np.linalg.norm(feats[:SWIN_CPU_ROWS] - cpu, axis=1) / np.linalg.norm(cpu, axis=1)
+    spread = float(np.abs(feats @ feats.T - np.eye(SWIN_CALL)).max())
+    print(f"swin: {SWIN_CALL} crops at batch {SWIN_BATCH}, launches {json.dumps(launches)}, "
+          f"no torch.roll; card against CPU on {SWIN_CPU_ROWS} rows: relative L2 "
+          f"{float(rel.max()):.3g}; largest |cosine| between two crops {spread:.4f}")
+    if not rel.max() <= SWIN_CPU_RTOL:
+        raise AssertionError(f"swin: card against CPU {rel.max()} > {SWIN_CPU_RTOL}")
+    ms = median_ms(lambda: ex.extract_batch(imgs), SWIN_REPEATS)
+    numbers = {"ms": ms, "faces_per_s": SWIN_CALL * 1e3 / ms, "cpu_rel_l2": float(rel.max()),
+               "k8_per_call": launches["window_attention"]}
+    print(f"swin: median {ms:.1f} ms a call = {numbers['faces_per_s']:.1f} faces/s over "
+          f"{SWIN_REPEATS} calls")
+    del ex
+    torch.cuda.empty_cache()
+    return launches, numbers
+
+
+def swin_phase() -> dict:
+    """``check_window_attention_kernel`` then ``swin_path``, in one child
+    process (``apart``): K8's profiled calls and the Swin-T embedder."""
+    kernel = check_window_attention_kernel()
+    launches, numbers = swin_path(np.random.RandomState(SEED + 153))
+    return {"kernel": kernel, "launches": launches, "path": numbers}
+
+
 def train_batch_np(rng, n: int, size: int, n_classes: int):
     """Seeded synthetic images in [-1, 1] and labels, on the host."""
     x = rng.rand(n, size, size, 3).astype(np.float32) * 2 - 1
@@ -4633,6 +4823,9 @@ def main() -> None:
     vit_launches, vit = vit_path(np.random.RandomState(SEED + 139))
     path_launches.append(vit_launches)
     phase_done("ViT-L embed")
+    swin = apart("cs.swin_phase()", "K8 checks and Swin-T embed")
+    path_launches.append(swin["launches"])
+    phase_done("K8 checks and Swin-T embed")
     # K4 at the shapes vgg2_mobilenet_int8 gives it (192², the zoo's batch)
     pw_192 = check_pw_kernel_apart(SEED + 6, ZOO_BATCH, 10, 2, size=192)
     torch.cuda.empty_cache()
@@ -4733,6 +4926,12 @@ def main() -> None:
         "launches": launches["attention"], "mesh_launches": mesh_total["attention"],
         "launches_per_vit_call": vit_launches["attention"], **attn_result})
     kernels.append({
+        "name": "window_attention", "route": "cuda",
+        "source": "hse_facerec_torch/csrc/attention.cu", "replaces": None,
+        "launches": launches["window_attention"],
+        "mesh_launches": mesh_total["window_attention"],
+        "launches_per_swin_call": swin["launches"]["window_attention"], **swin["kernel"]})
+    kernels.append({
         "name": "bn_act", "route": "cuda",
         "source": "hse_facerec_torch/csrc/bn_act.cu", "replaces": None,
         "launches": launches["bn_act"], "mesh_launches": mesh_total["bn_act"],
@@ -4756,6 +4955,7 @@ def main() -> None:
                                     for b, r in utk.items()}))
     print("zoo 512-d and 4096-d: " + json.dumps(new_zoo))
     print("vit: " + json.dumps(vit))
+    print("swin: " + json.dumps(swin["path"]))
     print("age/gender train: " + json.dumps(ag_train))
     print("age_gender cuda vs cpu: " + json.dumps(ag_parity))
     print("align: " + json.dumps(aligned))

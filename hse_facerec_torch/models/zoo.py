@@ -40,6 +40,9 @@ ARCFACE_NPZ = os.environ.get(
 # arcface_torch's ViT-L, trained on WebFace42M: a PyTorch checkpoint that
 # the port does not import yet, so the entry always builds seeded weights.
 VIT_L_CHECKPOINT = "arcface_torch's WebFace42M vit_l checkpoint (not imported)"
+# A Swin-T face embedder (SwinFace's 2x2 stem on the 112² crop): no trained
+# weights are in the repository, so the entry always builds seeded weights.
+SWIN_T_CHECKPOINT = "a trained Swin-T face checkpoint (not in the repository)"
 # keras_vggface VGG16 weights (rcmalli_vggface_tf_vgg16.h5 — external blob,
 # downloaded by keras_vggface in the reference's environment).
 VGGFACE_VGG16_H5 = os.environ.get(
@@ -122,6 +125,12 @@ def _vit_embed(params, x, precision="highest"):
     from .vit import vit_embed
 
     return vit_embed(params, x, precision=precision)
+
+
+def _swin_embed(params, x, precision="highest"):
+    from .swin import swin_embed
+
+    return swin_embed(params, x, precision=precision)
 
 
 def _vgg16_embed(params, x, precision="highest"):
@@ -230,6 +239,21 @@ def _vit_to_torch(params, device):
     return to_torch(params, device)
 
 
+def _swin_t_params():
+    """Seeded in the source's initialisation: no trained Swin-T face
+    weights are in the repository."""
+    from .swin import SWIN_T, init_swin_params
+
+    _warn_random_init("swin_t_face", SWIN_T_CHECKPOINT)
+    return init_swin_params(_seed0(), **SWIN_T)
+
+
+def _swin_to_torch(params, device):
+    from .swin import to_torch
+
+    return to_torch(params, device)
+
+
 def _vgg16_params():
     from .vgg16 import init_vgg16_params, vgg16_params_from_h5
 
@@ -274,6 +298,13 @@ MODEL_ZOO: Dict[str, ModelSpec] = {
         "insightface_vit_l", (112, 112), "none", "cv2_linear", 512,
         _vit_l_params, _at(_vit_embed),
         extractor_kwargs={"l2_normalize_output": True, "convert": _vit_to_torch}),
+    # Swin-T (microsoft/Swin-Transformer) with SwinFace's 2x2 stem: 112² RGB
+    # 0-255 in (the model scales it), 56² tokens of 96, stages of (2, 2, 6,
+    # 2) blocks, shifted-window attention on K8; L2-normalized 512-d output
+    "swin_t_face": ModelSpec(
+        "swin_t_face", (112, 112), "none", "cv2_linear", 512,
+        _swin_t_params, _at(_swin_embed),
+        extractor_kwargs={"l2_normalize_output": True, "convert": _swin_to_torch}),
     # the int8 serving variants (models/int8_infer.py, pointwise layers on
     # K4); same preprocessing and protocols as their f32 bases
     "agegender_identity_int8": ModelSpec(
@@ -318,7 +349,8 @@ def weights_origin(name: str) -> str:
              "vggface_resnet50": (VGGFACE_RESNET50_H5,),
              "insightface_arcface": (ARCFACE_NPZ,),
              "vggface_vgg16": (VGGFACE_VGG16_H5,),
-             "insightface_vit_l": ()}[name]
+             "insightface_vit_l": (),
+             "swin_t_face": ()}[name]
     return "imported" if any(os.path.exists(f) for f in files) else "random"
 
 

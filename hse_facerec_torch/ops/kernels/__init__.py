@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels' wrappers (K1 ``crop``, K2 ``knn``, K3
 ``warp``, K4 ``pw_conv``, K5 ``attention``, K6 ``bn_act``, K7
-``bias_relu6``) and their launch counters.
+``bias_relu6``, K8 ``window_attention``) and their launch counters.
 
 Each wrapper adds one to its ``launches`` where it launches its kernel and
 nowhere else; ``kernel_launches`` reads every counter and
@@ -23,6 +23,7 @@ def _wrappers() -> Dict[str, object]:
             "pw_conv_int8": pw_conv.pw_conv_int8,
             "warp_batch": warp.warp_batch,
             "attention": attention.attention,
+            "window_attention": attention.window_attention,
             "bn_act": bn_act.bn_act,
             "bias_relu6": bn_act.bias_relu6}
 

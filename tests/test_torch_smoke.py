@@ -4,7 +4,8 @@ the smoke reads in ms and the benchmark's cells in seconds), and the smoke's
 K2 check, that K2b and K2c are bit-equal to the int8 twin in both
 epilogues. On CPU tensors the kernels' wrappers take their plain twins, so
 the check passes exactly, and a planted fault in one kernel's answer fails
-it naming that kernel and epilogue.
+it naming that kernel and epilogue. Also the tables the K7 and K8 phases
+walk, the K8 phase's library yardstick, and the K7 launch counts.
 """
 
 import json
@@ -15,8 +16,8 @@ import pytest
 import torch
 
 import chip_smoke
-from hse_facerec_torch.ops.kernels import knn
-from perfbench import flops, vit
+from hse_facerec_torch.ops.kernels import attention, knn
+from perfbench import flops, swin, vit
 from perfbench.flops import HBM_BYTES_PER_S, PEAK_OPS, bound_s
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -160,3 +161,32 @@ def test_check_k7_launches(launched, forwards, per_forward, ok):
         with pytest.raises(AssertionError, match=f"path: {launched} K7 launches over "
                                                  f"{forwards} forwards"):
             chip_smoke.check_k7_launches("path", launches, forwards, per_forward)
+
+
+def test_window_launches_are_swin_ts_blocks():
+    """The smoke's K8 table: one launch a block of the swin-enroll cell's
+    Swin-T, in order, the odd blocks shifted by 3 while the map holds more
+    than one window, beside the benchmark's work of each launch."""
+    cfg = chip_smoke.swin_config()
+    rows = chip_smoke.window_launches(cfg)
+    assert rows == ([(56, 3, 0), (56, 3, 3), (28, 6, 0), (28, 6, 3)]
+                    + [(14, 12, 0), (14, 12, 3)] * 3 + [(7, 24, 0)] * 2)
+    work = swin.window_attention_work(cfg, 1)
+    assert [nbytes for _, nbytes in work] == [16.0 * 32 * h * r * r for r, h, _ in rows]
+
+
+@pytest.mark.parametrize("shape", [(2, 14, 2, 3), (1, 7, 3, 0), (2, 21, 1, 3)], ids=str)
+def test_window_sdpa_is_window_attention_plain(shape):
+    """The smoke's library yardstick for K8 (``F.scaled_dot_product_attention``
+    on torch's windows with the bias and mask as a float ``attn_mask``),
+    put back in the map's order, computes K8's function: within 1e-5 of
+    ``window_attention_plain`` in float32 (the two scale at different
+    points and sum in different orders)."""
+    b, r, h, shift = shape
+    gen = torch.Generator().manual_seed(5)
+    qkv = torch.randn(b, r, r, 3 * h * 32, generator=gen) * 1.5
+    bias = torch.randn(h, 49, 49, generator=gen)
+    _, got = chip_smoke.window_sdpa(qkv, h, shift, bias)
+    want = attention.window_attention_plain(qkv, h, 7, shift, bias)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
